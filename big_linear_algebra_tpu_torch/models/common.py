@@ -1,0 +1,138 @@
+"""Shared model-program scaffolding, the counterpart of
+``big_linear_algebra_tpu/models/common.py``: CLI verbs, strict flags,
+profiling.
+
+≈ the reference's per-model ``main(argc, argv)`` dispatchers
+(model/mnist_nn.c:512-536: verbs ``init | train <epochs> | run [n]``).
+Flags every model understands: ``--device=cuda|cpu`` (default ``cuda``; the
+port's counterpart of the JAX package's backend choice — it never moves to
+the CPU on its own) and ``--profile[=DIR]`` (a ``torch.profiler`` trace).
+``--debug-nans`` and ``--disable-jit`` are not ported yet and are rejected,
+never ignored.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import sys
+import tempfile
+from pathlib import Path
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+
+def data_dir() -> Path:
+    """Root data directory (reference uses relative ``data/``; override with
+    BLA_DATA_DIR)."""
+    return Path(os.environ.get("BLA_DATA_DIR", "data"))
+
+
+@contextlib.contextmanager
+def maybe_profile(enabled: bool, logdir: str = ""):
+    """``torch.profiler`` trace of the verb, written as a Chrome/Perfetto
+    trace to ``<logdir>/trace.json``. ``--profile`` uses a directory under
+    the temporary directory; ``--profile=DIR`` overrides it."""
+    if not enabled:
+        yield
+        return
+    logdir = logdir or os.path.join(tempfile.gettempdir(), "bla_profile")
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    Path(logdir).mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    print(f"profile written to {logdir}", flush=True)
+
+
+def parse_flags(argv: List[str]):
+    """Split ``--key[=value]`` flags from positional args."""
+    pos, flags = [], {}
+    for a in argv:
+        if a.startswith("--"):
+            k, _, v = a[2:].partition("=")
+            flags[k] = v
+        else:
+            pos.append(a)
+    return pos, flags
+
+
+# Flags every model CLI understands; per-model extras via run_cli's
+# ``extra_flags``. Unknown flags are a hard error — silently accepting a flag
+# a model ignores is worse than rejecting it.
+_BASE_FLAGS = frozenset({"profile", "device"})
+
+# JAX-package flags with no port yet: rejected with the reason.
+_NOT_PORTED = {
+    "debug-nans": "not ported yet (ROADMAP Queue 1 item 10: utils/debug.py)",
+    "disable-jit": "not ported yet (ROADMAP Queue 1 item 10: utils/debug.py)",
+}
+
+
+def device_flag(flags) -> torch.device:
+    """``--device=cuda|cpu`` (default ``cuda``). ``cuda`` without a usable
+    GPU raises: the program never falls back to the CPU on its own."""
+    name = (flags or {}).get("device") or "cuda"
+    if name not in ("cuda", "cpu"):
+        raise ValueError(f"--device must be cuda or cpu, got {name!r}")
+    if name == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device=cuda but no CUDA device is available; "
+                           "pass --device=cpu to run on the CPU")
+    return torch.device(name)
+
+
+def run_cli(prog: str,
+            init_fn: Callable[..., Optional[int]],
+            train_fn: Callable[..., Optional[int]],
+            run_fn: Callable[..., Optional[int]],
+            argv: Optional[List[str]] = None,
+            train_usage: str = "train <num epochs>",
+            run_usage: str = "run [<num predictions>]",
+            extra_flags=(),
+            unsupported_flags: Optional[Dict[str, str]] = None) -> int:
+    """Dispatch the reference CLI verbs. Flags are passed to the verb
+    functions via the ``flags`` keyword. ``unsupported_flags`` maps a flag
+    name to the reason it is rejected for this model. A verb may return a
+    non-zero exit code."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    pos, flags = parse_flags(argv)
+    usage = (f"Please supply an argument, options:\n\t{run_usage}\n\t"
+             f"{train_usage}\n\tinit\n")
+    if not pos:
+        print(usage)
+        return 1
+    allowed = _BASE_FLAGS | set(extra_flags)
+    rejected = {**_NOT_PORTED, **(unsupported_flags or {})}
+    for k in flags:
+        if k in rejected:
+            print(f"--{k} is not supported by {prog}: {rejected[k]}")
+            return 1
+        if k not in allowed:
+            print(f"Unrecognized flag --{k}; {prog} accepts: "
+                  + " ".join(f"--{f}" for f in sorted(allowed)))
+            return 1
+    verb = pos[0]
+    try:
+        if verb.startswith("run"):
+            n = int(pos[1]) if len(pos) > 1 else -1
+            extra = [int(p) for p in pos[2:]]
+            with maybe_profile("profile" in flags, flags.get("profile", "")):
+                rc = run_fn(n, *extra, flags=flags)
+        elif verb.startswith("train"):
+            if len(pos) < 2:
+                print(f"Please supply a number of epochs, usage:\n\t{train_usage}\n")
+                return 1
+            with maybe_profile("profile" in flags, flags.get("profile", "")):
+                rc = train_fn(int(pos[1]), *pos[2:], flags=flags)
+        elif verb.startswith("init"):
+            rc = init_fn(flags=flags)
+        else:
+            print(f"Unrecognized argument, options:\n\t{run_usage}\n\t"
+                  f"{train_usage}\n\tinit\n")
+            return 1
+    except BrokenPipeError:  # pragma: no cover
+        return 0
+    return rc or 0

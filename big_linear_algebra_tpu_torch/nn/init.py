@@ -1,0 +1,22 @@
+"""Parameter initializers, the counterpart of
+``big_linear_algebra_tpu/nn/init.py``.
+
+Every draw takes an explicit ``torch.Generator``. PyTorch's and JAX's
+generators give different numbers from the same seed: the distributions match
+the JAX package's, the values do not.
+
+- ``he_uniform``: U(−√(6/fan_in), +√(6/fan_in)) — model/mnist_nn.c:97-142.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def he_uniform(shape, fan_in: int, generator: torch.Generator,
+               dtype=torch.float32, device=None) -> torch.Tensor:
+    limit = math.sqrt(6.0 / fan_in)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    return out.uniform_(-limit, limit, generator=generator)
