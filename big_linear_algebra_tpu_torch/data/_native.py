@@ -56,6 +56,11 @@ def lib():
     handle.bla_csv_write.argtypes = [
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_float),
         ctypes.c_long, ctypes.c_long]
+    handle.bla_bmp_write.restype = ctypes.c_int
+    handle.bla_bmp_write.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int, ctypes.c_int]
     _lib = handle
     return _lib
 
@@ -90,4 +95,26 @@ def csv_write(path: str, data: np.ndarray) -> bool:
     )
     if rc != 0:
         raise IOError(f"native CSV write failed: {path}")
+    return True
+
+
+def bmp_write(path: str, red: np.ndarray, green: np.ndarray,
+              blue: np.ndarray, width: int, height: int) -> bool:
+    """Native 24-bit BMP write of three (height, width) uint8 planes; False
+    if the native library is unavailable."""
+    handle = lib()
+    if handle is None:
+        return False
+    r = np.ascontiguousarray(red, dtype=np.uint8)
+    g = np.ascontiguousarray(green, dtype=np.uint8)
+    b = np.ascontiguousarray(blue, dtype=np.uint8)
+    rc = handle.bla_bmp_write(
+        path.encode(),
+        r.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        g.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        b.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        width, height,
+    )
+    if rc != 0:
+        raise IOError(f"native BMP write failed: {path}")
     return True

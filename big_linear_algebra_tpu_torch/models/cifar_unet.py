@@ -1,0 +1,652 @@
+"""cifar_unet: the DDPM noise-prediction U-Net (≈ model/cifar_unet.c), the
+counterpart of ``big_linear_algebra_tpu/models/cifar_unet.py``.
+
+Architecture (model/cifar_unet.c:26-37,1099-1165): 4 resolutions with embed
+dims 128/256/256/256; per resolution two resnet blocks (GN→ReLU→conv3×3 →
++time-dense → GN→ReLU→dropout→conv3×3, plus a 1×1-conv residual when the
+channels change); self-attention (key_dim 16) after each resnet at
+resolution 2 on the down and up paths and between the mid resnets;
+strided-conv downsample; nearest ×2 upsample with a channel-matching conv
+only when dims differ (:1130-1133); skip concatenation ``[h, skip]`` from
+each down level; output GN→ReLU→conv3×3 → 3 channels. The up_3 wiring is
+the JAX package's fixed one (SURVEY.md §7.2).
+
+Ported so far: the serving path.
+- ``init``: He/Xavier-uniform parameters from a ``torch.Generator`` seeded
+  with ``Config.seed``, written as the reference CSV tree — the files the
+  JAX package reads and writes.
+- ``run [n]``: DDPM ancestral sampling (Ho et al. alg. 2) of n images to
+  ``samples/sample_<i>.bmp``. Its draws come from a ``torch.Generator`` on
+  the model's device seeded with ``--sample-seed`` (Philox on a GPU); JAX's
+  rbg/threefry streams are not reproduced.
+At ``--image-size=64`` the four attention sites at resolution 2 (down_2 and
+up_3) see 32×32 = 1024 tokens and run the flash kernel (K2,
+``csrc/flash_attn.cu``); everything else is plain torch (cuDNN convs,
+cuBLAS products), as the JAX package leaves it to XLA.
+
+``train`` is not ported yet (it needs the flash backward K2c/K2d, Adam, the
+CIFAR loader and the train_state checkpoints); its flags and the parallel
+modes are rejected with their reason. Activations are NCHW and parameters
+the JAX package's nested dict, with the same keys and layouts.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+from pathlib import Path
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from big_linear_algebra_tpu_torch.data import bmp as bmp_io
+from big_linear_algebra_tpu_torch.data.cifar10 import chw_to_pixels
+from big_linear_algebra_tpu_torch.data.csv import (
+    read_csv_matrix,
+    write_csv_matrix,
+)
+from big_linear_algebra_tpu_torch.models import common
+from big_linear_algebra_tpu_torch.nn.attention import self_attention_block
+from big_linear_algebra_tpu_torch.nn.conv import conv2d
+from big_linear_algebra_tpu_torch.nn.dropout import dropout
+from big_linear_algebra_tpu_torch.nn.init import he_uniform, xavier_uniform
+from big_linear_algebra_tpu_torch.nn.norm import group_norm
+from big_linear_algebra_tpu_torch.ops.activations import relu
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    image_size: int = 32                      # IMAGE_HEIGHT/WIDTH, :26-27
+    in_channels: int = 3
+    embed_dims: tuple = (128, 256, 256, 256)  # RESOLUTION_N_EMBED_DIM, :29-32
+    time_embed_dim: int = 512                 # TIME_EMBED_DIM, :33
+    kernel_size: int = 3                      # KERNEL_SIZE, :34
+    group_size: int = 32                      # GROUP_SIZE, :35
+    key_dim: int = 16                         # SELF_ATTENTION_KEY_DIM, :36
+    dropout_rate: float = 0.1                 # DROPOUT_RATE, :37
+    resize_stride: int = 2                    # RESIZE_STRIDE, :28
+    # DDPM schedule (Ho et al. 2020 defaults)
+    timesteps: int = 1000
+    beta_start: float = 1e-4
+    beta_end: float = 0.02
+    seed: int = 42
+    # the JAX package's mixed precision: f32 stored parameters, bf16
+    # activations and weights inside the network; "float32" is the
+    # full-precision mode and "float64" the CPU parity mode
+    compute_dtype: str = "bfloat16"
+    # stored-parameter dtype; "bfloat16" with --bf16-params
+    param_dtype: str = "float32"
+
+
+CONFIG = Config()
+# Tiny config for CPU tests and fast smoke runs
+TINY = Config(embed_dims=(8, 12, 12, 12), time_embed_dim=16, group_size=4,
+              key_dim=4, timesteps=8, image_size=32,
+              compute_dtype="float32")
+
+
+def ckpt_dir() -> Path:
+    return common.data_dir() / "cifar_unet"
+
+
+def _tree_map(fn: Callable[[Any], Any], tree):
+    """``fn`` over the leaves of a nested dict, keeping its structure."""
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def _init_resnet(gen, in_ch, out_ch, cfg: Config) -> Params:
+    k = cfg.kernel_size
+    return {
+        "conv_1": he_uniform((out_ch, in_ch, k, k), k * k * in_ch, gen),
+        "conv_2": he_uniform((out_ch, out_ch, k, k), k * k * out_ch, gen),
+        "conv_3": he_uniform((out_ch, in_ch, 1, 1), in_ch, gen),
+        "time_w": he_uniform((cfg.time_embed_dim, out_ch),
+                             cfg.time_embed_dim, gen),
+        "time_b": torch.zeros((out_ch,), dtype=torch.float32),
+    }
+
+
+def _init_attn(gen, ch, cfg: Config) -> Params:
+    kd = cfg.key_dim
+    return {
+        "q": xavier_uniform((ch, kd), ch, kd, gen),
+        "k": xavier_uniform((ch, kd), ch, kd, gen),
+        "v": he_uniform((ch, kd), ch, gen),
+        "w": he_uniform((kd, ch), kd, gen),
+        "b": torch.zeros((ch,), dtype=torch.float32),
+    }
+
+
+def init_params(generator: torch.Generator, cfg: Config = CONFIG) -> Params:
+    """The JAX package's tree and distributions (He-uniform with fan_in =
+    k²·C_in for convs, Xavier-uniform for q/k, zero biases), drawn on the
+    CPU from ``generator``, cast to ``cfg.param_dtype``."""
+    d1, d2, d3, d4 = cfg.embed_dims
+    k = cfg.kernel_size
+    g = generator
+
+    def down_conv(f, c):
+        return he_uniform((f, c, k, k), k * k * c, g)
+
+    p: Params = {
+        "down_1": {
+            "resnet_1": _init_resnet(g, cfg.in_channels, d1, cfg),
+            "resnet_2": _init_resnet(g, d1, d1, cfg),
+            "conv": down_conv(d2, d1),
+        },
+        "down_2": {
+            "resnet_1": _init_resnet(g, d2, d2, cfg),
+            "attn_1": _init_attn(g, d2, cfg),
+            "resnet_2": _init_resnet(g, d2, d2, cfg),
+            "attn_2": _init_attn(g, d2, cfg),
+            "conv": down_conv(d3, d2),
+        },
+        "down_3": {
+            "resnet_1": _init_resnet(g, d3, d3, cfg),
+            "resnet_2": _init_resnet(g, d3, d3, cfg),
+            "conv": down_conv(d4, d3),
+        },
+        "down_4": {
+            "resnet_1": _init_resnet(g, d4, d4, cfg),
+            "resnet_2": _init_resnet(g, d4, d4, cfg),
+        },
+        "mid": {
+            "resnet_1": _init_resnet(g, d4, d4, cfg),
+            "attn": _init_attn(g, d4, cfg),
+            "resnet_2": _init_resnet(g, d4, d4, cfg),
+        },
+        "up_1": {
+            "resnet_1": _init_resnet(g, 2 * d4, d4, cfg),
+            "resnet_2": _init_resnet(g, d4, d4, cfg),
+            "conv": down_conv(d3, d4),
+        },
+        "up_2": {
+            "resnet_1": _init_resnet(g, 2 * d3, d3, cfg),
+            "resnet_2": _init_resnet(g, d3, d3, cfg),
+            "conv": down_conv(d2, d3),
+        },
+        "up_3": {
+            "resnet_1": _init_resnet(g, 2 * d2, d2, cfg),
+            "attn_1": _init_attn(g, d2, cfg),
+            "resnet_2": _init_resnet(g, d2, d2, cfg),
+            "attn_2": _init_attn(g, d2, cfg),
+            "conv": down_conv(d1, d2),
+        },
+        "up_4": {
+            "resnet_1": _init_resnet(g, 2 * d1, d1, cfg),
+            "resnet_2": _init_resnet(g, d1, d1, cfg),
+        },
+        "output_conv": down_conv(cfg.in_channels, d1),
+    }
+    return cast_params(p, cfg)
+
+
+def cast_params(params: Params, cfg: Config) -> Params:
+    """Round a parameter tree to ``cfg.param_dtype``."""
+    pdt = getattr(torch, cfg.param_dtype)
+    return _tree_map(lambda a: a.to(pdt), params)
+
+
+def params_from_jax(np_tree) -> Params:
+    """The JAX package's parameter tree (numpy arrays, same keys and
+    layouts) as the port's CPU tensors, dtype kept. Arrays from JAX are
+    read-only, so each is copied."""
+    return _tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)),
+                     np_tree)
+
+
+# ---------------------------------------------------------------------------
+# Reference CSV checkpoint tree
+# ---------------------------------------------------------------------------
+
+
+def _kernels_to_rows(k: np.ndarray) -> np.ndarray:
+    """(F, C, kh, kw) → (F·C, kh·kw) — the reference _save_conv_kernels
+    layout (row i·C+j = kernel [f=i][c=j], model/cifar_unet.c:1520-1538)."""
+    f, c, kh, kw = k.shape
+    return np.asarray(k).reshape(f * c, kh * kw)
+
+
+def _rows_to_kernels(rows: np.ndarray, f, c, kh, kw) -> np.ndarray:
+    return rows.reshape(f, c, kh, kw)
+
+
+_ATTN_FILES = {"q": "query.csv", "k": "key.csv", "v": "value.csv",
+               "w": "weight.csv"}
+
+
+def _csv_tree(params: Params) -> Dict[str, np.ndarray]:
+    """{relative file: 2-D f32 array} of the reference CSV tree."""
+    arrays: Dict[str, np.ndarray] = {}
+    p = _tree_map(lambda a: a.detach().to("cpu", torch.float32).numpy(),
+                  params)
+
+    def resnet(r, prefix):
+        for i in (1, 2, 3):
+            arrays[f"{prefix}/conv_{i}.csv"] = _kernels_to_rows(r[f"conv_{i}"])
+        arrays[f"{prefix}/time_weight.csv"] = r["time_w"]
+        arrays[f"{prefix}/time_bias.csv"] = r["time_b"].reshape(1, -1)
+
+    def attn(a, prefix):
+        for key, fname in _ATTN_FILES.items():
+            arrays[f"{prefix}/{fname}"] = a[key]
+        arrays[f"{prefix}/bias.csv"] = a["b"].reshape(1, -1)
+
+    for side in ("down", "up"):
+        for lvl in (1, 2, 3, 4):
+            grp = p[f"{side}_{lvl}"]
+            resnet(grp["resnet_1"], f"{side}_{lvl}/resnet_1")
+            resnet(grp["resnet_2"], f"{side}_{lvl}/resnet_2")
+            if "conv" in grp:
+                arrays[f"{side}_{lvl}/conv_0.csv"] = _kernels_to_rows(
+                    grp["conv"])
+            if "attn_1" in grp:
+                attn(grp["attn_1"], f"{side}_{lvl}/self_attention_1")
+                attn(grp["attn_2"], f"{side}_{lvl}/self_attention_2")
+        if side == "down":
+            resnet(p["mid"]["resnet_1"], "mid/resnet_1")
+            attn(p["mid"]["attn"], "mid/self_attention_0")
+            resnet(p["mid"]["resnet_2"], "mid/resnet_2")
+    arrays["output_conv.csv"] = _kernels_to_rows(p["output_conv"])
+    return arrays
+
+
+def save_params_csv(params: Params, cfg: Config = CONFIG,
+                    base: Path | None = None) -> None:
+    """Write the reference CSV tree (``%f`` text of the f32 values, the same
+    bytes as the JAX package's writer)."""
+    base = base or ckpt_dir()
+    for rel, arr in _csv_tree(params).items():
+        write_csv_matrix(str(base / rel), arr)
+
+
+def load_params_csv(cfg: Config = CONFIG,
+                    base: Path | None = None) -> Params:
+    """Read the reference CSV tree written for ``cfg``. ``exact=True``: a
+    tree written by another configuration (a full-size checkpoint read
+    under --tiny) is a hard error, not a file prefix read as weights."""
+    base = base or ckpt_dir()
+    d1, d2, d3, d4 = cfg.embed_dims
+    k = cfg.kernel_size
+    kd = cfg.key_dim
+
+    def mat(rel, rows, cols):
+        return torch.from_numpy(read_csv_matrix(str(base / rel), rows, cols,
+                                                exact=True))
+
+    def kernels(rel, f, c, kh, kw):
+        return mat(rel, f * c, kh * kw).reshape(f, c, kh, kw)
+
+    def resnet(prefix, in_ch, out_ch):
+        return {
+            "conv_1": kernels(f"{prefix}/conv_1.csv", out_ch, in_ch, k, k),
+            "conv_2": kernels(f"{prefix}/conv_2.csv", out_ch, out_ch, k, k),
+            "conv_3": kernels(f"{prefix}/conv_3.csv", out_ch, in_ch, 1, 1),
+            "time_w": mat(f"{prefix}/time_weight.csv", cfg.time_embed_dim,
+                          out_ch),
+            "time_b": mat(f"{prefix}/time_bias.csv", 1, out_ch)[0],
+        }
+
+    def attn(prefix, ch):
+        out = {key: mat(f"{prefix}/{fname}", *((kd, ch) if key == "w"
+                                                 else (ch, kd)))
+               for key, fname in _ATTN_FILES.items()}
+        out["b"] = mat(f"{prefix}/bias.csv", 1, ch)[0]
+        return out
+
+    p = {
+        "down_1": {"resnet_1": resnet("down_1/resnet_1", cfg.in_channels, d1),
+                   "resnet_2": resnet("down_1/resnet_2", d1, d1),
+                   "conv": kernels("down_1/conv_0.csv", d2, d1, k, k)},
+        "down_2": {"resnet_1": resnet("down_2/resnet_1", d2, d2),
+                   "attn_1": attn("down_2/self_attention_1", d2),
+                   "resnet_2": resnet("down_2/resnet_2", d2, d2),
+                   "attn_2": attn("down_2/self_attention_2", d2),
+                   "conv": kernels("down_2/conv_0.csv", d3, d2, k, k)},
+        "down_3": {"resnet_1": resnet("down_3/resnet_1", d3, d3),
+                   "resnet_2": resnet("down_3/resnet_2", d3, d3),
+                   "conv": kernels("down_3/conv_0.csv", d4, d3, k, k)},
+        "down_4": {"resnet_1": resnet("down_4/resnet_1", d4, d4),
+                   "resnet_2": resnet("down_4/resnet_2", d4, d4)},
+        "mid": {"resnet_1": resnet("mid/resnet_1", d4, d4),
+                "attn": attn("mid/self_attention_0", d4),
+                "resnet_2": resnet("mid/resnet_2", d4, d4)},
+        "up_1": {"resnet_1": resnet("up_1/resnet_1", 2 * d4, d4),
+                 "resnet_2": resnet("up_1/resnet_2", d4, d4),
+                 "conv": kernels("up_1/conv_0.csv", d3, d4, k, k)},
+        "up_2": {"resnet_1": resnet("up_2/resnet_1", 2 * d3, d3),
+                 "resnet_2": resnet("up_2/resnet_2", d3, d3),
+                 "conv": kernels("up_2/conv_0.csv", d2, d3, k, k)},
+        "up_3": {"resnet_1": resnet("up_3/resnet_1", 2 * d2, d2),
+                 "attn_1": attn("up_3/self_attention_1", d2),
+                 "resnet_2": resnet("up_3/resnet_2", d2, d2),
+                 "attn_2": attn("up_3/self_attention_2", d2),
+                 "conv": kernels("up_3/conv_0.csv", d1, d2, k, k)},
+        "up_4": {"resnet_1": resnet("up_4/resnet_1", 2 * d1, d1),
+                 "resnet_2": resnet("up_4/resnet_2", d1, d1)},
+        "output_conv": kernels("output_conv.csv", cfg.in_channels, d1, k, k),
+    }
+    return cast_params(p, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def time_embedding(t: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """Sinusoidal timestep embedding (Ho et al. 2020 §B) → ReLU, (B, dim).
+    Internals in f32 (f64 in the f64 parity mode, where an f32 seed here
+    would perturb the whole net by ~1e-7 and the GN chain amplify it)."""
+    half = cfg.time_embed_dim // 2
+    dt = torch.float64 if cfg.compute_dtype == "float64" else torch.float32
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=dt, device=t.device)
+                      / max(half - 1, 1))
+    ang = t.to(dt)[:, None] * freqs[None, :]
+    return relu(torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1))
+
+
+def _gn_relu(x: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """The GN→ReLU pair every reference block opens with
+    (model/cifar_unet.c:1046-1047)."""
+    return relu(group_norm(x, cfg.group_size))
+
+
+def _resnet_block(x, temb, p, cfg: Config) -> torch.Tensor:
+    """GN→ReLU→conv3×3 → +time → GN→ReLU→dropout→conv3×3 + residual
+    (``_forward_resnet``, model/cifar_unet.c:1044-1072). Dropout is off
+    (``deterministic``): the port runs the network only to sample."""
+    td = temb @ p["time_w"] + p["time_b"]                # (B, out)
+    h = conv2d(_gn_relu(x, cfg), p["conv_1"], 1)
+    h = h + td[:, :, None, None]
+    h = _gn_relu(h, cfg)
+    h = dropout(h, cfg.dropout_rate, None, deterministic=True)
+    h = conv2d(h, p["conv_2"], 1)
+    same = x.shape[1] == p["conv_1"].shape[0]
+    return h + (x if same else conv2d(x, p["conv_3"], 1))
+
+
+def _upsample(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """Nearest-neighbour ×stride (``_nearest_neighbours``,
+    model/cifar_unet.c:1074-1086)."""
+    return x.repeat_interleave(stride, dim=2).repeat_interleave(stride, dim=3)
+
+
+def _down_stage(params, x, temb, cfg: Config):
+    """Down path (model/cifar_unet.c:1103-1118): the four skip activations
+    (skip_4 is also the mid stage's input)."""
+    s = cfg.resize_stride
+
+    def block(h, p):
+        return _resnet_block(h, temb, p, cfg)
+
+    h = block(x, params["down_1"]["resnet_1"])
+    skip_1 = block(h, params["down_1"]["resnet_2"])
+    h = conv2d(skip_1, params["down_1"]["conv"], s)
+
+    h = block(h, params["down_2"]["resnet_1"])
+    h = self_attention_block(h, params["down_2"]["attn_1"])
+    h = block(h, params["down_2"]["resnet_2"])
+    skip_2 = self_attention_block(h, params["down_2"]["attn_2"])
+    h = conv2d(skip_2, params["down_2"]["conv"], s)
+
+    h = block(h, params["down_3"]["resnet_1"])
+    skip_3 = block(h, params["down_3"]["resnet_2"])
+    h = conv2d(skip_3, params["down_3"]["conv"], s)
+
+    h = block(h, params["down_4"]["resnet_1"])
+    skip_4 = block(h, params["down_4"]["resnet_2"])
+    return skip_1, skip_2, skip_3, skip_4
+
+
+def _mid_stage(params, skip_4, temb, cfg: Config):
+    """Mid: resnet → attention → resnet (model/cifar_unet.c:1121-1123)."""
+    h = _resnet_block(skip_4, temb, params["mid"]["resnet_1"], cfg)
+    h = self_attention_block(h, params["mid"]["attn"])
+    return _resnet_block(h, temb, params["mid"]["resnet_2"], cfg)
+
+
+def _up_stage(params, h, skips, temb, cfg: Config):
+    """Up path + output head (model/cifar_unet.c:1126-1165): ``[h, skip]``
+    concatenated along channels (:1088-1097), the channel-matching conv only
+    when dims differ, the §7.2 up_3 wiring fixed."""
+    skip_1, skip_2, skip_3, skip_4 = skips
+    s = cfg.resize_stride
+    d1, d2, d3, d4 = cfg.embed_dims
+
+    def block(h, p):
+        return _resnet_block(h, temb, p, cfg)
+
+    h = torch.cat([h, skip_4], dim=1)
+    h = block(h, params["up_1"]["resnet_1"])
+    h = block(h, params["up_1"]["resnet_2"])
+    h = _upsample(h, s)
+    if d4 != d3:
+        h = conv2d(h, params["up_1"]["conv"], 1)
+
+    h = torch.cat([h, skip_3], dim=1)
+    h = block(h, params["up_2"]["resnet_1"])
+    h = block(h, params["up_2"]["resnet_2"])
+    h = _upsample(h, s)
+    if d3 != d2:
+        h = conv2d(h, params["up_2"]["conv"], 1)
+
+    h = torch.cat([h, skip_2], dim=1)
+    h = block(h, params["up_3"]["resnet_1"])
+    h = self_attention_block(h, params["up_3"]["attn_1"])
+    h = block(h, params["up_3"]["resnet_2"])
+    h = self_attention_block(h, params["up_3"]["attn_2"])  # §7.2 fixed
+    h = _upsample(h, s)
+    if d2 != d1:
+        h = conv2d(h, params["up_3"]["conv"], 1)
+
+    h = torch.cat([h, skip_1], dim=1)
+    h = block(h, params["up_4"]["resnet_1"])
+    h = block(h, params["up_4"]["resnet_2"])
+
+    # Output (:1163-1165)
+    return conv2d(_gn_relu(h, cfg), params["output_conv"], 1)
+
+
+def forward(params: Params, x: torch.Tensor, t: torch.Tensor,
+            cfg: Config = CONFIG) -> torch.Tensor:
+    """Full U-Net forward (≈ ``forward``, model/cifar_unet.c:1099-1165).
+    x: (B, 3, H, W) in [−1, 1]; t: (B,) timesteps. Params and x are cast to
+    ``cfg.compute_dtype`` (a no-op for leaves already in it); the output is
+    in that dtype. Inference only: dropout is off."""
+    dt = getattr(torch, cfg.compute_dtype)
+    params = _tree_map(lambda p: p if p.dtype == dt else p.to(dt), params)
+    x = x.to(dt)
+    temb = time_embedding(t, cfg).to(dt)
+    skips = _down_stage(params, x, temb, cfg)
+    h = _mid_stage(params, skips[3], temb, cfg)
+    return _up_stage(params, h, skips, temb, cfg)
+
+
+# ---------------------------------------------------------------------------
+# DDPM sampling
+# ---------------------------------------------------------------------------
+
+
+def ddpm_schedule(cfg: Config) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Linear β schedule (f32, CPU): (betas, alphas, alpha_bars)."""
+    betas = torch.linspace(cfg.beta_start, cfg.beta_end, cfg.timesteps,
+                           dtype=torch.float32)
+    alphas = 1.0 - betas
+    return betas, alphas, torch.cumprod(alphas, dim=0)
+
+
+def ddpm_update(x: torch.Tensor, eps: torch.Tensor, t: int,
+                z: torch.Tensor, schedule) -> torch.Tensor:
+    """One ancestral step x_t → x_{t−1} (the JAX sampler's loop body):
+    mean = (x − β/√(1−ᾱ)·ε)/√α, plus √β·z except at t = 0. The
+    coefficients are computed in f32 on the host, as the JAX body computes
+    them from f32 schedule scalars."""
+    betas, alphas, alpha_bars = schedule
+    beta, alpha, ab = betas[t], alphas[t], alpha_bars[t]
+    mean = (x - float(beta / torch.sqrt(1.0 - ab)) * eps) \
+        / float(torch.sqrt(alpha))
+    return mean + float(torch.sqrt(beta)) * z if t > 0 else mean
+
+
+def sample(params: Params, generator: torch.Generator, cfg: Config = CONFIG,
+           num_samples: int = 1) -> torch.Tensor:
+    """DDPM ancestral sampling (Ho et al. alg. 2) → (n, 3, S, S) f32 in
+    [−1, 1], on the device of ``params`` and ``generator``. The initial
+    noise and every step's z are drawn from ``generator``."""
+    device = generator.device
+    dt = getattr(torch, cfg.compute_dtype)
+    params = _tree_map(lambda p: p.to(device, dt), params)  # cast once
+    schedule = ddpm_schedule(cfg)
+    shape = (num_samples, cfg.in_channels, cfg.image_size, cfg.image_size)
+    x = torch.randn(shape, generator=generator, device=device)
+    with torch.inference_mode():
+        for i in range(cfg.timesteps):
+            t = cfg.timesteps - 1 - i
+            tb = torch.full((num_samples,), t, dtype=torch.int32,
+                            device=device)
+            eps = forward(params, x, tb, cfg).float()
+            z = torch.randn(shape, generator=generator, device=device)
+            x = ddpm_update(x, eps, t, z, schedule)
+    return x.clamp(-1.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# CLI verbs
+# ---------------------------------------------------------------------------
+
+_STEP_RE = re.compile(r"^step_(\d+)$")
+
+
+def _newer_train_state(csv_file: Path) -> Optional[Path]:
+    """The newest complete ``train_state/step_<n>`` directory when it is
+    newer than the CSV tree (or the tree is missing), else None — the JAX
+    package's ``_params_for_run`` would sample from it."""
+    state_dir = ckpt_dir() / "train_state"
+    if not state_dir.is_dir():
+        return None
+    steps = [(int(m.group(1)), p) for p in state_dir.iterdir()
+             if (m := _STEP_RE.match(p.name)) and p.is_dir()
+             and any(p.iterdir())]
+    if not steps:
+        return None
+    step_dir = max(steps)[1]
+    if not csv_file.is_file():
+        return step_dir
+    mtime = max((p.stat().st_mtime for p in step_dir.rglob("*")),
+                default=step_dir.stat().st_mtime)
+    return step_dir if mtime > csv_file.stat().st_mtime else None
+
+
+def _params_for_run(cfg: Config) -> Params:
+    """The CSV tree. Where the JAX package would sample from a newer orbax
+    ``train_state`` instead, this raises: the port cannot read one yet, and
+    sampling from the older CSV tree would serve stale weights silently."""
+    csv_file = ckpt_dir() / "output_conv.csv"
+    state = _newer_train_state(csv_file)
+    if state is not None:
+        raise RuntimeError(
+            f"{state} is newer than the CSV tree in {ckpt_dir()}: the JAX "
+            "package would sample from it, and the port cannot read orbax "
+            "train states yet (ROADMAP Queue 1 item 8, ckpt/pytree.py)")
+    return load_params_csv(cfg)
+
+
+def _cfg_from_flags(flags) -> Config:
+    flags = flags or {}
+    cfg = TINY if common.presence_flag(flags, "tiny") else CONFIG
+    if "layout" in flags and str(flags["layout"]).upper() != "NCHW":
+        # NHWC is rejected by main() with its reason
+        raise ValueError(
+            f"--layout must be NCHW or NHWC, got {flags['layout']!r}")
+    if "image-size" in flags:
+        size = common.positive_int_flag(flags, "image-size")
+        if size % 32:
+            # the model needs a multiple of 8 (three stride-2 stages); the
+            # JAX CLI's data path also upscales the fixed 32x32 records
+            raise ValueError(
+                f"--image-size must be a multiple of 32, got {size}")
+        cfg = dataclasses.replace(cfg, image_size=size)
+    if common.presence_flag(flags, "bf16-params"):
+        cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
+    return cfg
+
+
+def init(flags=None) -> None:
+    cfg = _cfg_from_flags(flags)
+    params = init_params(torch.Generator().manual_seed(cfg.seed), cfg)
+    save_params_csv(params, cfg)
+    print(f"initialized parameters in {ckpt_dir()}")
+
+
+def train(num_epochs: int, *args, flags=None) -> int:
+    print("cifar_unet train is not ported to PyTorch yet (it needs the flash "
+          "backward K2c/K2d, Adam, the CIFAR loader and train_state "
+          "checkpoints); use big_linear_algebra_tpu.models.cifar_unet")
+    return 1
+
+
+def run(num_predictions: int = 1, flags=None) -> None:
+    """Sample images and write BMPs (the reference's intended ``run``)."""
+    flags = flags or {}
+    cfg = _cfg_from_flags(flags)
+    seed = common.int_flag(flags, "sample-seed", default=0,
+                           minimum=-(2 ** 62))
+    device = common.device_flag(flags)
+    # -1 = the reference's "whole set" convention → one sample here
+    n = 1 if num_predictions < 1 else num_predictions
+    params = _params_for_run(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    imgs = sample(params, gen, cfg, n).cpu().numpy()
+    out_dir = ckpt_dir() / "samples"
+    for i in range(n):
+        pix = chw_to_pixels(imgs[i]).reshape(3, cfg.image_size,
+                                             cfg.image_size)
+        # flip rows: BMP renders bottom-up (lib/cifar10.c:19-30)
+        path = out_dir / f"sample_{i}.bmp"
+        bmp_io.write_bmp(str(path), pix[0][::-1], pix[1][::-1], pix[2][::-1])
+        print(f"wrote {path}")
+
+
+_TRAIN_ONLY = "train is not ported yet"
+_PARALLEL = "the parallel modes are not ported yet (ROADMAP Queue 1 item 11)"
+
+
+def main(argv=None) -> int:
+    return common.run_cli(
+        "cifar_unet", init, train, run, argv=argv,
+        train_usage="train <num epochs>",
+        run_usage="run [<num samples> (default 1)]",
+        extra_flags=("tiny", "image-size", "sample-seed", "bf16-params",
+                     "layout"),
+        unsupported_flags={
+            "layout=NHWC": "the channels-last twins are not ported yet "
+                           "(ROADMAP: one code path on torch.channels_last)",
+            "prng": "the port draws from torch.Generator (Philox on the "
+                    "GPU); rbg/threefry are JAX's generators",
+            "fused-block": "the fused resnet-block kernel (K5) is not "
+                           "ported yet",
+            **{f: _PARALLEL for f in ("dp", "tp", "pp", "pp-micro",
+                                      "pp-schedule")},
+            **{f: _TRAIN_ONLY for f in ("batch", "remat", "max-steps",
+                                        "scan-steps", "host-loop",
+                                        "scan-unroll", "keep", "keep-best",
+                                        "jsonl")},
+        })
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

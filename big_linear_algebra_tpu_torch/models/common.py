@@ -72,6 +72,54 @@ _NOT_PORTED = {
 }
 
 
+def positive_int_flag(flags, name: str) -> int:
+    """Parse ``--name=N`` as a positive int; a bare ``--name`` (empty value)
+    or a non-positive value is a hard error — same policy as unknown flags
+    (silently falling back to a default would run another configuration
+    than the one asked for)."""
+    raw = flags.get(name, "")
+    try:
+        value = int(raw)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"--{name} needs an integer value, e.g. --{name}=64 "
+            f"(got {raw!r})") from None
+    if value <= 0:
+        raise ValueError(f"--{name} must be positive, got {value}")
+    return value
+
+
+def int_flag(flags, name: str, default: int, minimum: int) -> int:
+    """Parse ``--name=N`` as an int ≥ ``minimum`` when present, else
+    ``default``. A bare ``--name`` or an out-of-range value is a hard
+    error, as in positive_int_flag."""
+    if name not in flags:
+        return default
+    raw = flags.get(name, "")
+    try:
+        value = int(raw)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"--{name} needs an integer value, e.g. --{name}={default or 1} "
+            f"(got {raw!r})") from None
+    if value < minimum:
+        raise ValueError(f"--{name} must be >= {minimum}, got {value}")
+    return value
+
+
+def presence_flag(flags, name: str) -> bool:
+    """A flag that is either absent or bare (``--name``). A value
+    (``--name=false``) is a hard error — silently enabling it on
+    ``--name=false`` would invert the user's intent."""
+    if name not in flags:
+        return False
+    if flags[name] != "":
+        raise ValueError(
+            f"--{name} takes no value; pass a bare --{name} to enable it "
+            f"(got --{name}={flags[name]!r})")
+    return True
+
+
 def device_flag(flags) -> torch.device:
     """``--device=cuda|cpu`` (default ``cuda``). ``cuda`` without a usable
     GPU raises: the program never falls back to the CPU on its own."""
@@ -95,8 +143,9 @@ def run_cli(prog: str,
             unsupported_flags: Optional[Dict[str, str]] = None) -> int:
     """Dispatch the reference CLI verbs. Flags are passed to the verb
     functions via the ``flags`` keyword. ``unsupported_flags`` maps a flag
-    name to the reason it is rejected for this model. A verb may return a
-    non-zero exit code."""
+    name, or ``name=VALUE`` for one value of an accepted flag (matched
+    case-insensitively), to the reason it is rejected for this model. A verb
+    may return a non-zero exit code."""
     argv = list(sys.argv[1:] if argv is None else argv)
     pos, flags = parse_flags(argv)
     usage = (f"Please supply an argument, options:\n\t{run_usage}\n\t"
@@ -106,10 +155,12 @@ def run_cli(prog: str,
         return 1
     allowed = _BASE_FLAGS | set(extra_flags)
     rejected = {**_NOT_PORTED, **(unsupported_flags or {})}
-    for k in flags:
-        if k in rejected:
-            print(f"--{k} is not supported by {prog}: {rejected[k]}")
-            return 1
+    for k, v in flags.items():
+        for spelled in (k, f"{k}={v.upper()}"):
+            if spelled in rejected:
+                print(f"--{spelled} is not supported by {prog}: "
+                      f"{rejected[spelled]}")
+                return 1
         if k not in allowed:
             print(f"Unrecognized flag --{k}; {prog} accepts: "
                   + " ".join(f"--{f}" for f in sorted(allowed)))

@@ -1,7 +1,15 @@
-"""NN layers, losses and initializers (forward only so far)."""
+"""NN layers, losses and initializers (forward only so far).
+
+The U-Net layers live in their modules (``nn.norm``, ``nn.conv``,
+``nn.dropout``, ``nn.attention``) and are not re-exported here, so that
+``big_linear_algebra_tpu_torch.nn.attention`` always names the module (and
+its ``launch_count``), never a function."""
 
 from big_linear_algebra_tpu_torch.nn.dense import Dense, dense  # noqa: F401
-from big_linear_algebra_tpu_torch.nn.init import he_uniform  # noqa: F401
+from big_linear_algebra_tpu_torch.nn.init import (  # noqa: F401
+    he_uniform,
+    xavier_uniform,
+)
 from big_linear_algebra_tpu_torch.nn.losses import (  # noqa: F401
     LOSS_EPSILON,
     softmax_cross_entropy,

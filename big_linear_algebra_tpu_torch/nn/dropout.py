@@ -1,0 +1,24 @@
+"""Dropout, the counterpart of ``big_linear_algebra_tpu/nn/dropout.py``
+(≈ ``_dropout``, model/cifar_unet.c:1032-1042).
+
+Inverted dropout as in the JAX package: survivors are scaled by 1/(1−p), so
+eval needs no scaling. The mask comes from an explicit ``torch.Generator`` on
+x's device; its bits differ from the JAX package's keys, the distribution is
+the same.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator],
+            deterministic: bool = False) -> torch.Tensor:
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)

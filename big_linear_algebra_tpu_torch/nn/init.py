@@ -6,6 +6,8 @@ generators give different numbers from the same seed: the distributions match
 the JAX package's, the values do not.
 
 - ``he_uniform``: U(−√(6/fan_in), +√(6/fan_in)) — model/mnist_nn.c:97-142.
+- ``xavier_uniform``: U(−√6/√(fan_in+fan_out), +…) —
+  model/cifar_unet.c:1447-1454.
 """
 
 from __future__ import annotations
@@ -18,5 +20,13 @@ import torch
 def he_uniform(shape, fan_in: int, generator: torch.Generator,
                dtype=torch.float32, device=None) -> torch.Tensor:
     limit = math.sqrt(6.0 / fan_in)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    return out.uniform_(-limit, limit, generator=generator)
+
+
+def xavier_uniform(shape, fan_in: int, fan_out: int,
+                   generator: torch.Generator, dtype=torch.float32,
+                   device=None) -> torch.Tensor:
+    limit = math.sqrt(6.0) / math.sqrt(float(fan_in + fan_out))
     out = torch.empty(shape, dtype=dtype, device=device)
     return out.uniform_(-limit, limit, generator=generator)

@@ -5,8 +5,9 @@ Kernels live in ``big_linear_algebra_tpu_torch/csrc/<name>.cu`` with a plain C
 interface. ``load_library(name)`` compiles one with ``nvcc`` for ``sm_90a``
 into ``build/torch_kernels/`` at the repository root on first use, keyed by a
 hash of the sources and flags (an edited source rebuilds; an unchanged one
-loads the cached library), and loads it with ctypes. Nothing is built when a
-module is imported, so the CPU tests import every module without a toolchain.
+loads the cached library), and loads it with ctypes; ``build(names)`` starts
+one nvcc per source at once. Nothing is built when a module is imported, so
+the CPU tests import every module without a toolchain.
 
 A build failure raises: there is no fallback to another implementation.
 """
@@ -20,6 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Iterable, List, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -55,24 +57,49 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{_source_hash(src)}.so"
 
 
+def _compile(name: str) -> Tuple[subprocess.Popen, List[str], Path, Path]:
+    """Start nvcc on ``csrc/<name>.cu`` into a temporary file; returns
+    (process, command, temporary path, library path)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = library_path(name)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, cmd, tmp, so
+
+
+def build(names: Iterable[str]) -> None:
+    """Build every ``csrc/<name>.cu`` of ``names`` that is not built yet,
+    one nvcc process per source, all started together; raises if any
+    build fails (after all have ended)."""
+    with _lock:
+        jobs = [_compile(name) for name in names
+                if not library_path(name).is_file()]
+        errors = []
+        for proc, cmd, tmp, so in jobs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"building {so.name} failed "
+                              f"({' '.join(cmd)}):\n{out}")
+            else:
+                # atomic: a concurrent loader sees all or none
+                os.replace(tmp, so)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+
+
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; raises on failure."""
+    """Build (if needed) and load ``csrc/<name>.cu``; raises on failure.
+    Once loaded, a library is returned without touching the source."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build([name])
     with _lock:
         if name in _libs:
             return _libs[name]
-        src = CSRC / f"{name}.cu"
-        so = library_path(name)
-        if not so.is_file():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"building {src.name} failed ({' '.join(cmd)}):\n"
-                    f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
-        lib = ctypes.CDLL(str(so))
+        lib = ctypes.CDLL(str(library_path(name)))
         lib.bla_cuda_error_string.restype = ctypes.c_char_p
         lib.bla_cuda_error_string.argtypes = [ctypes.c_int]
         _libs[name] = lib

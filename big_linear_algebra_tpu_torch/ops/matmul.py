@@ -29,7 +29,7 @@ from typing import Literal, Optional
 
 import torch
 
-from big_linear_algebra_tpu_torch.ops import cuda_utils
+from big_linear_algebra_tpu_torch.ops import cuda_utils, forward_only
 from big_linear_algebra_tpu_torch.ops.precision import accum_dtype
 
 # Below this many FLOPs the plain product is used (the JAX package's rule,
@@ -141,12 +141,7 @@ def _dispatch(a: torch.Tensor, b: torch.Tensor, variant: Variant,
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
     if activation not in (None, "relu"):
         raise ValueError(f"unsupported fused activation {activation!r}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (a, b, bias)):
-        raise RuntimeError(
-            f"matmul_{variant} is forward-only until its hand-written "
-            "backward is ported; call it under torch.no_grad() or "
-            "torch.inference_mode()")
+    forward_only.check(f"matmul_{variant}", a, b, bias)
     promoted = torch.result_type(a, b)
     if out_dtype is None:
         out_dtype = promoted

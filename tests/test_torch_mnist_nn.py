@@ -163,6 +163,12 @@ def test_port_imports_and_runs_without_jax():
         "with torch.inference_mode():\n"
         "    y = m(torch.rand(64, 784))\n"
         "assert y.shape == (64, 10) and torch.isfinite(y).all()\n"
+        "from big_linear_algebra_tpu_torch.models import cifar_unet as cu\n"
+        "cp = cu.init_params(torch.Generator().manual_seed(0), cu.TINY)\n"
+        "with torch.inference_mode():\n"
+        "    u = cu.forward(cp, torch.randn(1, 3, 32, 32), torch.tensor([3]),"
+        " cu.TINY)\n"
+        "assert u.shape == (1, 3, 32, 32) and torch.isfinite(u).all()\n"
         "assert not any(k == 'big_linear_algebra_tpu' or\n"
         "               k.startswith('big_linear_algebra_tpu.')\n"
         "               for k in sys.modules)\n"
