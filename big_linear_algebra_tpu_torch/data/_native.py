@@ -56,6 +56,10 @@ def lib():
     handle.bla_csv_write.argtypes = [
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_float),
         ctypes.c_long, ctypes.c_long]
+    handle.bla_cifar_read.restype = ctypes.c_long
+    handle.bla_cifar_read.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_long]
     handle.bla_bmp_write.restype = ctypes.c_int
     handle.bla_bmp_write.argtypes = [
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8),
@@ -96,6 +100,25 @@ def csv_write(path: str, data: np.ndarray) -> bool:
     if rc != 0:
         raise IOError(f"native CSV write failed: {path}")
     return True
+
+
+def cifar_read(path: str, max_examples: int = 10000):
+    """Native read of a CIFAR-10 binary batch → (labels uint8 (n,), pixels
+    uint8 (n, 3072)), or None if the native library is unavailable."""
+    handle = lib()
+    if handle is None:
+        return None
+    labels = np.empty(max_examples, dtype=np.uint8)
+    pixels = np.empty((max_examples, 3072), dtype=np.uint8)
+    n = handle.bla_cifar_read(
+        path.encode(),
+        labels.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        pixels.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        max_examples,
+    )
+    if n < 0:
+        raise FileNotFoundError(path)
+    return labels[:n].copy(), pixels[:n].copy()
 
 
 def bmp_write(path: str, red: np.ndarray, green: np.ndarray,

@@ -1,10 +1,10 @@
-"""Synthetic MNIST generation, the counterpart of
+"""Synthetic MNIST and CIFAR-10 generation, the counterpart of
 ``big_linear_algebra_tpu/data/synth.py`` (numpy only, ported as it is).
 
-The reference ships no data, so the framework synthesizes a learnable
-dataset in the exact reference on-disk format (MNIST CSV lines of 785
-values). For the same seed the files are byte-identical to the JAX
-package's. CIFAR synthesis comes with the U-Net.
+The reference ships no data, so the framework synthesizes learnable datasets
+in the exact reference on-disk formats (MNIST CSV lines of 785 values,
+CIFAR-10 3073-byte binary records). For the same seed the files are
+byte-identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -95,3 +95,66 @@ def ensure_mnist(data_dir: str, train_n: int = 8192, test_n: int = 2048,
               f" under {d}); place real MNIST CSVs there to train/eval on "
               "real data", flush=True)
     return str(train), str(test)
+
+
+def synth_cifar_examples(rng: np.random.Generator, n: int):
+    """n examples → (labels (n,), pixels uint8 (n, 3072) plane bytes).
+
+    Class-dependent 2-D sinusoid texture + random colored gradient + noise:
+    images with smooth statistics (sensible for the DDPM U-Net) and a
+    learnable label signal.
+    """
+    labels = rng.integers(0, 10, size=n)
+    yy, xx = np.mgrid[0:32, 0:32] / 32.0
+    pixels = np.zeros((n, 3, 32, 32), dtype=np.float32)
+    for i, d in enumerate(labels):
+        freq = 1 + int(d) % 5
+        phase = rng.uniform(0, 2 * np.pi)
+        base = 0.5 + 0.35 * np.sin(
+            2 * np.pi * freq * (xx * np.cos(phase) + yy * np.sin(phase))
+        )
+        color = rng.uniform(0.2, 1.0, size=3)
+        grad = (rng.uniform(-0.3, 0.3) * (xx - 0.5)
+                + rng.uniform(-0.3, 0.3) * (yy - 0.5))
+        for c in range(3):
+            img = color[c] * base + grad + rng.normal(0, 0.04, (32, 32))
+            pixels[i, c] = np.clip(img, 0, 1)
+    return (labels.astype(np.uint8),
+            np.round(pixels * 255).astype(np.uint8).reshape(n, 3072))
+
+
+def write_cifar_batch(path: str, rng: np.random.Generator,
+                      n: int = 10000) -> None:
+    """Write a CIFAR-10 binary batch file (3073-byte records,
+    lib/cifar10.c:6-11)."""
+    labels, pixels = synth_cifar_examples(rng, n)
+    records = np.concatenate([labels[:, None], pixels], axis=1)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_bytes(records.tobytes())
+
+
+def ensure_cifar(data_dir: str, n_batches: int = 5, per_batch: int = 2000,
+                 seed: int = 42):
+    """Return the CIFAR batch paths at the reference layout
+    ``<data_dir>/cifar/data_batch_{1..n}.bin`` (model/cifar_unet.c:1877-1882).
+
+    **Pre-existing batch files are always preferred and never overwritten**
+    — the real CIFAR-10 binary batches there make the run a real-data one.
+    Only absent batches are synthesized, loudly, each from its own stream
+    keyed by its index (a real/synthetic mix is flagged)."""
+    d = Path(data_dir) / "cifar"
+    paths = [d / f"data_batch_{i}.bin" for i in range(1, n_batches + 1)]
+    missing = [p for p in paths if not p.exists()]
+    if missing:
+        d.mkdir(parents=True, exist_ok=True)
+        for p in missing:
+            i = paths.index(p) + 1
+            write_cifar_batch(str(p), np.random.default_rng([seed, i]),
+                              per_batch)
+        note = (" (MIXED with pre-existing batches — results are not a "
+                "real-data run)" if len(missing) < len(paths) else "")
+        print(f"synthesized CIFAR batches "
+              f"({', '.join(p.name for p in missing)} under {d}){note}; "
+              "place the real CIFAR-10 binary batches there to train on "
+              "real data", flush=True)
+    return [str(p) for p in paths]

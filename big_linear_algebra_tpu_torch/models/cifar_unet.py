@@ -11,23 +11,31 @@ only when dims differ (:1130-1133); skip concatenation ``[h, skip]`` from
 each down level; output GN→ReLU→conv3×3 → 3 channels. The up_3 wiring is
 the JAX package's fixed one (SURVEY.md §7.2).
 
-Ported so far: the serving path.
+Verbs:
 - ``init``: He/Xavier-uniform parameters from a ``torch.Generator`` seeded
   with ``Config.seed``, written as the reference CSV tree — the files the
   JAX package reads and writes.
+- ``train <epochs>``: the DDPM simple loss (Ho et al. alg. 1), its gradient
+  through the hand-written backward of every layer, and Adam, one eager step
+  per batch of the CIFAR batches (synthesized when absent). bf16 compute
+  over f32 stored parameters by default. The train state (parameters, Adam
+  moments and step, the generator's state, the epoch) is saved each epoch
+  under ``train_state_torch/step_<n>/`` and resumed from there; the CSV
+  tree is written at exit.
 - ``run [n]``: DDPM ancestral sampling (Ho et al. alg. 2) of n images to
-  ``samples/sample_<i>.bmp``. Its draws come from a ``torch.Generator`` on
-  the model's device seeded with ``--sample-seed`` (Philox on a GPU); JAX's
-  rbg/threefry streams are not reproduced.
-At ``--image-size=64`` the four attention sites at resolution 2 (down_2 and
-up_3) see 32×32 = 1024 tokens and run the flash kernel (K2,
-``csrc/flash_attn.cu``); everything else is plain torch (cuDNN convs,
-cuBLAS products), as the JAX package leaves it to XLA.
+  ``samples/sample_<i>.bmp``, from the port's train state when it is newer
+  than the CSV tree.
+Every draw (DDPM noise and timesteps, dropout masks, sampling noise, the
+stochastic-rounding seeds of ``--bf16-params``) comes from one
+``torch.Generator`` on the model's device (Philox on a GPU); JAX's
+rbg/threefry streams are not reproduced, and the tests inject draws.
 
-``train`` is not ported yet (it needs the flash backward K2c/K2d, Adam, the
-CIFAR loader and the train_state checkpoints); its flags and the parallel
-modes are rejected with their reason. Activations are NCHW and parameters
-the JAX package's nested dict, with the same keys and layouts.
+At ``--image-size=64`` the four attention sites at resolution 2 (down_2 and
+up_3) see 32×32 = 1024 tokens and run the flash kernels (K2 forward,
+``csrc/flash_attn.cu``; K2c/K2d backward, ``csrc/flash_attn_bwd.cu``);
+everything else is plain torch (cuDNN convs, cuBLAS products), as the JAX
+package leaves it to XLA. Activations are NCHW and parameters the JAX
+package's nested dict, with the same keys and layouts.
 """
 
 from __future__ import annotations
@@ -35,24 +43,40 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
+import time
 from pathlib import Path
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from big_linear_algebra_tpu_torch.ckpt import pytree as ckpt_pytree
 from big_linear_algebra_tpu_torch.data import bmp as bmp_io
-from big_linear_algebra_tpu_torch.data.cifar10 import chw_to_pixels
+from big_linear_algebra_tpu_torch.data import synth
+from big_linear_algebra_tpu_torch.data.cifar10 import (
+    Cifar10Batches,
+    chw_to_pixels,
+    pixels_to_chw,
+)
 from big_linear_algebra_tpu_torch.data.csv import (
     read_csv_matrix,
     write_csv_matrix,
 )
+from big_linear_algebra_tpu_torch.data.prefetch import prefetch_to_device
 from big_linear_algebra_tpu_torch.models import common
 from big_linear_algebra_tpu_torch.nn.attention import self_attention_block
 from big_linear_algebra_tpu_torch.nn.conv import conv2d
 from big_linear_algebra_tpu_torch.nn.dropout import dropout
 from big_linear_algebra_tpu_torch.nn.init import he_uniform, xavier_uniform
+from big_linear_algebra_tpu_torch.nn.losses import mse_loss
 from big_linear_algebra_tpu_torch.nn.norm import group_norm
+from big_linear_algebra_tpu_torch.nn.optim import (
+    AdamState,
+    adam_init,
+    adam_update,
+    tree_leaves,
+    tree_map,
+)
 from big_linear_algebra_tpu_torch.ops.activations import relu
 
 Params = Dict[str, Any]
@@ -73,31 +97,27 @@ class Config:
     timesteps: int = 1000
     beta_start: float = 1e-4
     beta_end: float = 0.02
+    batch_size: int = 16
+    learn_rate: float = 2e-4
     seed: int = 42
     # the JAX package's mixed precision: f32 stored parameters, bf16
     # activations and weights inside the network; "float32" is the
     # full-precision mode and "float64" the CPU parity mode
     compute_dtype: str = "bfloat16"
-    # stored-parameter dtype; "bfloat16" with --bf16-params
+    # stored-parameter dtype; "bfloat16" with --bf16-params (Adam moments
+    # stay f32, writes use stochastic rounding)
     param_dtype: str = "float32"
 
 
 CONFIG = Config()
 # Tiny config for CPU tests and fast smoke runs
 TINY = Config(embed_dims=(8, 12, 12, 12), time_embed_dim=16, group_size=4,
-              key_dim=4, timesteps=8, image_size=32,
+              key_dim=4, timesteps=8, batch_size=2, image_size=32,
               compute_dtype="float32")
 
 
 def ckpt_dir() -> Path:
     return common.data_dir() / "cifar_unet"
-
-
-def _tree_map(fn: Callable[[Any], Any], tree):
-    """``fn`` over the leaves of a nested dict, keeping its structure."""
-    if isinstance(tree, Mapping):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 # ---------------------------------------------------------------------------
@@ -195,14 +215,14 @@ def init_params(generator: torch.Generator, cfg: Config = CONFIG) -> Params:
 def cast_params(params: Params, cfg: Config) -> Params:
     """Round a parameter tree to ``cfg.param_dtype``."""
     pdt = getattr(torch, cfg.param_dtype)
-    return _tree_map(lambda a: a.to(pdt), params)
+    return tree_map(lambda a: a.to(pdt), params)
 
 
 def params_from_jax(np_tree) -> Params:
     """The JAX package's parameter tree (numpy arrays, same keys and
     layouts) as the port's CPU tensors, dtype kept. Arrays from JAX are
     read-only, so each is copied."""
-    return _tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)),
+    return tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)),
                      np_tree)
 
 
@@ -229,7 +249,7 @@ _ATTN_FILES = {"q": "query.csv", "k": "key.csv", "v": "value.csv",
 def _csv_tree(params: Params) -> Dict[str, np.ndarray]:
     """{relative file: 2-D f32 array} of the reference CSV tree."""
     arrays: Dict[str, np.ndarray] = {}
-    p = _tree_map(lambda a: a.detach().to("cpu", torch.float32).numpy(),
+    p = tree_map(lambda a: a.detach().to("cpu", torch.float32).numpy(),
                   params)
 
     def resnet(r, prefix):
@@ -364,15 +384,16 @@ def _gn_relu(x: torch.Tensor, cfg: Config) -> torch.Tensor:
     return relu(group_norm(x, cfg.group_size))
 
 
-def _resnet_block(x, temb, p, cfg: Config) -> torch.Tensor:
+def _resnet_block(x, temb, p, cfg: Config, generator, train: bool):
     """GN→ReLU→conv3×3 → +time → GN→ReLU→dropout→conv3×3 + residual
-    (``_forward_resnet``, model/cifar_unet.c:1044-1072). Dropout is off
-    (``deterministic``): the port runs the network only to sample."""
+    (``_forward_resnet``, model/cifar_unet.c:1044-1072). In train mode the
+    dropout mask is drawn from ``generator``, so the blocks draw in the JAX
+    package's key order (down 0–7, mid 8–9, up 10–17)."""
     td = temb @ p["time_w"] + p["time_b"]                # (B, out)
     h = conv2d(_gn_relu(x, cfg), p["conv_1"], 1)
     h = h + td[:, :, None, None]
     h = _gn_relu(h, cfg)
-    h = dropout(h, cfg.dropout_rate, None, deterministic=True)
+    h = dropout(h, cfg.dropout_rate, generator, deterministic=not train)
     h = conv2d(h, p["conv_2"], 1)
     same = x.shape[1] == p["conv_1"].shape[0]
     return h + (x if same else conv2d(x, p["conv_3"], 1))
@@ -384,13 +405,13 @@ def _upsample(x: torch.Tensor, stride: int) -> torch.Tensor:
     return x.repeat_interleave(stride, dim=2).repeat_interleave(stride, dim=3)
 
 
-def _down_stage(params, x, temb, cfg: Config):
+def _down_stage(params, x, temb, cfg: Config, generator, train: bool):
     """Down path (model/cifar_unet.c:1103-1118): the four skip activations
     (skip_4 is also the mid stage's input)."""
     s = cfg.resize_stride
 
     def block(h, p):
-        return _resnet_block(h, temb, p, cfg)
+        return _resnet_block(h, temb, p, cfg, generator, train)
 
     h = block(x, params["down_1"]["resnet_1"])
     skip_1 = block(h, params["down_1"]["resnet_2"])
@@ -411,14 +432,16 @@ def _down_stage(params, x, temb, cfg: Config):
     return skip_1, skip_2, skip_3, skip_4
 
 
-def _mid_stage(params, skip_4, temb, cfg: Config):
+def _mid_stage(params, skip_4, temb, cfg: Config, generator, train: bool):
     """Mid: resnet → attention → resnet (model/cifar_unet.c:1121-1123)."""
-    h = _resnet_block(skip_4, temb, params["mid"]["resnet_1"], cfg)
+    h = _resnet_block(skip_4, temb, params["mid"]["resnet_1"], cfg,
+                      generator, train)
     h = self_attention_block(h, params["mid"]["attn"])
-    return _resnet_block(h, temb, params["mid"]["resnet_2"], cfg)
+    return _resnet_block(h, temb, params["mid"]["resnet_2"], cfg, generator,
+                         train)
 
 
-def _up_stage(params, h, skips, temb, cfg: Config):
+def _up_stage(params, h, skips, temb, cfg: Config, generator, train: bool):
     """Up path + output head (model/cifar_unet.c:1126-1165): ``[h, skip]``
     concatenated along channels (:1088-1097), the channel-matching conv only
     when dims differ, the §7.2 up_3 wiring fixed."""
@@ -427,7 +450,7 @@ def _up_stage(params, h, skips, temb, cfg: Config):
     d1, d2, d3, d4 = cfg.embed_dims
 
     def block(h, p):
-        return _resnet_block(h, temb, p, cfg)
+        return _resnet_block(h, temb, p, cfg, generator, train)
 
     h = torch.cat([h, skip_4], dim=1)
     h = block(h, params["up_1"]["resnet_1"])
@@ -461,22 +484,25 @@ def _up_stage(params, h, skips, temb, cfg: Config):
 
 
 def forward(params: Params, x: torch.Tensor, t: torch.Tensor,
-            cfg: Config = CONFIG) -> torch.Tensor:
+            cfg: Config = CONFIG, generator: Optional[torch.Generator] = None,
+            train: bool = False) -> torch.Tensor:
     """Full U-Net forward (≈ ``forward``, model/cifar_unet.c:1099-1165).
     x: (B, 3, H, W) in [−1, 1]; t: (B,) timesteps. Params and x are cast to
-    ``cfg.compute_dtype`` (a no-op for leaves already in it); the output is
-    in that dtype. Inference only: dropout is off."""
+    ``cfg.compute_dtype`` inside the autograd graph, so gradients arrive on
+    the stored parameters in their own dtype (f32 masters under bf16
+    compute); the output is in the compute dtype. ``train`` switches
+    dropout on, its masks drawn from ``generator``."""
     dt = getattr(torch, cfg.compute_dtype)
-    params = _tree_map(lambda p: p if p.dtype == dt else p.to(dt), params)
+    params = tree_map(lambda p: p if p.dtype == dt else p.to(dt), params)
     x = x.to(dt)
     temb = time_embedding(t, cfg).to(dt)
-    skips = _down_stage(params, x, temb, cfg)
-    h = _mid_stage(params, skips[3], temb, cfg)
-    return _up_stage(params, h, skips, temb, cfg)
+    skips = _down_stage(params, x, temb, cfg, generator, train)
+    h = _mid_stage(params, skips[3], temb, cfg, generator, train)
+    return _up_stage(params, h, skips, temb, cfg, generator, train)
 
 
 # ---------------------------------------------------------------------------
-# DDPM sampling
+# DDPM loss, training step, sampling
 # ---------------------------------------------------------------------------
 
 
@@ -487,6 +513,121 @@ def ddpm_schedule(cfg: Config) -> Tuple[torch.Tensor, torch.Tensor,
                            dtype=torch.float32)
     alphas = 1.0 - betas
     return betas, alphas, torch.cumprod(alphas, dim=0)
+
+
+def _ddpm_draws(x0: torch.Tensor, generator: torch.Generator,
+                cfg: Config) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The step's DDPM draws from ``generator`` on x0's device: timesteps
+    t ~ U{0, …, T−1} (B,) and noise ε ~ N(0, 1) in x0's shape and dtype."""
+    t = torch.randint(0, cfg.timesteps, (x0.shape[0],), generator=generator,
+                      device=x0.device)
+    noise = torch.randn(x0.shape, generator=generator, device=x0.device,
+                        dtype=x0.dtype)
+    return t, noise
+
+
+def _noised(x0: torch.Tensor, t: torch.Tensor, noise: torch.Tensor,
+            cfg: Config) -> torch.Tensor:
+    """x_t = √ᾱ_t·x₀ + √(1−ᾱ_t)·ε (the JAX package's ``_ddpm_draws``)."""
+    alpha_bars = ddpm_schedule(cfg)[2].to(x0.device)
+    ab = alpha_bars[t][:, None, None, None]
+    return torch.sqrt(ab) * x0 + torch.sqrt(1.0 - ab) * noise
+
+
+def loss_fn(params: Params, x0: torch.Tensor, t: torch.Tensor,
+            noise: torch.Tensor, cfg: Config = CONFIG,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """DDPM simple loss ‖ε − ε̂(√ᾱ_t·x₀ + √(1−ᾱ_t)·ε, t)‖², as a mean (the
+    reference's sum seed normalized like compute_mse_loss,
+    model/cifar_unet.c:1858), in ≥ f32. The draws t and ε are arguments, so
+    a test can feed the JAX package's; the train-mode forward's dropout
+    masks come from ``generator``."""
+    pred = forward(params, _noised(x0, t, noise, cfg), t, cfg,
+                   generator=generator, train=True)
+    acc = torch.promote_types(torch.float32, x0.dtype)
+    return mse_loss(pred.to(acc), noise.to(acc)) / math.prod(x0.shape)
+
+
+def _zero_if_none(grad, p):
+    return torch.zeros_like(p) if grad is None else grad
+
+
+def train_step(params: Params, opt_state: AdamState, x0: torch.Tensor,
+               generator: torch.Generator, cfg: Config = CONFIG,
+               draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """One step: the loss and its gradient with respect to every parameter,
+    then Adam. ``draws``: (t, noise) to use instead of drawing them from
+    ``generator``. With ``--bf16-params`` the stochastic-rounding seed of
+    the Adam writes is drawn from ``generator`` after the step's masks.
+    Returns (params, opt_state, loss); nothing is updated in place."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+    t, noise = draws if draws is not None else _ddpm_draws(x0, generator,
+                                                           cfg)
+    with torch.enable_grad():
+        loss = loss_fn(leaves, x0, t, noise, cfg, generator)
+        flat = tree_leaves(leaves)
+        grads = iter(torch.autograd.grad(loss, flat, allow_unused=True))
+    # leaves the forward does not use (conv_3 of a block whose channels do
+    # not change, the channel-matching convs of equal dims) get zeros, as
+    # jax.grad gives them
+    grads = tree_map(lambda p: _zero_if_none(next(grads), p), leaves)
+    sr_seed = None
+    if cfg.param_dtype == "bfloat16":
+        sr_seed = torch.randint(0, 2 ** 32, (), generator=generator,
+                                device=generator.device)
+    with torch.no_grad():
+        params, opt_state = adam_update(
+            tree_map(torch.Tensor.detach, leaves), grads, opt_state,
+            cfg.learn_rate, sr_seed=sr_seed)
+    return params, opt_state, loss.detach()
+
+
+def adam_state_from_jax(state) -> AdamState:
+    """The JAX package's ``AdamState`` (its leaves as numpy arrays) as the
+    port's, on the CPU, dtypes kept."""
+    return AdamState(step=int(state.step), m=params_from_jax(state.m),
+                     v=params_from_jax(state.v))
+
+
+def _fit_images(x: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """Nearest-neighbour upscale of the stored 32×32 CIFAR records to
+    ``cfg.image_size`` (the record format is fixed by the reference,
+    lib/cifar10.c:6-13; the network is fully convolutional)."""
+    k = cfg.image_size // x.shape[-1]
+    if k == 1:
+        return x
+    return x.repeat_interleave(k, dim=-2).repeat_interleave(k, dim=-1)
+
+
+def denoise_psnr(params: Params, x0: torch.Tensor,
+                 generator: torch.Generator, cfg: Config = CONFIG,
+                 timesteps: Optional[tuple] = None) -> torch.Tensor:
+    """Sample quality as a number (the DDPM intent of
+    model/cifar_unet.c:1936-1938): noise held-out images to x_t, reconstruct
+    x̂₀ = (x_t − √(1−ᾱ_t)·ε̂)/√ᾱ_t from one noise prediction, and return
+    PSNR(x̂₀, x₀) in dB per timestep (peak-to-peak 2 for [−1, 1] pixels).
+    Default timesteps: the schedule's quartiles."""
+    if timesteps is None:
+        T = cfg.timesteps
+        timesteps = tuple(sorted({1, T // 4, T // 2, (3 * T) // 4}))
+    bad = [t for t in timesteps if not 0 <= t < cfg.timesteps]
+    if bad:
+        raise ValueError(f"timesteps {bad} outside [0, {cfg.timesteps})")
+    alpha_bars = ddpm_schedule(cfg)[2]
+    noise = torch.randn(x0.shape, generator=generator, device=x0.device,
+                        dtype=x0.dtype)
+    out = []
+    with torch.inference_mode():
+        for t in timesteps:
+            ab = float(alpha_bars[t])
+            xt = math.sqrt(ab) * x0 + math.sqrt(1.0 - ab) * noise
+            tb = torch.full((x0.shape[0],), t, dtype=torch.int32,
+                            device=x0.device)
+            eps = forward(params, xt, tb, cfg).float()
+            x0_hat = (xt.float() - math.sqrt(1.0 - ab) * eps) / math.sqrt(ab)
+            mse = torch.mean((x0_hat - x0.float()) ** 2)
+            out.append(10.0 * torch.log10(4.0 / torch.clamp(mse, min=1e-12)))
+    return torch.stack(out)
 
 
 def ddpm_update(x: torch.Tensor, eps: torch.Tensor, t: int,
@@ -509,7 +650,7 @@ def sample(params: Params, generator: torch.Generator, cfg: Config = CONFIG,
     noise and every step's z are drawn from ``generator``."""
     device = generator.device
     dt = getattr(torch, cfg.compute_dtype)
-    params = _tree_map(lambda p: p.to(device, dt), params)  # cast once
+    params = tree_map(lambda p: p.to(device, dt), params)  # cast once
     schedule = ddpm_schedule(cfg)
     shape = (num_samples, cfg.in_channels, cfg.image_size, cfg.image_size)
     x = torch.randn(shape, generator=generator, device=device)
@@ -531,43 +672,71 @@ def sample(params: Params, generator: torch.Generator, cfg: Config = CONFIG,
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
 
+def state_dir() -> Path:
+    """The port's train states (``ckpt/pytree.py``)."""
+    return ckpt_dir() / "train_state_torch"
+
+
+def _is_newer(step_dir: Path, csv_file: Path) -> bool:
+    """Whether anything in ``step_dir`` is newer than the CSV tree (or the
+    tree is missing)."""
+    if not csv_file.is_file():
+        return True
+    mtime = max((p.stat().st_mtime for p in step_dir.rglob("*")),
+                default=step_dir.stat().st_mtime)
+    return mtime > csv_file.stat().st_mtime
+
+
 def _newer_train_state(csv_file: Path) -> Optional[Path]:
-    """The newest complete ``train_state/step_<n>`` directory when it is
-    newer than the CSV tree (or the tree is missing), else None — the JAX
-    package's ``_params_for_run`` would sample from it."""
-    state_dir = ckpt_dir() / "train_state"
-    if not state_dir.is_dir():
+    """The newest complete orbax ``train_state/step_<n>`` directory of the
+    JAX package when it is newer than the CSV tree (or the tree is missing),
+    else None — the JAX package would sample from it or resume it."""
+    jax_state = ckpt_dir() / "train_state"
+    if not jax_state.is_dir():
         return None
-    steps = [(int(m.group(1)), p) for p in state_dir.iterdir()
+    steps = [(int(m.group(1)), p) for p in jax_state.iterdir()
              if (m := _STEP_RE.match(p.name)) and p.is_dir()
              and any(p.iterdir())]
     if not steps:
         return None
     step_dir = max(steps)[1]
-    if not csv_file.is_file():
-        return step_dir
-    mtime = max((p.stat().st_mtime for p in step_dir.rglob("*")),
-                default=step_dir.stat().st_mtime)
-    return step_dir if mtime > csv_file.stat().st_mtime else None
+    return step_dir if _is_newer(step_dir, csv_file) else None
 
 
-def _params_for_run(cfg: Config) -> Params:
-    """The CSV tree. Where the JAX package would sample from a newer orbax
-    ``train_state`` instead, this raises: the port cannot read one yet, and
-    sampling from the older CSV tree would serve stale weights silently."""
-    csv_file = ckpt_dir() / "output_conv.csv"
+def _refuse_jax_state(csv_file: Path) -> None:
     state = _newer_train_state(csv_file)
     if state is not None:
         raise RuntimeError(
             f"{state} is newer than the CSV tree in {ckpt_dir()}: the JAX "
-            "package would sample from it, and the port cannot read orbax "
-            "train states yet (ROADMAP Queue 1 item 8, ckpt/pytree.py)")
+            "package would use it, and the port cannot read orbax train "
+            "states (its own are under train_state_torch/; the CSV tree is "
+            "the format both packages read)")
+
+
+def _params_for_run(cfg: Config) -> Params:
+    """The freshest of the CSV tree (written when ``train`` ends) and the
+    port's newest train state (written every epoch, so a run killed mid-
+    train leaves only it). Where the JAX package would sample from a newer
+    orbax ``train_state``, this raises rather than serve older weights."""
+    csv_file = ckpt_dir() / "output_conv.csv"
+    _refuse_jax_state(csv_file)
+    step = ckpt_pytree.latest_step(state_dir())
+    if step is not None and _is_newer(state_dir() / f"step_{step}",
+                                      csv_file):
+        print(f"sampling from train_state_torch step {step}"
+              + ("" if csv_file.is_file() else " (no CSV tree)"))
+        state = ckpt_pytree.restore_pytree(state_dir(), step,
+                                           map_location="cpu")
+        return cast_params(state["params"], cfg)
     return load_params_csv(cfg)
 
 
 def _cfg_from_flags(flags) -> Config:
     flags = flags or {}
     cfg = TINY if common.presence_flag(flags, "tiny") else CONFIG
+    if "batch" in flags:
+        cfg = dataclasses.replace(
+            cfg, batch_size=common.positive_int_flag(flags, "batch"))
     if "layout" in flags and str(flags["layout"]).upper() != "NCHW":
         # NHWC is rejected by main() with its reason
         raise ValueError(
@@ -576,7 +745,7 @@ def _cfg_from_flags(flags) -> Config:
         size = common.positive_int_flag(flags, "image-size")
         if size % 32:
             # the model needs a multiple of 8 (three stride-2 stages); the
-            # JAX CLI's data path also upscales the fixed 32x32 records
+            # data path also upscales the fixed 32x32 records
             raise ValueError(
                 f"--image-size must be a multiple of 32, got {size}")
         cfg = dataclasses.replace(cfg, image_size=size)
@@ -592,11 +761,115 @@ def init(flags=None) -> None:
     print(f"initialized parameters in {ckpt_dir()}")
 
 
+def _train_state(params, opt_state: AdamState, generator, epoch: int,
+                 cfg: Config, device: torch.device) -> dict:
+    return {"params": params,
+            "opt": {"step": opt_state.step, "m": opt_state.m,
+                    "v": opt_state.v},
+            "rng": generator.get_state(), "device": device.type,
+            "epoch": epoch, "param_dtype": cfg.param_dtype}
+
+
+def _resume(state: dict, generator, cfg: Config, device: torch.device):
+    """(params, opt_state, epoch) from a saved train state, cast to this
+    run's parameter dtype (a state written under the other ``--bf16-params``
+    setting resumes into this one); the generator continues its stream."""
+    if state["device"] != device.type:
+        raise ValueError(
+            f"the train state was written by a run on {state['device']}; "
+            f"its generator state does not fit a {device.type} generator "
+            f"(resume with --device={state['device']})")
+    pdt = getattr(torch, cfg.param_dtype)
+    mdt = torch.promote_types(pdt, torch.float32)
+    params = tree_map(lambda a: a.to(device, pdt), state["params"])
+    opt = state["opt"]
+    opt_state = AdamState(
+        step=int(opt["step"]),
+        m=tree_map(lambda a: a.to(device, mdt), opt["m"]),
+        v=tree_map(lambda a: a.to(device, mdt), opt["v"]))
+    generator.set_state(state["rng"].cpu())
+    return params, opt_state, int(state["epoch"])
+
+
+# Most bytes of f32 training records kept on the device for a whole run;
+# 174762 CIFAR examples (CIFAR-10 has 50000, 614 MB).
+_RESIDENT_BYTES = 2 << 30
+
+
 def train(num_epochs: int, *args, flags=None) -> int:
-    print("cifar_unet train is not ported to PyTorch yet (it needs the flash "
-          "backward K2c/K2d, Adam, the CIFAR loader and train_state "
-          "checkpoints); use big_linear_algebra_tpu.models.cifar_unet")
-    return 1
+    """Train for ``num_epochs`` epochs, resuming the newest train state."""
+    flags = flags or {}
+    cfg = _cfg_from_flags(flags)
+    device = common.device_flag(flags)
+    # absent = whole epochs; when given, --max-steps caps each epoch
+    max_steps = common.int_flag(flags, "max-steps", default=0, minimum=1)
+    keep = common.int_flag(flags, "keep", default=3, minimum=0) or None
+    best = common.presence_flag(flags, "keep-best")
+    data = Cifar10Batches(synth.ensure_cifar(str(common.data_dir())))
+    if data.num_examples < cfg.batch_size:
+        raise SystemExit(
+            f"batch size {cfg.batch_size} exceeds the dataset "
+            f"({data.num_examples} examples): no full batch to train on")
+    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    step0 = ckpt_pytree.latest_step(state_dir())
+    csv_file = ckpt_dir() / "output_conv.csv"
+    epoch0 = 0
+    if step0 is not None:
+        params, opt_state, epoch0 = _resume(
+            ckpt_pytree.restore_pytree(state_dir(), step0, device), generator,
+            cfg, device)
+        print(f"resumed train state at step {opt_state.step} "
+              f"(epoch {epoch0})")
+    else:
+        _refuse_jax_state(csv_file)
+        if csv_file.is_file():
+            params = load_params_csv(cfg)
+        else:
+            print("no checkpoint found; initializing")
+            params = init_params(torch.Generator().manual_seed(cfg.seed),
+                                 cfg)
+        params = tree_map(lambda a: a.to(device), params)
+        opt_state = adam_init(params)
+    manager = ckpt_pytree.TrainCheckpointer(
+        state_dir(), max_to_keep=keep, best_metric="loss" if best else None)
+    logger = common.MetricsLogger(flags.get("jsonl") or None)
+    rng = np.random.default_rng([cfg.seed, epoch0])
+    b, n_ex = cfg.batch_size, data.num_examples
+    # The JAX package's 2 GiB rule, applied to the copy the port keeps on
+    # the device: the 32x32 records in f32 (each batch is upscaled after
+    # it is drawn). A larger set streams through pinned host memory two
+    # batches ahead. Both walk rng.permutation per epoch.
+    resident = data.pixels.size * 4 < _RESIDENT_BYTES
+    if resident:
+        data_dev = torch.from_numpy(pixels_to_chw(data.pixels)).to(device)
+    for epoch in range(epoch0, epoch0 + num_epochs):
+        t0 = time.perf_counter()
+        if resident:
+            perm = torch.from_numpy(rng.permutation(n_ex)).to(device)
+            batches = (data_dev[perm[i:i + b]]
+                       for i in range(0, (n_ex // b) * b, b))
+        else:
+            batches = prefetch_to_device(
+                (x for _, x in data.epoch_batches(rng, b)), device)
+        losses = []
+        for step_i, x0 in enumerate(batches):
+            if max_steps and step_i >= max_steps:
+                break
+            params, opt_state, loss = train_step(
+                params, opt_state, _fit_images(x0, cfg), generator, cfg)
+            losses.append(loss)
+        losses = torch.stack(losses).float().cpu().numpy()
+        dt = time.perf_counter() - t0
+        avg = float(losses.mean())
+        logger.log(epoch=epoch, avg_loss=avg, epoch_seconds=dt,
+                   images_per_sec=losses.size * b / dt, step=opt_state.step)
+        manager.save(opt_state.step,
+                     _train_state(params, opt_state, generator, epoch + 1,
+                                  cfg, device),
+                     metrics={"loss": avg})
+    save_params_csv(params, cfg)
+    logger.close()
+    return 0
 
 
 def run(num_predictions: int = 1, flags=None) -> None:
@@ -621,8 +894,9 @@ def run(num_predictions: int = 1, flags=None) -> None:
         print(f"wrote {path}")
 
 
-_TRAIN_ONLY = "train is not ported yet"
 _PARALLEL = "the parallel modes are not ported yet (ROADMAP Queue 1 item 11)"
+_DISPATCH = ("an XLA dispatch mode; the port runs one eager step per batch "
+             "(a CUDA graph over a step is later work)")
 
 
 def main(argv=None) -> int:
@@ -631,7 +905,8 @@ def main(argv=None) -> int:
         train_usage="train <num epochs>",
         run_usage="run [<num samples> (default 1)]",
         extra_flags=("tiny", "image-size", "sample-seed", "bf16-params",
-                     "layout"),
+                     "layout", "batch", "max-steps", "keep", "keep-best",
+                     "jsonl"),
         unsupported_flags={
             "layout=NHWC": "the channels-last twins are not ported yet "
                            "(ROADMAP: one code path on torch.channels_last)",
@@ -639,12 +914,15 @@ def main(argv=None) -> int:
                     "GPU); rbg/threefry are JAX's generators",
             "fused-block": "the fused resnet-block kernel (K5) is not "
                            "ported yet",
+            "remat": "torch.utils.checkpoint restores only the global RNG "
+                     "states, not the explicit torch.Generator the dropout "
+                     "masks come from, so recomputed masks would differ "
+                     "from the forward's; it waits for a port that "
+                     "handles that",
+            **{f: _DISPATCH for f in ("scan-steps", "scan-unroll",
+                                      "host-loop")},
             **{f: _PARALLEL for f in ("dp", "tp", "pp", "pp-micro",
                                       "pp-schedule")},
-            **{f: _TRAIN_ONLY for f in ("batch", "remat", "max-steps",
-                                        "scan-steps", "host-loop",
-                                        "scan-unroll", "keep", "keep-best",
-                                        "jsonl")},
         })
 
 

@@ -1,6 +1,6 @@
 """Shared model-program scaffolding, the counterpart of
 ``big_linear_algebra_tpu/models/common.py``: CLI verbs, strict flags,
-profiling.
+metrics logging, profiling.
 
 ≈ the reference's per-model ``main(argc, argv)`` dispatchers
 (model/mnist_nn.c:512-536: verbs ``init | train <epochs> | run [n]``).
@@ -14,9 +14,11 @@ never ignored.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import sys
 import tempfile
+import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
@@ -27,6 +29,29 @@ def data_dir() -> Path:
     """Root data directory (reference uses relative ``data/``; override with
     BLA_DATA_DIR)."""
     return Path(os.environ.get("BLA_DATA_DIR", "data"))
+
+
+class MetricsLogger:
+    """Structured metrics: one stdout line per ``log`` call of
+    tab-separated ``key: value`` pairs (floats to five places), and one
+    JSON line, with a ``time`` stamp, appended to ``jsonl_path`` when
+    given."""
+
+    def __init__(self, jsonl_path: Optional[str] = None):
+        self._file = open(jsonl_path, "a") if jsonl_path else None
+
+    def log(self, **metrics) -> None:
+        print("\t".join(f"{k}: {v:.5f}" if isinstance(v, float)
+                        else f"{k}: {v}" for k, v in metrics.items()),
+              flush=True)
+        if self._file:
+            metrics["time"] = time.time()
+            self._file.write(json.dumps(metrics) + "\n")
+            self._file.flush()
+
+    def close(self) -> None:
+        if self._file:
+            self._file.close()
 
 
 @contextlib.contextmanager

@@ -1,24 +1,26 @@
 """Scaled dot-product attention, the counterpart of
-``big_linear_algebra_tpu/nn/attention.py``: the dense reference math, the
-flash kernel (K2) and the U-Net's self-attention block.
+``big_linear_algebra_tpu/nn/attention.py``: the dense reference math with
+its hand-written VJP, the flash kernels (forward K2, backward K2c/K2d) and
+the U-Net's self-attention block.
 
 Single head, unmasked (model/cifar_unet.c:999-1022): ``softmax(QKᵀ/√d)V`` on
 q, k, v of shape (B, N, d).
 
-- ``attention_dense``: the N×N matrix materialized, as the reference does.
-- ``flash_attention``: the blockwise online-softmax kernel
-  ``csrc/flash_attn.cu`` on a CUDA tensor — one CUDA kernel replaces both
-  TPU forwards, ``_flash_fwd_kernel`` and ``_flash_fwd_stream_kernel`` — and
-  its plain version ``_plain_flash`` on a CPU tensor. On a CUDA tensor the
-  kernel launches or the call raises: there is no fallback.
+- ``attention_dense``: the N×N matrix materialized, as the reference does;
+  a ``torch.autograd.Function`` whose backward is the JAX package's
+  softmax-Jacobian VJP.
+- ``flash_attention``: a ``torch.autograd.Function``. On a CUDA tensor the
+  forward launches ``csrc/flash_attn.cu`` (K2: one CUDA kernel replaces both
+  TPU forwards, ``_flash_fwd_kernel`` and ``_flash_fwd_stream_kernel``) and
+  the backward launches ``csrc/flash_attn_bwd.cu`` (K2c for dq and K2d for
+  dk/dv, the TPU's streaming ``_flash_bwd_stream_dq_kernel`` and
+  ``_flash_bwd_stream_dkv_kernel``); on a CPU tensor the plain versions
+  ``_plain_flash`` and ``_plain_flash_bwd`` run. On a CUDA tensor a kernel
+  launches or the call raises: there is no fallback.
 - ``attention``: the JAX package's dispatch, kept as it is: flash for
   self-attention shapes with N ≥ ``_FLASH_MIN_N`` outside f64, dense
   otherwise. The threshold was chosen on a TPU; re-deriving it for the H100
   is later work.
-
-Forward only: the hand-written backwards (the dense VJP, the flash dq and
-dk/dv kernels K2c/K2d) come with training; until then these ops raise when
-autograd would need a graph through them.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from typing import Mapping, Tuple
 
 import torch
 
-from big_linear_algebra_tpu_torch.ops import cuda_utils, forward_only
+from big_linear_algebra_tpu_torch.ops import cuda_utils
 from big_linear_algebra_tpu_torch.ops.precision import accum_dtype
 
 _FLASH_MIN_N = 1024  # the JAX package's threshold (nn/attention.py:36)
@@ -38,18 +40,55 @@ _LOG2E = math.log2(math.e)
 
 
 def _qscale(d: int) -> float:
-    """1/√d·log2(e), folded into q (the Pallas kernels' ``scale * _LOG2E``)."""
+    """1/√d·log2(e), folded into q (then rounded to q's dtype) by the
+    forward and the backward alike."""
     return (1.0 / math.sqrt(d)) * _LOG2E
 
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Head dims the kernel is instantiated for (a template parameter).
+# Head dims the kernels are instantiated for (a template parameter).
 _KERNEL_DIMS = (4, 8, 16, 32, 64, 128)
 
-# Kernel launches since import (or since a caller last set it to 0). Counted
-# only where the CUDA kernel is launched, so a run can show that its main
-# path went through the kernel.
+# Kernel launches since import (or since a caller last set them to 0): K2,
+# K2c and K2d. Each is counted only where its CUDA kernel is launched, so a
+# run can show that its main path went through the kernels.
 launch_count = 0
+bwd_dq_launch_count = 0
+bwd_dkv_launch_count = 0
+
+
+def _dense_fwd(q, k, v):
+    """(o, p): scores and probabilities in ≥f32 (f64 stays f64), the output
+    in q's dtype."""
+    acc = accum_dtype(q.dtype)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = (q.to(acc) @ k.to(acc).transpose(-1, -2)) * scale
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = p / p.sum(dim=-1, keepdim=True)
+    return (p @ v.to(acc)).to(q.dtype), p
+
+
+class _AttentionDense(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, p = _dense_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, p)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        """The JAX package's ``_attention_dense_bwd``: the softmax Jacobian
+        per row, ds = p ⊙ (dp − Σ dp ⊙ p) (model/cifar_unet.c:1246-1258)."""
+        q, k, v, p = ctx.saved_tensors
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        g = g.to(p.dtype)
+        dv = p.transpose(-1, -2) @ g
+        dp = g @ v.to(p.dtype).transpose(-1, -2)
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        dq = (ds @ k.to(ds.dtype)) * scale
+        dk = (ds.transpose(-1, -2) @ q.to(ds.dtype)) * scale
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_dense(q: torch.Tensor, k: torch.Tensor,
@@ -57,14 +96,7 @@ def attention_dense(q: torch.Tensor, k: torch.Tensor,
     """softmax(QKᵀ/√d)V with the N×N matrix materialized (the reference's
     exact formulation). Scores and probabilities in ≥f32 (f64 stays f64);
     the output in q's dtype. k and v may have another length than q."""
-    forward_only.check("attention_dense", q, k, v)
-    acc = accum_dtype(q.dtype)
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    s = (q.to(acc) @ k.to(acc).transpose(-1, -2)) * scale
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    p = p / p.sum(dim=-1, keepdim=True)
-    return (p @ v.to(acc)).to(q.dtype)
+    return _AttentionDense.apply(q, k, v)
 
 
 def _check_self_attention(q, k, v) -> None:
@@ -97,40 +129,86 @@ def _plain_flash(q: torch.Tensor, k: torch.Tensor,
     return o.to(q.dtype), lse
 
 
+def _bwd_prepare(g, o, lse, dtype):
+    """The JAX package's ``_flash_bwd_prepare`` (its XLA side): g cast to
+    the input dtype, delta = Σ_d g·o in the accumulation type, and the lse
+    moved to the log2 domain. Returns (g, lse2, delta)."""
+    acc = accum_dtype(dtype)
+    g = g.to(dtype)
+    delta = (g.to(acc) * o.to(acc)).sum(dim=-1)
+    return g, lse * _LOG2E, delta
+
+
+def _plain_flash_bwd(q, k, v, o, lse, g):
+    """The plain PyTorch version of K2c and K2d: (dq, dk, dv), the same
+    roundings as the kernels with the whole key axis as one block. The
+    scores are the forward's: q scaled by log2(e)/√d and rounded to its
+    own dtype, so that p = exp2(s − lse2) stays ≤ 1 (the Pallas kernels
+    scale the unrounded f32 score instead; in bf16 that score can exceed
+    the forward's by more than 128 where |s| reaches ~1e5, as at the
+    full-width U-Net's up_3 sites, and p overflows to inf). ds = p·(dp −
+    delta) is rounded to the input dtype before its products, p before the
+    dv product; the 1/√d of dq and dk is applied once, at the end."""
+    acc = accum_dtype(q.dtype)
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    g, lse2, delta = _bwd_prepare(g, o, lse, q.dtype)
+    qa, ka, va, ga = (x.to(acc) for x in (q, k, v, g))
+    qs = (qa * _qscale(d)).to(q.dtype).to(acc)
+    s = qs @ ka.transpose(-1, -2)
+    p = torch.exp2(s - lse2.to(acc)[..., None])
+    dp = ga @ va.transpose(-1, -2)
+    ds = (p * (dp - delta[..., None])).to(q.dtype).to(acc)
+    dv = p.to(q.dtype).to(acc).transpose(-1, -2) @ ga
+    dq = (ds @ ka) * scale
+    dk = (ds.transpose(-1, -2) @ qa) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_kernel_operands(what, *tensors) -> None:
+    """Raise on anything the flash kernels do not take."""
+    q = tensors[0]
+    b, n, d = q.shape
+    if d not in _KERNEL_DIMS:
+        raise ValueError(f"{what}: the kernel takes head dims "
+                         f"{_KERNEL_DIMS}, got {d}")
+    if q.dtype not in _KERNEL_DTYPES or any(t.dtype != q.dtype
+                                            for t in tensors):
+        raise TypeError(f"{what}: the kernel takes f32 or bf16 operands of "
+                        f"one dtype, got {[t.dtype for t in tensors]}")
+    if any(t.device != q.device or t.device.type != "cuda" for t in tensors):
+        raise ValueError(
+            f"{what}: kernel operands must share one CUDA device, got "
+            f"{[str(t.device) for t in tensors]}")
+    if not 0 < b <= 65535 or n == 0:
+        raise ValueError(f"{what}: the kernel takes 1 <= B <= 65535 and "
+                         f"N >= 1, got B={b}, N={n}")
+
+
+def _function(lib, name, n_ptrs, n_floats):
+    """``lib.name`` with its ctypes signature: (dtype, b, n, d, pointers...,
+    floats..., stream) → int."""
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * n_ptrs
+                       + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
+    return fn
+
+
 def _kernel_flash(q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/flash_attn.cu`` on CUDA tensors → (o, lse f32); raises
     on anything the kernel does not take and on a failed build or launch."""
     global launch_count
     _check_self_attention(q, k, v)
+    _check_kernel_operands("flash_attention", q, k, v)
     b, n, d = q.shape
-    if d not in _KERNEL_DIMS:
-        raise ValueError(f"flash_attention: the kernel takes head dims "
-                         f"{_KERNEL_DIMS}, got {d}")
-    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: the kernel takes f32 or bf16 "
-                        f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
-    if any(t.device != q.device or t.device.type != "cuda"
-           for t in (q, k, v)):
-        raise ValueError(
-            f"flash_attention: kernel operands must share one CUDA device, "
-            f"got {[str(t.device) for t in (q, k, v)]}")
-    if not 0 < b <= 65535 or n == 0:
-        raise ValueError(f"flash_attention: the kernel takes 1 <= B <= 65535 "
-                         f"and N >= 1, got B={b}, N={n}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
     lse = torch.empty((b, n), dtype=torch.float32, device=q.device)
     lib = cuda_utils.load_library("flash_attn")
-    fn = lib.bla_flash_fwd
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_float, ctypes.c_void_p]
+    fn = _function(lib, "bla_flash_fwd", 5, 1)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = fn(_KERNEL_DTYPES[q.dtype], b, n, d, q.data_ptr(), k.data_ptr(),
@@ -141,17 +219,86 @@ def _kernel_flash(q: torch.Tensor, k: torch.Tensor,
     return o, lse
 
 
+def _launch_bwd(entry, n_out, q, k, v, g, lse2, delta):
+    """Launch ``entry`` of ``csrc/flash_attn_bwd.cu`` on prepared, checked
+    CUDA operands → its ``n_out`` outputs (dq; or dk, dv), shaped like q."""
+    b, n, d = q.shape
+    outs = tuple(torch.empty_like(q) for _ in range(n_out))
+    lib = cuda_utils.load_library("flash_attn_bwd")
+    fn = _function(lib, entry, 6 + n_out, 2)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = fn(_KERNEL_DTYPES[q.dtype], b, n, d, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), g.data_ptr(), lse2.data_ptr(), delta.data_ptr(),
+                *(x.data_ptr() for x in outs), _qscale(d),
+                1.0 / math.sqrt(d), stream)
+    cuda_utils.check(lib, rc, f"flash_attention backward {entry} launch")
+    return outs
+
+
+def _kernel_bwd_dq(q, k, v, g, lse2, delta) -> torch.Tensor:
+    """K2c: dq from prepared operands (``_kernel_flash_bwd``)."""
+    global bwd_dq_launch_count
+    (dq,) = _launch_bwd("bla_flash_bwd_dq", 1, q, k, v, g, lse2, delta)
+    bwd_dq_launch_count += 1
+    return dq
+
+
+def _kernel_bwd_dkv(q, k, v, g, lse2, delta):
+    """K2d: (dk, dv) from prepared operands (``_kernel_flash_bwd``)."""
+    global bwd_dkv_launch_count
+    dk, dv = _launch_bwd("bla_flash_bwd_dkv", 2, q, k, v, g, lse2, delta)
+    bwd_dkv_launch_count += 1
+    return dk, dv
+
+
+def _kernel_bwd_operands(q, k, v, o, lse, g):
+    """The prep in plain torch (``_bwd_prepare``), then the checks: (q, k,
+    v, g, lse2, delta), contiguous, as K2c and K2d take them."""
+    _check_self_attention(q, k, v)
+    g, lse2, delta = _bwd_prepare(g, o, lse, q.dtype)
+    _check_kernel_operands("flash_attention backward", q, k, v, g)
+    q, k, v, g = (x.contiguous() for x in (q, k, v, g))
+    return q, k, v, g, lse2.float().contiguous(), delta.float().contiguous()
+
+
+def _kernel_flash_bwd(q, k, v, o, lse, g):
+    """The prep in plain torch, then K2c (dq) and K2d (dk, dv) from
+    ``csrc/flash_attn_bwd.cu`` on CUDA tensors → (dq, dk, dv); raises on
+    anything the kernels do not take and on a failed build or launch."""
+    ops = _kernel_bwd_operands(q, k, v, o, lse, g)
+    return (_kernel_bwd_dq(*ops), *_kernel_bwd_dkv(*ops))
+
+
+def _by_device(q, kernel, plain):
+    if q.device.type == "cuda":
+        return kernel
+    if q.device.type == "cpu":
+        return plain
+    raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = _by_device(q, _kernel_flash, _plain_flash)(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        return _by_device(q, _kernel_flash_bwd, _plain_flash_bwd)(
+            q, k, v, o, lse, g)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
-    """Blockwise online-softmax attention; the N×N matrix is never stored.
-    The kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    forward_only.check("flash_attention", q, k, v)
+    """Blockwise online-softmax attention; the N×N matrix is never stored,
+    forward or backward. The kernels on a CUDA tensor, the plain versions
+    on a CPU tensor."""
     _check_self_attention(q, k, v)
-    if q.device.type == "cuda":
-        return _kernel_flash(q, k, v)[0]
-    if q.device.type == "cpu":
-        return _plain_flash(q, k, v)[0]
-    raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    return _FlashAttention.apply(q, k, v)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor,
@@ -180,8 +327,9 @@ def self_attention_block(x: torch.Tensor,
 def _attention_core(tokens: torch.Tensor,
                     params: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """(B, N, C) → (B, N, C): projections → attention → output dense with
-    bias. Plain torch products (XLA einsums in the JAX package), in true
-    f32 for f32 (TF32 is off)."""
+    bias. Plain torch products (XLA einsums in the JAX package, which leaves
+    their gradients to autodiff, as the port leaves them to autograd), in
+    true f32 for f32 (TF32 is off)."""
     q = tokens @ params["q"]
     k = tokens @ params["k"]
     v = tokens @ params["v"]

@@ -1,5 +1,6 @@
-"""2-D convolution with the reference's "same" padding, the counterpart of
-``big_linear_algebra_tpu/nn/conv.py`` (≈ lib/conv.c).
+"""2-D convolution with the reference's "same" padding and a hand-written
+backward, the counterpart of ``big_linear_algebra_tpu/nn/conv.py`` (≈
+lib/conv.c).
 
 Correlation (no kernel flip) over channels-first maps with TF-style "SAME"
 padding: total pad ``(ceil(in/s)−1)·s + k − in`` split floor (lo) / ceil (hi)
@@ -8,12 +9,21 @@ whenever the total is odd — the stride-2 downsample of an even size pads
 lo = 0, hi = 1 — which ``F.conv2d``'s symmetric ``padding`` cannot express,
 so such inputs are padded with ``F.pad`` first.
 
-The JAX package leaves the convolution itself to XLA; the port leaves it to
-cuDNN through ``F.conv2d``. f32 runs in true f32 (the package switches TF32
-off at import, ``ops/precision.py``); bf16 stays bf16 in and out, with f32
-accumulation; f64 (CPU parity mode) stays f64.
+The backward is the JAX package's (a ``torch.autograd.Function``), after
+the reference's ``del_X = col2im(del_Q @ Kᵀ)`` and ``del_K = im2colᵀ @
+del_Q`` (lib/conv.c:214-227):
+- dx: the gradient, dilated by the stride, convolved with the spatially
+  flipped, channel-transposed kernels, padded by ``_dx_pads`` (which derive
+  from the asymmetric forward split);
+- dk: the correlation of the padded input with the stride-dilated gradient,
+  formed as the reference's ``im2colᵀ @ del_Q``: one GEMM over the batch
+  and the output positions, exactly kh×kw taps (the leading ones where
+  "same" padding clamps to 0).
 
-Forward only: the hand-written dilated-conv backward comes with training.
+The JAX package leaves the convolutions to XLA; the port leaves them to
+cuDNN through ``F.conv2d`` and dk's GEMM to cuBLAS. f32 runs in true f32
+(the package switches TF32 off at import, ``ops/precision.py``); bf16 stays
+bf16 in and out, with f32 accumulation; f64 (CPU parity mode) stays f64.
 
 Layouts: x (B, C, H, W); kernels (F, C, kh, kw).
 """
@@ -25,8 +35,6 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
-
-from big_linear_algebra_tpu_torch.ops import forward_only
 
 
 def same_padding(in_size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -42,15 +50,92 @@ def out_size(in_size: int, stride: int) -> int:
     return math.ceil(in_size / stride)
 
 
-def conv2d(x: torch.Tensor, kernels: torch.Tensor,
-           stride: int = 1) -> torch.Tensor:
-    """x: (B, C, H, W), kernels: (F, C, kh, kw) → (B, F, ceil(H/s),
-    ceil(W/s)), in x's dtype."""
-    forward_only.check("conv2d", x, kernels)
-    kh, kw = kernels.shape[-2:]
-    (top, bottom) = same_padding(x.shape[-2], kh, stride)
-    (left, right) = same_padding(x.shape[-1], kw, stride)
+def _dx_pads(in_size: int, k: int, stride: int,
+             g_size: int) -> Tuple[int, int]:
+    """Transpose-conv padding for dx along one dim: the pads that make the
+    stride-dilated gradient, convolved with the flipped kernel, produce
+    exactly ``in_size`` outputs."""
+    lo, _ = same_padding(in_size, k, stride)
+    dil = (g_size - 1) * stride + 1
+    pad_lo = k - 1 - lo
+    pad_hi = in_size + k - 1 - dil - pad_lo
+    return pad_lo, pad_hi
+
+
+def _conv(x, kernels, pads, stride=1):
+    """F.conv2d with pads ((top, bottom), (left, right)), through its own
+    ``padding`` where they are symmetric."""
+    (top, bottom), (left, right) = pads
     if top == bottom and left == right:
         return F.conv2d(x, kernels, stride=stride, padding=(top, left))
     return F.conv2d(F.pad(x, (left, right, top, bottom)), kernels,
                     stride=stride)
+
+
+def _same_pads(x, kernel_shape, stride):
+    kh, kw = kernel_shape[-2:]
+    return (same_padding(x.shape[-2], kh, stride),
+            same_padding(x.shape[-1], kw, stride))
+
+
+def _dilate(g: torch.Tensor, stride: int) -> torch.Tensor:
+    """Insert stride − 1 zeros between neighbouring elements of the spatial
+    dims (XLA's ``lhs_dilation``)."""
+    if stride == 1:
+        return g
+    b, f, h, w = g.shape
+    out = g.new_zeros((b, f, (h - 1) * stride + 1, (w - 1) * stride + 1))
+    out[:, :, ::stride, ::stride] = g
+    return out
+
+
+def _dx_conv(g, kernels, stride, in_shape):
+    kh, kw = kernels.shape[-2:]
+    k_t = torch.flip(kernels, dims=(-2, -1)).transpose(0, 1)  # (C, F, kh, kw)
+    pads = (_dx_pads(in_shape[-2], kh, stride, g.shape[-2]),
+            _dx_pads(in_shape[-1], kw, stride, g.shape[-1]))
+    return _conv(_dilate(g, stride), k_t, pads)
+
+
+def _dk_conv(x, g, stride, k_shape):
+    """The correlation of the padded input with the stride-dilated gradient,
+    as the reference forms it: ``im2colᵀ @ del_Q`` (lib/conv.c:214-227),
+    one GEMM over the batch and the output positions. Passed to
+    ``F.conv2d`` with the gradient as an oh×ow kernel (the JAX package's
+    form), cuDNN takes a generic kernel off the tensor cores, ~100× slower
+    at the U-Net's 64×64 maps. The windows are exactly kh×kw, so where
+    "same" padding clamps to 0 (a kernel smaller than the stride) they are
+    the leading kh×kw taps that the JAX package's clamp keeps."""
+    f, c, kh, kw = k_shape
+    (top, bottom), (left, right) = _same_pads(x, k_shape, stride)
+    cols = F.unfold(F.pad(x, (left, right, top, bottom)), (kh, kw),
+                    stride=stride)                       # (B, C·kh·kw, L)
+    b, ckk, _ = cols.shape
+    # (rows, B·L) operands: the copies keep L, the fastest axis, in place
+    g = g.reshape(b, f, -1).transpose(0, 1).reshape(f, -1)
+    cols = cols.transpose(0, 1).reshape(ckk, -1)
+    return (g @ cols.T).reshape(f, c, kh, kw)
+
+
+class _Conv2d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, kernels, stride):
+        ctx.save_for_backward(x, kernels)
+        ctx.stride = stride
+        return _conv(x, kernels, _same_pads(x, kernels.shape, stride), stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        """The JAX package's ``_conv2d_bwd``."""
+        x, kernels = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = _dx_conv(g, kernels, ctx.stride, x.shape)
+        dk = _dk_conv(x, g, ctx.stride, kernels.shape)
+        return dx, dk.contiguous(), None
+
+
+def conv2d(x: torch.Tensor, kernels: torch.Tensor,
+           stride: int = 1) -> torch.Tensor:
+    """x: (B, C, H, W), kernels: (F, C, kh, kw) → (B, F, ceil(H/s),
+    ceil(W/s)), in x's dtype."""
+    return _Conv2d.apply(x, kernels, stride)

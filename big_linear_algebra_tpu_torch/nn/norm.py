@@ -1,5 +1,5 @@
 """Group normalization, the counterpart of ``big_linear_algebra_tpu/nn/norm.py``
-(≈ lib/norm.c).
+(≈ lib/norm.c), with its hand-written backward.
 
 Per channel-group mean and variance over (group channels × H × W), then
 normalize; no learned scale or offset (the reference has none). As in the JAX
@@ -10,10 +10,13 @@ package:
 - statistics are taken in at least f32 (bf16 in, f32 stats, bf16 out);
 - ragged groups (C not divisible by ``group_size``) follow the reference's
   ``num_in_this_group`` clamp (lib/norm.c:8-11): the channels are padded to
-  whole groups, and the padding is masked out of the sums and the counts.
+  whole groups, and the padding is masked out of the sums and the counts;
+- the backward (lib/norm.c:52-91) centres the gradient and removes its
+  projection on the normalized value, ``dx = (g − mean(g) − x̂·mean(g·x̂))
+  / denom``, with the forward's group means (ragged mask included).
 
-Forward only: the hand-written backward comes with training. The JAX package
-leaves this op to XLA, so the port writes it as plain torch ops.
+The JAX package leaves this op to XLA, so the port writes it as plain torch
+ops inside a ``torch.autograd.Function``.
 """
 
 from __future__ import annotations
@@ -21,35 +24,76 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from big_linear_algebra_tpu_torch.ops import forward_only
-
 
 def _stat_dtype(dtype: torch.dtype) -> torch.dtype:
     """Statistics accumulate in ≥f32 (bf16 mean/variance loses too much)."""
     return dtype if dtype.itemsize >= 4 else torch.float32
 
 
-def group_norm(x: torch.Tensor, group_size: int, eps: float = 1e-8,
-               reference_compat: bool = False) -> torch.Tensor:
-    """x: (..., C, H, W) → same shape. ≈ ``group_norm`` (lib/norm.c:5)."""
-    forward_only.check("group_norm", x)
-    xs = x.to(_stat_dtype(x.dtype))
-    *lead, c, h, w = xs.shape
+def _group_reduce(x: torch.Tensor, group_size: int, with_var: bool):
+    """Per-group (mean, var) of x (..., C, H, W), broadcast back per channel
+    as (..., C, 1, 1); var is None without ``with_var``. The one place the
+    group formulas live, for the forward's statistics and the backward's
+    means alike."""
+    *lead, c, h, w = x.shape
     n_groups = -(-c // group_size)
     pad_c = n_groups * group_size - c
     # (..., groups, group_size·H·W): one group's elements on the last axis
-    xp = F.pad(xs, (0, 0, 0, 0, 0, pad_c)) if pad_c else xs
+    xp = F.pad(x, (0, 0, 0, 0, 0, pad_c)) if pad_c else x
     xg = xp.reshape(*lead, n_groups, group_size * h * w)
     if pad_c:
         real = torch.arange(n_groups * group_size, device=x.device) < c
-        mask = real.to(xs.dtype).reshape(n_groups, group_size, 1).expand(
+        mask = real.to(x.dtype).reshape(n_groups, group_size, 1).expand(
             n_groups, group_size, h * w).reshape(n_groups, -1)
         counts = mask.sum(dim=-1, keepdim=True)
         mean = (xg * mask).sum(dim=-1, keepdim=True) / counts
-        var = (((xg - mean) ** 2) * mask).sum(dim=-1, keepdim=True) / counts
+        var = ((((xg - mean) ** 2) * mask).sum(dim=-1, keepdim=True) / counts
+               if with_var else None)
     else:
         mean = xg.mean(dim=-1, keepdim=True)
-        var = ((xg - mean) ** 2).mean(dim=-1, keepdim=True)
-    denom = var if reference_compat else torch.sqrt(var + eps)
-    out = ((xg - mean) / denom).reshape(*lead, n_groups * group_size, h, w)
-    return out[..., :c, :, :].to(x.dtype)
+        var = ((xg - mean) ** 2).mean(dim=-1, keepdim=True) if with_var \
+            else None
+
+    def per_channel(stat):
+        out = stat.expand(*lead, n_groups, group_size).reshape(
+            *lead, n_groups * group_size)[..., :c]
+        return out[..., None, None]
+
+    return per_channel(mean), per_channel(var) if with_var else None
+
+
+def _denom(var, eps, reference_compat):
+    # the reference divides by the variance with ε = 0 (SURVEY.md §7.5)
+    return var if reference_compat else torch.sqrt(var + eps)
+
+
+class _GroupNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group_size, eps, reference_compat):
+        # contiguous NCHW out, whatever x's strides (the attention block
+        # hands over channels-last views): the convs that follow would take
+        # other algorithms, and round otherwise, on a channels-last map
+        xs = x.to(_stat_dtype(x.dtype)).contiguous()
+        mean, var = _group_reduce(xs, group_size, True)
+        ctx.save_for_backward(x, mean, var)
+        ctx.args = (group_size, eps, reference_compat)
+        return ((xs - mean) / _denom(var, eps, reference_compat)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        """The JAX package's ``_group_norm_bwd``."""
+        x, mean, var = ctx.saved_tensors
+        group_size, eps, reference_compat = ctx.args
+        g = g.to(_stat_dtype(x.dtype))
+        denom = _denom(var, eps, reference_compat)
+        xhat = (x.to(g.dtype) - mean) / denom
+        g_mean = _group_reduce(g, group_size, False)[0]
+        gx_mean = _group_reduce(g * xhat, group_size, False)[0]
+        dx = (g - g_mean - xhat * gx_mean) / denom
+        return dx.to(x.dtype), None, None, None
+
+
+def group_norm(x: torch.Tensor, group_size: int, eps: float = 1e-8,
+               reference_compat: bool = False) -> torch.Tensor:
+    """x: (..., C, H, W) → same shape. ≈ ``group_norm`` (lib/norm.c:5)."""
+    return _GroupNorm.apply(x, group_size, eps, reference_compat)

@@ -1,0 +1,148 @@
+"""Optimizers as pure functions over nested dicts of tensors, the counterpart
+of ``big_linear_algebra_tpu/nn/optim.py``.
+
+The reference's optimizers are inline: plain SGD (model/mnist_nn.c:303-315)
+and an *intended* Adam in cifar_unet — first/second-moment buffers are
+allocated (``gm``/``gsm``, model/cifar_unet.c:1887-1888) but never used
+(SURVEY.md §7.11). As in the JAX package, SGD and Adam (Kingma & Ba 2015
+defaults) are (init, update) pairs that return new trees; nothing is updated
+in place.
+
+- Moments live in at least f32 (``_acc_dtype``): bf16 stored parameters keep
+  full-precision optimizer state, and f32/f64 parameters keep their own type.
+- The bias corrections ``1 − b1**t`` and ``1 − b2**t`` are computed in f32
+  from an f32 step, as the JAX package computes them even in f64 mode.
+  (XLA's f32 ``pow`` on the CPU and torch's can differ by one ulp at some
+  steps; they agree for the first 30.)
+- bf16 parameters can be written with stochastic rounding
+  (``stochastic_round_bf16``), whose dither is the JAX package's counter hash
+  (``_fmix32``) bit for bit: uint32 arithmetic emulated in int64, with every
+  product split so that it stays below 2⁶³.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, Mapping, NamedTuple, Optional
+
+import torch
+
+_MASK32 = 0xFFFFFFFF
+
+
+def tree_map(fn: Callable[..., Any], tree, *rest):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> List[Any]:
+    """The leaves of a nested dict, in its key order."""
+    if isinstance(tree, Mapping):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def sgd_update(params: Any, grads: Any, lr) -> Any:
+    """θ ← θ − lr·g (model/mnist_nn.c:303-315's negative-scale + add)."""
+    return tree_map(lambda p, g: p - lr * g, params, grads)
+
+
+class AdamState(NamedTuple):
+    step: int         # steps taken
+    m: Any            # first moments  (the reference's unused ``gm``)
+    v: Any            # second moments (the reference's unused ``gsm``)
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Moment and update dtype for a parameter leaf: at least f32."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def adam_init(params: Any) -> AdamState:
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=_acc_dtype(p.dtype),
+                           device=p.device)
+
+    return AdamState(step=0, m=tree_map(zeros, params),
+                     v=tree_map(zeros, params))
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """(h · c) mod 2³² for h in [0, 2³²) (int64) and a uint32 constant c,
+    in two halves of h so that no product passes 2⁶³."""
+    lo = (h & 0xFFFF) * c
+    hi = (((h >> 16) * c) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finalizer on uint32 values held in int64."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def stochastic_round_bf16(x32: torch.Tensor, seed) -> torch.Tensor:
+    """f32 → bf16 with stochastic rounding: dither the 16 low mantissa bits
+    with a counter hash of the element index and ``seed``, then truncate,
+    so E[rounded] = x (round-to-nearest bf16 writes lose updates below half
+    an ulp of the weight). ``seed``: a uint32 value, as an int or an int64
+    tensor on x's device. Bit for bit the JAX package's function."""
+    x32 = x32.to(torch.float32).contiguous()
+    u = x32.view(torch.int32).to(torch.int64) & _MASK32
+    idx = torch.arange(x32.numel(), dtype=torch.int64,
+                       device=x32.device).reshape(x32.shape)
+    seed = torch.as_tensor(seed, dtype=torch.int64, device=x32.device)
+    r = _fmix32(_mul32(idx, 2654435761) ^ (seed & _MASK32)) & 0xFFFF
+    trunc = (u + r) & 0xFFFF0000
+    # back to int32 bits (two's complement), then the truncated f32, which
+    # bf16 holds exactly: the narrowing is not a second rounding
+    bits = (trunc - ((trunc >> 31) << 32)).to(torch.int32)
+    return bits.view(torch.float32).to(torch.bfloat16)
+
+
+def leaf_seeds(base, n: int) -> List[Any]:
+    """Per-leaf dither seeds from one uint32 ``base`` (an int or an int64
+    tensor), as the JAX package derives them from a key's words:
+    ``_fmix32(base ^ (0x9E3779B9·i mod 2³²))``."""
+    base = torch.as_tensor(base, dtype=torch.int64)
+    return [_fmix32(base ^ ((0x9E3779B9 * i) & _MASK32)) for i in range(n)]
+
+
+def adam_update(params: Any, grads: Any, state: AdamState, lr,
+                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                sr_seed: Optional[Any] = None):
+    """One Adam step with bias correction. Returns (params, state).
+
+    Moment and update arithmetic run in the moment dtype (≥ f32); the new
+    value is rounded back to each leaf's own dtype. ``sr_seed``: when given
+    (a uint32 base, int or int64 tensor), bf16 leaves are written with
+    stochastic rounding, one derived seed per leaf (``leaf_seeds``); f32 and
+    f64 leaves are untouched by it."""
+    step = state.step + 1
+    t = torch.tensor(float(step), dtype=torch.float32)
+    m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.to(m_.dtype),
+                 state.m, grads)
+    v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * torch.square(
+        g.to(v_.dtype)), state.v, grads)
+    device = tree_leaves(m)[0].device
+    bc1 = (1 - torch.pow(b1, t)).to(device)
+    bc2 = (1 - torch.pow(b2, t)).to(device)
+
+    def write(p, m_, v_, seed=None):
+        new = p.to(m_.dtype) - lr * (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
+        if seed is not None and p.dtype == torch.bfloat16:
+            return stochastic_round_bf16(new, seed.to(new.device))
+        return new.to(p.dtype)
+
+    if sr_seed is None:
+        new_params = tree_map(write, params, m, v)
+    else:
+        seeds = iter(leaf_seeds(sr_seed, len(tree_leaves(params))))
+        new_params = tree_map(lambda p, m_, v_: write(p, m_, v_, next(seeds)),
+                              params, m, v)
+    return new_params, AdamState(step=step, m=m, v=v)

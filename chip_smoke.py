@@ -5,9 +5,10 @@
 Phases, one line each (or a few); any failure exits non-zero:
 1. environment: the card's name and power limit, torch and CUDA versions;
    fails when no CUDA device is available;
-2. build: compiles both kernels from ``big_linear_algebra_tpu_torch/csrc/``
+2. build: compiles the kernels from ``big_linear_algebra_tpu_torch/csrc/``
    with nvcc, one process per source, started together: the GEMM (K1,
-   ``matmul.cu``) and flash attention (K2, ``flash_attn.cu``);
+   ``matmul.cu``), flash attention (K2, ``flash_attn.cu``) and its
+   backward (K2c and K2d, ``flash_attn_bwd.cu``);
 3. K1 against plain, on the card: nn/nt/tn x f32/bf16 x
    {no epilogue, bias, bias+ReLU} at the three mnist_nn layer shapes and a
    ragged one, against the plain PyTorch version with TF32 off; a TF32
@@ -31,7 +32,28 @@ Phases, one line each (or a few); any failure exits non-zero:
    in f32 through the kernel against the same forward in f64 on the card
    (dense attention, as the dispatch takes for f64); the bf16 forward's
    error is reported beside it; then one bf16 forward's device and host
-   time.
+   time;
+8. K2c/K2d against plain, on the card: f32/bf16 x d in {16, 64} x (B, N)
+   in {(16, 1024) the train step's shape, (2, 300) ragged, (1, 4096)}, and
+   the other head dims at (2, 300); dq, dk, dv against
+   ``_plain_flash_bwd`` on the same (q, k, v, o, lse, g); then each
+   kernel's time beside the plain backward's and the backward of
+   ``F.scaled_dot_product_attention``, the library yardstick;
+9. cifar_unet train path: in a fresh temporary data directory,
+   ``ensure_cifar``, ``cifar_unet init``, then ``train 1 --image-size=64
+   --max-steps=50`` (full width, batch 16, bf16 compute over f32 masters,
+   Adam) with the launch counts of K2, K2c and K2d read around it; every
+   step's loss finite and the last 10 steps' mean below the first 10's; a
+   step directory in ``train_state_torch/``; then ``train 1
+   --image-size=64 --max-steps=10`` must resume at epoch 1;
+10. gradient oracle: from the trained checkpoint, one f32 full-width 64x64
+   gradient at batch 2 on fixed draws through K2c/K2d, on the net with each
+   attention site's q and k scaled down to an unsaturated softmax; each leaf
+   against the same gradient with the plain backward at the four flash
+   sites (bounded), and against the f64 gradient (reported); the kernels
+   against the plain backward on each flash site's operands (bounded); the
+   bf16 gradient of the trained net itself finite, with its flash sites'
+   score range; then one bf16 batch-16 train step's host and device time.
 Then a JSON line of per-kernel results, the ``nvidia-smi`` name/power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -86,6 +108,33 @@ K2_BF16_RTOL_OF_MAX = 2e-2
 # U-Net oracle: the f32 forward through the kernel against the f64 forward.
 UNET_F32_RTOL_OF_MAX = 1e-3
 
+# K2c/K2d against their plain version on the same inputs. f32: both sides
+# form p, dp and ds in f32 and differ in the order of the sums over keys
+# (query rows for dk/dv), as K2 does; the JAX tests' flash-backward
+# tolerance (tests/test_attention.py) bounds each element:
+#     |kernel - plain| <= K2BWD_F32_ATOL + K2BWD_F32_RTOL * |plain|.
+K2BWD_F32_RTOL = 3e-4
+K2BWD_F32_ATOL = 3e-5
+# bf16: ds and p are rounded to bf16 before their products on both sides,
+# but from f32 values that differ in the last bits, so single terms may
+# round a bf16 step (2**-8) apart; the outputs are rounded to bf16 once.
+K2BWD_BF16_RTOL_OF_MAX = 2e-2
+# Gradient oracle: the kernels' own share of an f32 full-width gradient,
+# leaf by leaf. The trained checkpoint's scores span up to ~1e6 within a row
+# at the up_3 sites: the softmax is saturated there, and the backward
+# through it amplifies a 1e-7 difference at a site into 1e-3..1 of a small
+# leaf's max|ref| (f32 against f64 alike). So the gradient is taken on a
+# conditioned net: each attention site's q and k projections scaled down,
+# in forward order, until the widest row of its scores q.k^T/sqrt(d) spans
+# GRAD_SCORE_RANGE (the TINY net's widest row at 64x64 with q and k scaled
+# by 0.1, where the CPU tests hold the port's f32 gradient within 2e-4 of
+# JAX's at every leaf). There, each leaf of the gradient through K2c/K2d is
+# within GRAD_SHARE_RTOL_OF_MAX of that leaf's max|ref| of the gradient with
+# the plain backward at the four flash sites: summation order alone, in f32,
+# where every other op is the same.
+GRAD_SCORE_RANGE = 16.0
+GRAD_SHARE_RTOL_OF_MAX = 1e-3
+
 MAIN_SHAPES = [(2048, 784, 256), (2048, 256, 128), (2048, 128, 10)]  # M, K, N
 RAGGED_SHAPE = (130, 257, 200)
 TPU_KERNEL = "big_linear_algebra_tpu/ops/matmul.py:220"
@@ -93,6 +142,12 @@ K2_TPU_KERNEL = "big_linear_algebra_tpu/nn/attention.py:545"
 K2_SHAPES = [(1, 1024), (2, 300), (1, 4096), (1, 16384)]  # B, N
 K2_MAIN = (1, 1024, 16)  # B, N, d at the U-Net's four flash sites, 64x64
 K2_TIMED = [K2_MAIN, (4, 4096, 64)]
+K2C_TPU_KERNEL = "big_linear_algebra_tpu/nn/attention.py:662"
+K2D_TPU_KERNEL = "big_linear_algebra_tpu/nn/attention.py:682"
+K2BWD_SHAPES = [(16, 1024), (2, 300), (1, 4096)]  # B, N
+K2BWD_MAIN = (16, 1024, 16)  # B, N, d at the flash sites of a train step
+K2BWD_TIMED = [K2BWD_MAIN, (4, 4096, 64)]
+TRAIN_STEPS, RESUME_STEPS = 50, 10
 
 # Peaks of one H100 SXM at its full 700 W limit (NVIDIA's data sheet, dense
 # rates): HBM3 bytes/s, and FLOP/s for true f32 on the CUDA cores and for
@@ -137,13 +192,14 @@ def phase_environment():
 def phase_build() -> None:
     from big_linear_algebra_tpu_torch.ops import cuda_utils
 
-    names = ("matmul", "flash_attn")
+    names = ("matmul", "flash_attn", "flash_attn_bwd")
     t0 = time.perf_counter()
     cuda_utils.build(names)
     for name in names:
         cuda_utils.load_library(name)
-    print(f"[2 build] csrc/matmul.cu and csrc/flash_attn.cu built in "
-          f"parallel and loaded in {time.perf_counter() - t0:.2f} s ("
+    print("[2 build] " + ", ".join(f"csrc/{n}.cu" for n in names)
+          + f" built in parallel and loaded in "
+          f"{time.perf_counter() - t0:.2f} s ("
           + ", ".join(cuda_utils.library_path(n).name for n in names) + ")",
           flush=True)
 
@@ -350,6 +406,20 @@ def k2_bound_ms(b: int, n: int, d: int, dtype, exp2_per_s: float):
     item = torch.finfo(dtype).bits // 8
     nbytes = 4 * b * n * d * item + 4 * b * n
     ops_s = max(4 * b * n * n * d / PEAK_FLOPS[dtype],
+                b * n * n / exp2_per_s)
+    return _bound(nbytes, ops_s)
+
+
+def k2bwd_bound_ms(kernel: str, b: int, n: int, d: int, dtype,
+                   exp2_per_s: float):
+    """K2c ("dq") or K2d ("dkv"): q, k, v, g read once (input dtype), lse2
+    and delta (f32) read once, dq or dk and dv written once; 6·B·N²·d (K2c)
+    or 8·B·N²·d (K2d) flops at the dtype's peak and B·N² exp2 at the card's
+    exp2 rate, whichever takes longer."""
+    item = torch.finfo(dtype).bits // 8
+    n_out, flops_per = (1, 6) if kernel == "dq" else (2, 8)
+    nbytes = (4 + n_out) * b * n * d * item + 2 * 4 * b * n
+    ops_s = max(flops_per * b * n * n * d / PEAK_FLOPS[dtype],
                 b * n * n / exp2_per_s)
     return _bound(nbytes, ops_s)
 
@@ -578,7 +648,7 @@ def phase_unet_oracle() -> None:
     with torch.inference_mode():
         for dt in ("float64", "float32", "bfloat16"):
             c = dataclasses.replace(cfg, compute_dtype=dt)
-            p = cu._tree_map(lambda a: a.to("cuda", getattr(torch, dt)),
+            p = cu.tree_map(lambda a: a.to("cuda", getattr(torch, dt)),
                              params)
             at.launch_count = 0
             outs[dt] = cu.forward(p, x, t, c).double()
@@ -596,7 +666,7 @@ def phase_unet_oracle() -> None:
         try:
             for dt in ("float32", "bfloat16"):
                 c = dataclasses.replace(cfg, compute_dtype=dt)
-                p = cu._tree_map(lambda a: a.to("cuda", getattr(torch, dt)),
+                p = cu.tree_map(lambda a: a.to("cuda", getattr(torch, dt)),
                                  params)
                 outs[f"{dt} plain"] = cu.forward(p, x, t, c).double()
         finally:
@@ -622,43 +692,492 @@ def phase_unet_oracle() -> None:
                     params, x)
 
 
-def phase_unet_step(cu, cfg, params, x, n_fwd=5) -> None:
-    """One bf16 forward (a sampling step's network): host wall time per
-    forward without the profiler, then a ``torch.profiler`` trace of
-    ``n_fwd`` forwards reduced by ``trace_summary.py`` (device busy per
-    forward and the largest device entries)."""
+def _host_and_trace(fn, n_traced: int, warmup: int = 3, timed: int = 10):
+    """(host ms per call, device busy ms per call, trace summary) of
+    ``fn``: host wall time per call over ``timed`` calls ending in a
+    synchronise, without the profiler; then a ``torch.profiler`` trace of
+    ``n_traced`` calls reduced by ``trace_summary.py``."""
     import trace_summary
 
-    p = cu._tree_map(lambda a: a.to("cuda", torch.bfloat16), params)
-    tb = torch.tensor([500], dtype=torch.int32, device="cuda")
-    with torch.inference_mode():
-        for _ in range(3):
-            cu.forward(p, x, tb, cfg)
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / timed
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n_traced):
+            fn()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(10):
-            cu.forward(p, x, tb, cfg)
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3 / 10
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(n_fwd):
-                cu.forward(p, x, tb, cfg)
-            torch.cuda.synchronize()
     with tempfile.TemporaryDirectory(prefix="bla_trace_") as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             summary = trace_summary.summarize(json.load(f), top=8)
     busy_ms = float(re.search(r"device busy ([0-9.]+) ms",
-                              summary).group(1)) / n_fwd
+                              summary).group(1)) / n_traced
+    return host_ms, busy_ms, summary
+
+
+def phase_unet_step(cu, cfg, params, x, n_fwd=5) -> None:
+    """One bf16 forward (a sampling step's network): host wall time per
+    forward without the profiler, then a ``torch.profiler`` trace of
+    ``n_fwd`` forwards reduced by ``trace_summary.py`` (device busy per
+    forward and the largest device entries)."""
+    p = cu.tree_map(lambda a: a.to("cuda", torch.bfloat16), params)
+    tb = torch.tensor([500], dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        host_ms, busy_ms, summary = _host_and_trace(
+            lambda: cu.forward(p, x, tb, cfg), n_fwd)
     print(f"[7 unet step] one bf16 full-width 64x64 forward (a sampling "
           f"step's network): host wall {host_ms:.3f} ms per forward "
           f"(synchronised, no profiler); device busy {busy_ms:.3f} ms per "
           f"forward = {busy_ms / host_ms:.1%} of that; trace of {n_fwd} "
           f"forwards (trace_summary.py):\n    "
           + summary.replace("\n", "\n    "), flush=True)
+
+
+def _k2bwd_inputs(b, n, d, dtype, gen):
+    """(q, k, v, o, lse, g) as the backward gets them on the main path: q,
+    k, v and the cotangent g ~ N(0, 1) made on the CPU from ``gen``, on the
+    card, and K2's o and lse of them."""
+    from big_linear_algebra_tpu_torch.nn import attention as at
+
+    q, k, v, g = (torch.randn(b, n, d, generator=gen).to("cuda", dtype)
+                  for _ in range(4))
+    o, lse = at._kernel_flash(q, k, v)
+    return q, k, v, o, lse, g
+
+
+def phase_k2bwd_vs_plain() -> dict:
+    """Every K2c/K2d case against ``_plain_flash_bwd``; returns the worst
+    abs error per kernel ({"dq": .., "dkv": ..}) over all cases."""
+    from big_linear_algebra_tpu_torch.nn import attention as at
+
+    gen = torch.Generator().manual_seed(5)
+    cases = [(b, n, d) for d in (16, 64) for b, n in K2BWD_SHAPES]
+    cases += [(2, 300, d) for d in at._KERNEL_DIMS if d not in (16, 64)]
+    worst_abs = {"dq": 0.0, "dkv": 0.0}
+    # f32: err / (atol + rtol*|ref|); bf16: err / max|ref|
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    bad = []
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, n, d in cases:
+            args = _k2bwd_inputs(b, n, d, dtype, gen)
+            got = at._kernel_flash_bwd(*args)
+            want = at._plain_flash_bwd(*args)
+            torch.cuda.synchronize()
+            case = f"{str(dtype)[6:]} B={b} N={n} d={d}"
+            for name, x, y in zip(("dq", "dk", "dv"), got, want):
+                if x.shape != y.shape or x.dtype != y.dtype:
+                    bad.append(f"{case} {name}: {tuple(x.shape)} {x.dtype}, "
+                               f"expected {tuple(y.shape)} {y.dtype}")
+                    continue
+                diff = (x.float() - y.float()).abs()
+                kernel = "dq" if name == "dq" else "dkv"
+                worst_abs[kernel] = max(worst_abs[kernel], diff.max().item())
+                if dtype == torch.float32:
+                    ratio = (diff / (K2BWD_F32_ATOL + K2BWD_F32_RTOL
+                                     * y.abs())).max().item()
+                    worst[dtype] = max(worst[dtype], ratio)
+                    if not ratio <= 1.0:
+                        bad.append(f"{case} {name}: err exceeds atol "
+                                   f"{K2BWD_F32_ATOL} + rtol {K2BWD_F32_RTOL}"
+                                   f"*|ref| by {ratio}x")
+                else:
+                    rel = diff.max().item() / y.float().abs().max().item()
+                    worst[dtype] = max(worst[dtype], rel)
+                    if not rel <= K2BWD_BF16_RTOL_OF_MAX:
+                        bad.append(f"{case} {name}: err / max|ref| {rel} > "
+                                   f"{K2BWD_BF16_RTOL_OF_MAX}")
+            n_cases += 1
+    if bad:
+        fail(f"{len(bad)} K2c/K2d outputs disagree with the plain version:"
+             "\n  " + "\n  ".join(bad))
+    print(f"[8 K2c/K2d vs plain] {n_cases} cases pass (f32/bf16 x d 16, 64 "
+          f"x (B, N) {K2BWD_SHAPES}, and d {[d for _, _, d in cases[6:]]} at "
+          f"(2, 300)); dq, dk, dv each: worst f32 err/(atol {K2BWD_F32_ATOL}"
+          f" + rtol {K2BWD_F32_RTOL}*|ref|) {worst[torch.float32]:.3f}, "
+          f"worst bf16 err/max|ref| {worst[torch.bfloat16]:.3e} (tol "
+          f"{K2BWD_BF16_RTOL_OF_MAX}); worst abs err dq "
+          f"{worst_abs['dq']:.3e}, dk/dv {worst_abs['dkv']:.3e}", flush=True)
+    return worst_abs
+
+
+def phase_k2bwd_timing(exp2_per_s: float) -> dict:
+    """bf16 at the train step's flash shape and at (4, 4096, 64): K2c and
+    K2d each on prepared operands, the wrapper (prep + both kernels), the
+    plain backward and SDPA's backward (``torch.autograd.grad`` through
+    ``F.scaled_dot_product_attention`` on (B, 1, N, d)), in turns within
+    this one process; the lower of each pair is kept. Returns the main
+    shape's numbers."""
+    import torch.nn.functional as F
+
+    from big_linear_algebra_tpu_torch.nn import attention as at
+
+    gen = torch.Generator().manual_seed(6)
+    names = ("dq", "dkv", "wrapper", "plain", "sdpa")
+    main = {}
+    for b, n, d in K2BWD_TIMED:
+        args = _k2bwd_inputs(b, n, d, torch.bfloat16, gen)
+        ops = at._kernel_bwd_operands(*args)
+        q4, k4, v4 = (x[:, None].detach().requires_grad_()
+                      for x in args[:3])
+        o4 = F.scaled_dot_product_attention(q4, k4, v4)
+        g4 = args[5][:, None]
+        fns = {"dq": lambda: at._kernel_bwd_dq(*ops),
+               "dkv": lambda: at._kernel_bwd_dkv(*ops),
+               "wrapper": lambda: at._kernel_flash_bwd(*args),
+               "plain": lambda: at._plain_flash_bwd(*args),
+               "sdpa": lambda: torch.autograd.grad(o4, (q4, k4, v4), g4,
+                                                   retain_graph=True)}
+        runs = {name: [] for name in names}
+        for name in names + names[::-1]:
+            runs[name].append(_time_ms(fns[name]))
+        ms = {name: min(dv for dv, _ in runs[name]) for name in names}
+        host = {name: min(h for _, h in runs[name]) for name in names}
+        bounds = {kern: k2bwd_bound_ms(kern, b, n, d, torch.bfloat16,
+                                       exp2_per_s) for kern in ("dq", "dkv")}
+        print(f"[8 K2c/K2d timing] bf16 B={b} N={n} d={d}: device K2c "
+              f"{ms['dq'] * 1e3:.2f} us (bound {bounds['dq'][0] * 1e3:.3f} "
+              f"us, {bounds['dq'][1]}), K2d {ms['dkv'] * 1e3:.2f} us (bound "
+              f"{bounds['dkv'][0] * 1e3:.3f} us, {bounds['dkv'][1]}); "
+              f"wrapper (prep + K2c + K2d) {ms['wrapper'] * 1e3:.2f} us, "
+              f"plain backward {ms['plain'] * 1e3:.2f} us, SDPA backward "
+              f"{ms['sdpa'] * 1e3:.2f} us ({b * n * n} exp2, "
+              f"{6 * b * n * n * d} + {8 * b * n * n * d} flops) | host per "
+              f"call: wrapper {host['wrapper'] * 1e3:.2f} us, plain "
+              f"{host['plain'] * 1e3:.2f} us, SDPA {host['sdpa'] * 1e3:.2f} "
+              f"us", flush=True)
+        if (b, n, d) == K2BWD_MAIN:
+            main = dict(ms, bound=bounds)
+    return main
+
+
+def _epoch_line(text: str, epoch: int) -> dict:
+    """The ``epoch: <epoch>`` metrics line of ``train`` as {key: value}."""
+    for line in text.splitlines():
+        if line.startswith(f"epoch: {epoch}\t"):
+            return dict(kv.split(": ", 1) for kv in line.split("\t"))
+    fail(f"no 'epoch: {epoch}' line in the train output:\n{text}")
+
+
+def phase_unet_train(tmp: str) -> dict:
+    """``ensure_cifar``, ``cifar_unet init``, ``train 1 --image-size=64
+    --max-steps=50`` and a resumed ``train 1 ... --max-steps=10`` in
+    ``tmp``; returns the launches of K2, K2c and K2d during the first
+    ``train``. Each step's loss is read by wrapping ``train_step``."""
+    from big_linear_algebra_tpu_torch.ckpt import pytree
+    from big_linear_algebra_tpu_torch.data import synth
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn import attention as at
+    from big_linear_algebra_tpu_torch.ops import matmul as mm
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        n_ex = sum(os.path.getsize(p) for p in synth.ensure_cifar(tmp)) // 3073
+        synth_s = time.perf_counter() - t0
+        rc_init = cu.main(["init"])
+    init_s = time.perf_counter() - t0 - synth_s
+    losses = []
+    real_step = cu.train_step
+
+    def step(*a, **kw):
+        params, opt_state, loss = real_step(*a, **kw)
+        losses.append(loss)
+        return params, opt_state, loss
+
+    cu.train_step = step
+    try:
+        first = io.StringIO()
+        at.launch_count = at.bwd_dq_launch_count = 0
+        at.bwd_dkv_launch_count = mm.launch_count = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(first):
+            rc_train = cu.main(["train", "1", "--image-size=64",
+                                f"--max-steps={TRAIN_STEPS}"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {"K2": at.launch_count, "K2c": at.bwd_dq_launch_count,
+                    "K2d": at.bwd_dkv_launch_count, "K1": mm.launch_count}
+        steps = pytree.all_steps(cu.state_dir())
+        second = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(second):
+            rc_resume = cu.main(["train", "1", "--image-size=64",
+                                 f"--max-steps={RESUME_STEPS}"])
+        resume_s = time.perf_counter() - t0
+    finally:
+        cu.train_step = real_step
+    text, text2 = first.getvalue(), second.getvalue()
+    if (rc_init, rc_train, rc_resume) != (0, 0, 0):
+        fail(f"cifar_unet init/train/train exited {rc_init}/{rc_train}/"
+             f"{rc_resume}:\n{out.getvalue()}{text}{text2}")
+    vals = torch.stack(losses).float().cpu()
+    if len(losses) != TRAIN_STEPS + RESUME_STEPS:
+        fail(f"{len(losses)} train steps, expected {TRAIN_STEPS} + "
+             f"{RESUME_STEPS}")
+    if not torch.isfinite(vals).all():
+        fail(f"non-finite step losses: {vals.tolist()}")
+    per_step = 4 * TRAIN_STEPS  # 4 flash sites, one forward and backward
+    for name in ("K2", "K2c", "K2d"):
+        if launches[name] != per_step:
+            fail(f"{name} launched {launches[name]} times in {TRAIN_STEPS} "
+                 f"steps, expected {per_step} (4 flash sites per step)")
+    head, tail = (vals[:10].mean().item(),
+                  vals[TRAIN_STEPS - 10:TRAIN_STEPS].mean().item())
+    if not tail < head:
+        fail(f"the loss did not fall: mean of steps 1-10 {head}, of steps "
+             f"{TRAIN_STEPS - 9}-{TRAIN_STEPS} {tail}")
+    if steps != [TRAIN_STEPS]:
+        fail(f"train_state_torch/ holds steps {steps} after the first train, "
+             f"expected [{TRAIN_STEPS}]")
+    resumed = f"resumed train state at step {TRAIN_STEPS} (epoch 1)"
+    if resumed not in text2 or "epoch: 0\t" in text2:
+        fail(f"the second train did not resume at epoch 1:\n{text2}")
+    ep0, ep1 = _epoch_line(text, 0), _epoch_line(text2, 1)
+    print(f"[9 unet train] {n_ex} synthesized CIFAR examples in "
+          f"{synth_s:.2f} s; cifar_unet init {init_s:.2f} s; train 1 "
+          f"--image-size=64 --max-steps={TRAIN_STEPS} (full width, batch "
+          f"16, bf16 compute, f32 masters, Adam) {train_s:.2f} s wall, epoch "
+          f"{ep0['epoch_seconds']} s ({ep0['images_per_sec']} images/s): "
+          f"launches K2 {launches['K2']}, K2c {launches['K2c']}, K2d "
+          f"{launches['K2d']} (K1 {launches['K1']}); loss mean of steps "
+          f"1-10 {head:.5f}, of steps {TRAIN_STEPS - 9}-{TRAIN_STEPS} "
+          f"{tail:.5f}; first/last {vals[0].item():.5f}/"
+          f"{vals[TRAIN_STEPS - 1].item():.5f}; train_state_torch/step_"
+          f"{TRAIN_STEPS}. Resumed train 1 --max-steps={RESUME_STEPS} "
+          f"{resume_s:.2f} s wall: '{resumed}', epoch 1 avg_loss "
+          f"{ep1['avg_loss']}", flush=True)
+    return launches
+
+
+def _unet_grad(cu, params, x0, tt, noise, cfg):
+    """(loss, {path: gradient}) of ``cu.loss_fn`` on the card with the
+    draws given, the parameters cast to the compute dtype first."""
+    dt = getattr(torch, cfg.compute_dtype)
+    leaves = cu.tree_map(
+        lambda a: a.to("cuda", dt).requires_grad_(), params)
+    loss = cu.loss_fn(leaves, x0.to("cuda", dt), tt.cuda(),
+                      noise.to("cuda", dt), cfg)
+    flat = cu.tree_leaves(leaves)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    return loss.item(), [torch.zeros_like(p) if g is None else g.double()
+                         for p, g in zip(flat, grads)]
+
+
+def _leaf_errors(got, want):
+    """(worst over leaves of max|got − want| / that leaf's max|want|, worst
+    max|got − want| over all leaves / the largest max|want|, the median of
+    the first); a leaf whose reference is all zero counts its absolute
+    difference."""
+    per_leaf, errs, scales = [], [], []
+    for a, b in zip(got, want):
+        scale = b.abs().max().item()
+        err = (a.double() - b).abs().max().item()
+        per_leaf.append(err / scale if scale > 0 else err)
+        errs.append(err)
+        scales.append(scale)
+    return (max(per_leaf), max(errs) / max(scales),
+            sorted(per_leaf)[len(per_leaf) // 2])
+
+
+def _site_share(at, sites) -> float:
+    """K2c/K2d against the plain backward on each flash site's captured
+    operands, at the f32 bounds of phase 8; returns the worst err/tol."""
+    worst = 0.0
+    for i, args in enumerate(sites):
+        got = at._kernel_flash_bwd(*args)
+        want = at._plain_flash_bwd(*args)
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            ratio = ((x - y).abs() / (K2BWD_F32_ATOL + K2BWD_F32_RTOL
+                                      * y.abs())).max().item()
+            worst = max(worst, ratio)
+            if not ratio <= 1.0:
+                fail(f"flash site {i} of the f32 gradient, {name}: K2c/K2d "
+                     f"err exceeds atol {K2BWD_F32_ATOL} + rtol "
+                     f"{K2BWD_F32_RTOL}*|ref| by {ratio}x")
+    return worst
+
+
+def _score_overshoot(at, q, k, lse):
+    """(max|s|, max(s − lse2) with the scores K2c/K2d use, the same with
+    the Pallas kernels' scores) at one flash site, s in log2 units. The
+    kernels recompute the forward's scores, from q scaled and rounded to its
+    dtype; the Pallas backward scales the unrounded f32 score, and where the
+    overshoot passes 128, p = exp2(s − lse2) overflows to inf."""
+    c = at._qscale(q.shape[-1])
+    qf, kt = q.float(), k.float().transpose(-1, -2)
+    lse2 = lse[..., None] * at._LOG2E
+    s = (qf * c).to(q.dtype).float() @ kt
+    s_pallas = (qf @ kt) * c
+    return (s.abs().max().item(), (s - lse2).max().item(),
+            (s_pallas - lse2).max().item())
+
+
+def _condition_attention(cu, params, x0, tt, noise, cfg):
+    """A copy of ``params`` with each attention site's q and k projections
+    scaled by f = min(1, sqrt(GRAD_SCORE_RANGE / w)), w the widest row of
+    its scores q.k^T/sqrt(d) in an f32 forward on the given draws. A site's
+    factor is applied in that forward before the sites after it are
+    measured. Returns (params, {site: (w, f)})."""
+    import math
+
+    params = cu.tree_map(lambda a: a.to("cuda", torch.float32), params)
+    real = cu.self_attention_block
+    factors = {}  # id of a site's q → (w, f)
+
+    def block(x, p):
+        tokens = x.flatten(2).transpose(1, 2)
+        s = (tokens @ p["q"]) @ (tokens @ p["k"]).transpose(-1, -2)
+        w = ((s.amax(-1) - s.amin(-1)).max() / math.sqrt(
+            p["q"].shape[1])).item()
+        f = math.sqrt(GRAD_SCORE_RANGE / w) if w > GRAD_SCORE_RANGE else 1.0
+        factors[id(p["q"])] = (w, f)
+        return real(x, dict(p, q=p["q"] * f, k=p["k"] * f))
+
+    cu.self_attention_block = block
+    try:
+        with torch.no_grad():
+            cu.loss_fn(params, x0.cuda(), tt.cuda(), noise.cuda(), cfg)
+    finally:
+        cu.self_attention_block = real
+    sites = {}
+    for stage, blocks in params.items():
+        for name, p in blocks.items() if isinstance(blocks, dict) else ():
+            if name.startswith("attn"):
+                w, f = sites[f"{stage} {name}"] = factors.pop(id(p["q"]))
+                p["q"], p["k"] = p["q"] * f, p["k"] * f
+    if factors or len(sites) != 5:
+        fail(f"conditioned {len(sites)} attention sites, expected 5")
+    return params, sites
+
+
+def phase_grad_oracle() -> None:
+    """From the trained CSV tree: one f32 full-width 64x64 gradient at
+    batch 2 on fixed draws (dropout off) through K2c/K2d, on the
+    conditioned net (``_condition_attention``); each leaf against the same
+    with the plain backward at the four flash sites (bounded) and against
+    the f64 gradient (dense attention; reported); the kernels against the
+    plain backward on each flash site's operands (bounded). The trained
+    net's own bf16 gradient must be finite; its sites' scores are reported.
+    Then one bf16 batch-16 train step's time."""
+    import dataclasses
+
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn import attention as at
+
+    cfg = dataclasses.replace(cu.CONFIG, image_size=64, dropout_rate=0.0)
+    params = cu.load_params_csv(cfg)
+    gen = torch.Generator().manual_seed(7)
+    x0 = torch.rand(2, 3, 64, 64, generator=gen) * 2 - 1
+    tt = torch.randint(0, cfg.timesteps, (2,), generator=gen)
+    noise = torch.randn(2, 3, 64, 64, generator=gen)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    conditioned, factors = _condition_attention(cu, params, x0, tt, noise, f32)
+    kernel = at._kernel_flash_bwd
+    runs = {"f32": conditioned, "bf16": params, "f64": conditioned}
+    dtypes = {"f32": "float32", "bf16": "bfloat16", "f64": "float64"}
+    sites = {name: [] for name in runs}  # each run's flash-site operands
+    name = "f32"  # the run under way, read by capture
+
+    def capture(*args):
+        sites[name].append(tuple(a.detach().clone() for a in args))
+        return kernel(*args)
+
+    results = {}
+    at._kernel_flash_bwd = capture
+    try:
+        for name, tree in runs.items():
+            at.launch_count = at.bwd_dq_launch_count = 0
+            at.bwd_dkv_launch_count = 0
+            results[name] = _unet_grad(cu, tree, x0, tt, noise,
+                                       dataclasses.replace(
+                                           cfg, compute_dtype=dtypes[name]))
+            torch.cuda.synchronize()
+            counts = (at.launch_count, at.bwd_dq_launch_count,
+                      at.bwd_dkv_launch_count)
+            if counts != ((0, 0, 0) if name == "f64" else (4, 4, 4)):
+                fail(f"{name} gradient launched K2/K2c/K2d {counts} times")
+        at._kernel_flash_bwd = at._plain_flash_bwd
+        results["f32 plain"] = _unet_grad(cu, conditioned, x0, tt, noise, f32)
+    finally:
+        at._kernel_flash_bwd = kernel
+    grads = {k: g for k, (_, g) in results.items()}
+    if not all(torch.isfinite(g).all() for gs in grads.values() for g in gs):
+        fail("non-finite gradient leaves (the bf16 gradient included)")
+    if len(sites["f32"]) != 4:
+        fail(f"{len(sites['f32'])} flash sites in the f32 gradient, "
+             "expected 4")
+    site = _site_share(at, sites["f32"])
+    scores = [_score_overshoot(at, q, k, lse)
+              for q, k, _, _, lse, _ in sites["bf16"]]
+    share = _leaf_errors(grads["f32"], grads["f32 plain"])
+    vs_f64 = _leaf_errors(grads["f32"], grads["f64"])
+    plain_vs_f64 = _leaf_errors(grads["f32 plain"], grads["f64"])
+
+    def fmt(e):
+        return (f"worst leaf {e[0]:.3e} of its max|ref|, {e[1]:.3e} of the "
+                f"largest max|ref|, median leaf {e[2]:.3e}")
+
+    print(f"[10 grad oracle] full-width 64x64 f32 gradient at batch 2, t="
+          f"{tt.tolist()}, dropout off, {len(grads['f32'])} leaves, on the "
+          f"conditioned net (per attention site, the widest score row "
+          f"before and the q, k factor: "
+          f"{', '.join(f'{k} {w:.4g}, {f:.4g}' for k, (w, f) in factors.items())}"
+          f"): "
+          f"gradient through K2c/K2d vs with the plain backward: "
+          f"{fmt(share)} (tol {GRAD_SHARE_RTOL_OF_MAX} per leaf); K2c/K2d vs "
+          f"plain on the 4 flash sites' operands, worst err/(atol "
+          f"{K2BWD_F32_ATOL} + rtol {K2BWD_F32_RTOL}*|ref|) {site:.3e} (tol "
+          f"1); reported, no bound: through K2c/K2d vs f64 (dense "
+          f"attention): {fmt(vs_f64)}; plain vs f64: {fmt(plain_vs_f64)}; "
+          f"losses f32 {results['f32'][0]:.6f}, f32 plain "
+          f"{results['f32 plain'][0]:.6f}, f64 {results['f64'][0]:.6f}. "
+          f"The trained net's bf16 gradient is finite; at its 4 flash sites, "
+          f"in backward order (up_3 attn_2, attn_1, down_2 attn_2, attn_1), "
+          f"max|s| in log2 units "
+          f"{[round(s[0], 1) for s in scores]}, max(s - lse2) with the "
+          f"kernels' scores {[round(s[1], 4) for s in scores]}, with the "
+          f"Pallas kernels' scores {[round(s[2], 4) for s in scores]} "
+          f"(p overflows past 128)", flush=True)
+    if not share[0] <= GRAD_SHARE_RTOL_OF_MAX:
+        fail(f"the f32 gradient through K2c/K2d differs from the one with "
+             f"the plain backward by {share[0]:.3e} of a leaf's max|ref| "
+             f"(tol {GRAD_SHARE_RTOL_OF_MAX})")
+    phase_train_step_time(cu, params)
+
+
+def phase_train_step_time(cu, params, n_steps=3) -> None:
+    """One bf16 train step at batch 16, 64x64 (f32 masters, Adam, dropout
+    on): host wall time per step, and the device busy time of a traced
+    run of ``n_steps`` steps."""
+    import dataclasses
+
+    cfg = dataclasses.replace(cu.CONFIG, image_size=64)
+    state = {"p": cu.tree_map(lambda a: a.to("cuda"), params)}
+    state["opt"] = cu.adam_init(state["p"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand(cfg.batch_size, 3, 64, 64, generator=gen,
+                   device="cuda") * 2 - 1
+
+    def step():
+        state["p"], state["opt"], _ = cu.train_step(
+            state["p"], state["opt"], x, gen, cfg)
+
+    host_ms, busy_ms, summary = _host_and_trace(step, n_steps)
+    print(f"[10 train step] one bf16 train step, batch 16, 64x64, full "
+          f"width: host wall {host_ms:.3f} ms per step (synchronised, no "
+          f"profiler); device busy {busy_ms:.3f} ms per step = "
+          f"{busy_ms / host_ms:.1%} of that; trace of {n_steps} steps "
+          f"(trace_summary.py):\n    " + summary.replace("\n", "\n    "),
+          flush=True)
 
 
 def main() -> int:
@@ -675,6 +1194,30 @@ def main() -> int:
         k2_launches = phase_unet_main_path(tmp)
         phase_unet_oracle()
         del os.environ["BLA_DATA_DIR"]
+    bwd_err = phase_k2bwd_vs_plain()
+    bwd = phase_k2bwd_timing(exp2_per_s)
+    with tempfile.TemporaryDirectory(prefix="bla_smoke_") as tmp:
+        os.environ["BLA_DATA_DIR"] = tmp
+        train_launches = phase_unet_train(tmp)
+        phase_grad_oracle()
+        del os.environ["BLA_DATA_DIR"]
+    bwd_rows = [{
+        "name": f"{name} flash attention backward ({what})",
+        "route": "cuda",
+        "source": "big_linear_algebra_tpu_torch/csrc/flash_attn_bwd.cu",
+        "replaces": tpu,
+        "launches": train_launches[name],
+        "max_abs_err": bwd_err[kern],
+        "ms": bwd[kern],
+        # the plain version and SDPA's backward compute dq, dk and dv in one
+        # call: the same work as K2c and K2d together
+        "plain_ms": bwd["plain"],
+        "bound_ms": bwd["bound"][kern][0],
+        "bound_by": bwd["bound"][kern][1],
+        "library_ms": bwd["sdpa"],
+    } for name, kern, what, tpu in (
+        ("K2c", "dq", "dq", K2C_TPU_KERNEL),
+        ("K2d", "dkv", "dk, dv", K2D_TPU_KERNEL))]
     print(json.dumps({"kernels": [{
         "name": "K1 matmul (nn/nt/tn, bias+ReLU epilogue)",
         "route": "cuda",
@@ -699,7 +1242,7 @@ def main() -> int:
         "bound_ms": k2["bound"],
         "bound_by": k2["bound_by"],
         "library_ms": k2["sdpa"],
-    }]}), flush=True)
+    }, *bwd_rows]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,7 @@ from big_linear_algebra_tpu.nn import norm as jax_norm
 from big_linear_algebra_tpu.ops import activations as jax_act
 from big_linear_algebra_tpu_torch.nn import attention as at
 from big_linear_algebra_tpu_torch.nn import conv, dropout, init, norm
-from big_linear_algebra_tpu_torch.ops import activations
+from big_linear_algebra_tpu_torch.ops import activations, matmul
 from tests.torch_parity import n, t
 
 # the module: the JAX package's nn/__init__ re-exports a function of the
@@ -179,6 +179,8 @@ def test_self_attention_block_f64_matches_jax(rng):
 
 
 def test_forward_only_ops_raise_under_autograd(rng):
+    """Only K1's GEMM is still forward-only (mnist_nn training is not
+    ported); the U-Net's ops carry their hand-written backwards."""
     x = t(rng.standard_normal((1, 4, 3, 3))).requires_grad_()
     w = t(rng.standard_normal((2, 4, 3, 3)))
     q = t(rng.standard_normal((1, 8, 4))).requires_grad_()
@@ -187,10 +189,12 @@ def test_forward_only_ops_raise_under_autograd(rng):
                  lambda: activations.relu(x),
                  lambda: at.attention_dense(q, q, q),
                  lambda: at.flash_attention(q, q, q)):
-        with pytest.raises(RuntimeError, match="forward-only"):
-            call()
+        assert call().requires_grad
+    a = t(rng.standard_normal((3, 4))).requires_grad_()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        matmul.matmul(a, t(rng.standard_normal((4, 2))))
     with torch.no_grad():
-        assert conv.conv2d(x, w, 1).shape == (1, 2, 3, 3)
+        assert matmul.matmul(a, t(rng.standard_normal((4, 2)))).shape == (3, 2)
 
 
 def test_flash_kernel_wrapper_rejects_what_it_cannot_take():
