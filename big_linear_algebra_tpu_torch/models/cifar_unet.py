@@ -32,10 +32,15 @@ rbg/threefry streams are not reproduced, and the tests inject draws.
 
 At ``--image-size=64`` the four attention sites at resolution 2 (down_2 and
 up_3) see 32×32 = 1024 tokens and run the flash kernels (K2 forward,
-``csrc/flash_attn.cu``; K2c/K2d backward, ``csrc/flash_attn_bwd.cu``);
-everything else is plain torch (cuDNN convs, cuBLAS products), as the JAX
-package leaves it to XLA. Activations are NCHW and parameters the JAX
-package's nested dict, with the same keys and layouts.
+``csrc/flash_attn.cu``; K2c/K2d backward, ``csrc/flash_attn_bwd.cu``).
+With ``--fused-block`` every resnet block at H·W ≤ 64 that the JAX
+package's gate admits (``nn/fused_block.py`` ``supported``) runs as one
+fused block (K5a forward, K5b recompute backward, ``csrc/fused_block.cu``):
+at 32×32 the blocks of down_3, down_4, mid, up_1 and up_2. Its dropout bits
+come from a seed the block draws from the generator where the unfused block
+draws its mask. Everything else is plain torch (cuDNN convs, cuBLAS
+products), as the JAX package leaves it to XLA. Activations are NCHW and
+parameters the JAX package's nested dict, with the same keys and layouts.
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ from big_linear_algebra_tpu_torch.data.prefetch import prefetch_to_device
 from big_linear_algebra_tpu_torch.models import common
 from big_linear_algebra_tpu_torch.nn.attention import self_attention_block
 from big_linear_algebra_tpu_torch.nn.conv import conv2d
+from big_linear_algebra_tpu_torch.nn import fused_block
 from big_linear_algebra_tpu_torch.nn.dropout import dropout
 from big_linear_algebra_tpu_torch.nn.init import he_uniform, xavier_uniform
 from big_linear_algebra_tpu_torch.nn.losses import mse_loss
@@ -107,6 +113,8 @@ class Config:
     # stored-parameter dtype; "bfloat16" with --bf16-params (Adam moments
     # stay f32, writes use stochastic rounding)
     param_dtype: str = "float32"
+    # --fused-block: the resnet blocks at H·W ≤ 64 as one fused block (K5)
+    fused_block: bool = False
 
 
 CONFIG = Config()
@@ -388,15 +396,30 @@ def _resnet_block(x, temb, p, cfg: Config, generator, train: bool):
     """GN→ReLU→conv3×3 → +time → GN→ReLU→dropout→conv3×3 + residual
     (``_forward_resnet``, model/cifar_unet.c:1044-1072). In train mode the
     dropout mask is drawn from ``generator``, so the blocks draw in the JAX
-    package's key order (down 0–7, mid 8–9, up 10–17)."""
+    package's key order (down 0–7, mid 8–9, up 10–17). With
+    ``cfg.fused_block`` a block at H·W ≤ 64 that the gate admits is one
+    fused block (the JAX package's dispatch), which draws its dropout seed
+    from ``generator`` in place of the mask."""
     td = temb @ p["time_w"] + p["time_b"]                # (B, out)
+    in_ch, out_ch = x.shape[1], p["conv_1"].shape[0]
+    if (cfg.fused_block and x.shape[2] * x.shape[3] <= 64
+            and fused_block.supported(x.shape, in_ch, out_ch,
+                                      p["conv_1"].shape[-1], cfg.group_size,
+                                      x.dtype)):
+        seed = 0
+        if train and cfg.dropout_rate > 0.0:
+            seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                 device=x.device, dtype=torch.int32)
+        w3 = p["conv_3"] if in_ch != out_ch else None
+        return fused_block.fused_resnet_block(
+            x, td, p["conv_1"], p["conv_2"], w3, seed, cfg.group_size,
+            cfg.dropout_rate, train)
     h = conv2d(_gn_relu(x, cfg), p["conv_1"], 1)
     h = h + td[:, :, None, None]
     h = _gn_relu(h, cfg)
     h = dropout(h, cfg.dropout_rate, generator, deterministic=not train)
     h = conv2d(h, p["conv_2"], 1)
-    same = x.shape[1] == p["conv_1"].shape[0]
-    return h + (x if same else conv2d(x, p["conv_3"], 1))
+    return h + (x if in_ch == out_ch else conv2d(x, p["conv_3"], 1))
 
 
 def _upsample(x: torch.Tensor, stride: int) -> torch.Tensor:
@@ -751,6 +774,8 @@ def _cfg_from_flags(flags) -> Config:
         cfg = dataclasses.replace(cfg, image_size=size)
     if common.presence_flag(flags, "bf16-params"):
         cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
+    if common.presence_flag(flags, "fused-block"):
+        cfg = dataclasses.replace(cfg, fused_block=True)
     return cfg
 
 
@@ -906,14 +931,12 @@ def main(argv=None) -> int:
         run_usage="run [<num samples> (default 1)]",
         extra_flags=("tiny", "image-size", "sample-seed", "bf16-params",
                      "layout", "batch", "max-steps", "keep", "keep-best",
-                     "jsonl"),
+                     "jsonl", "fused-block"),
         unsupported_flags={
             "layout=NHWC": "the channels-last twins are not ported yet "
                            "(ROADMAP: one code path on torch.channels_last)",
             "prng": "the port draws from torch.Generator (Philox on the "
                     "GPU); rbg/threefry are JAX's generators",
-            "fused-block": "the fused resnet-block kernel (K5) is not "
-                           "ported yet",
             "remat": "torch.utils.checkpoint restores only the global RNG "
                      "states, not the explicit torch.Generator the dropout "
                      "masks come from, so recomputed masks would differ "

@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
 
-Phases, one line each (or a few); any failure exits non-zero:
+Phases, one line each (or a few), in the order 1–7, 11–15, 8–10; any
+failure exits non-zero:
 1. environment: the card's name and power limit, torch and CUDA versions;
    fails when no CUDA device is available;
 2. build: compiles the kernels from ``big_linear_algebra_tpu_torch/csrc/``
    with nvcc, one process per source, started together: the GEMM (K1,
-   ``matmul.cu``), flash attention (K2, ``flash_attn.cu``) and its
-   backward (K2c and K2d, ``flash_attn_bwd.cu``);
+   ``matmul.cu``), flash attention (K2, ``flash_attn.cu``), its backward
+   (K2c and K2d, ``flash_attn_bwd.cu``) and the fused resnet block (K5a,
+   K5b, ``fused_block.cu``);
 3. K1 against plain, on the card: nn/nt/tn x f32/bf16 x
    {no epilogue, bias, bias+ReLU} at the three mnist_nn layer shapes and a
    ragged one, against the plain PyTorch version with TF32 off; a TF32
@@ -53,7 +55,28 @@ Phases, one line each (or a few); any failure exits non-zero:
    sites (bounded), and against the f64 gradient (reported); the kernels
    against the plain backward on each flash site's operands (bounded); the
    bf16 gradient of the trained net itself finite, with its flash sites'
-   score range; then one bf16 batch-16 train step's host and device time.
+   score range; then one bf16 batch-16 train step's host and device time;
+11. K5 against plain, on the card: K5a and K5b (its data-gradient and
+   weight-gradient kernels) against ``_plain_fused_fwd`` and
+   ``_plain_fused_bwd`` on the same inputs, f32/bf16 x train on/off at the
+   path's blocks (16, 256, 8x8), (16, 512 -> 256, 4x4), (1, 512 -> 256,
+   8x8) and a TINY-width one; the kernels' dropout bits bit-equal to the
+   plain version's;
+12. K5 timing: K5a and K5b beside the plain versions and the port's
+   unfused block (cuDNN convs, GN), at the train step's and the sampler's
+   8x8 blocks, with the bounds;
+13. ``cifar_unet run 1 --fused-block`` at 32x32 (full width, 1000 DDPM
+   steps) from phase 6's checkpoint, with K5a's launches read around it;
+   a non-constant 32x32 BMP;
+14. fused oracle: one f32 full-width 32x32 forward with the fused blocks
+   against the same forward unfused (bounded) and f64 (reported); then one
+   f32 train-mode gradient at batch 16: K5b against the plain backward on
+   every fused block's operands (bounded), the gradient's leaves against
+   the one with the plain backward at those blocks (reported);
+15. ``cifar_unet train 1 --fused-block --max-steps=30`` at batch 16 (9
+   fused blocks: up_2 resnet_1 fails the gate) with the launches of K5a
+   and K5b read around it; finite losses, the last 10 steps' mean below
+   the first 10's; then one resumed step.
 Then a JSON line of per-kernel results, the ``nvidia-smi`` name/power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -135,6 +158,41 @@ K2BWD_BF16_RTOL_OF_MAX = 2e-2
 GRAD_SCORE_RANGE = 16.0
 GRAD_SHARE_RTOL_OF_MAX = 1e-3
 
+# K5a/K5b against their plain version on the same inputs, the JAX tests'
+# fused-block tolerances (tests/test_fused_block.py), elementwise |kernel -
+# plain| <= atol + rtol*|plain|, for the block's output and its gradients.
+# In f32 the plain version is evaluated in f64 on the kernel's f32 inputs:
+# the weight gradients sum B*HW = 1024 products per element, and where an
+# element is near 0 only the atol applies, which the f32 summation error of
+# either side alone nearly fills (the plain f32 version's error against
+# f64 is reported beside the kernel's).
+K5_F32_ATOL, K5_F32_RTOL = 2e-5, 2e-5
+K5_GRAD_ATOL, K5_GRAD_RTOL = 5e-5, 5e-4
+# bf16: the same bf16 operands on both sides, f32 sums in other orders, so
+# a rounding to bf16 (a1, d, dh1t, the outputs) may fall a step (2**-8)
+# apart.
+K5_BF16_RTOL_OF_MAX = 2e-2
+# Fused oracle: the f32 forward with the fused blocks against the same
+# forward unfused. Both are f32 with other rounding (one-pass GN statistics,
+# other sum orders) in ten blocks; the net amplifies rounding as it does
+# f32 against f64 at 64x64, where phase 7 measured 6.1e-4 of max|ref|
+# (PERF.md). Fixed before the first run: 1e-3 of max|ref|, phase 7's bound.
+K5_UNET_RTOL_OF_MAX = 1e-3
+K5A_TPU_KERNEL = "big_linear_algebra_tpu/nn/fused_block.py:396"
+K5B_TPU_KERNEL = "big_linear_algebra_tpu/nn/fused_block.py:441"
+# (B, C, F, H, W, group size): the train step's 8x8 block, up_1 resnet_1 at
+# batch 16, up_2 resnet_1 in sampling, and a TINY-width block
+K5_SHAPES = [(16, 256, 256, 8, 8, 32), (16, 512, 256, 4, 4, 32),
+             (1, 512, 256, 8, 8, 32), (2, 24, 12, 8, 8, 4)]
+K5_TIMED = [(16, 256, 256, 8, 8, 32), (1, 256, 256, 8, 8, 32)]
+# one example fewer than the train step: 15 clusters of 8 blocks
+K5_WAVE = (15, 256, 256, 8, 8, 32)
+K5_RATE = 0.1  # Config.dropout_rate
+FUSED_TRAIN_STEPS = 30
+# fused blocks per forward at 32x32: all ten at batch 1; at batch 16 up_2
+# resnet_1 (512 in-channels at 8x8) needs 58.2 MB of the gate's 50.3 MB
+FUSED_PER_RUN_STEP, FUSED_PER_TRAIN_STEP = 10, 9
+
 MAIN_SHAPES = [(2048, 784, 256), (2048, 256, 128), (2048, 128, 10)]  # M, K, N
 RAGGED_SHAPE = (130, 257, 200)
 TPU_KERNEL = "big_linear_algebra_tpu/ops/matmul.py:220"
@@ -192,7 +250,7 @@ def phase_environment():
 def phase_build() -> None:
     from big_linear_algebra_tpu_torch.ops import cuda_utils
 
-    names = ("matmul", "flash_attn", "flash_attn_bwd")
+    names = ("matmul", "flash_attn", "flash_attn_bwd", "fused_block")
     t0 = time.perf_counter()
     cuda_utils.build(names)
     for name in names:
@@ -1180,6 +1238,446 @@ def phase_train_step_time(cu, params, n_steps=3) -> None:
           flush=True)
 
 
+def _k5_inputs(b, c, f, h, w, dtype, gen):
+    """(x, td, w1, w2, w3 or None, g) made on the CPU from ``gen`` at the
+    path's scale (x, td, g ~ N(0, 1); He-normal convs), on the card."""
+    x = torch.randn(b, c, h, w, generator=gen)
+    td = torch.randn(b, f, generator=gen)
+    w1 = torch.randn(f, c, 3, 3, generator=gen) * (2.0 / (9 * c)) ** 0.5
+    w2 = torch.randn(f, f, 3, 3, generator=gen) * (2.0 / (9 * f)) ** 0.5
+    w3 = (None if c == f else
+          torch.randn(f, c, 1, 1, generator=gen) * (1.0 / c) ** 0.5)
+    g = torch.randn(b, f, h, w, generator=gen)
+    return tuple(None if a is None else a.to("cuda", dtype)
+                 for a in (x, td, w1, w2, w3, g))
+
+
+def _k5_ratio(name: str, got, want) -> float:
+    """max over elements of |got − want| / (atol + rtol·|want|), at the f32
+    tolerance of the output ``name`` (K5a's "out" or a gradient)."""
+    atol, rtol = ((K5_F32_ATOL, K5_F32_RTOL) if name == "out" else
+                  (K5_GRAD_ATOL, K5_GRAD_RTOL))
+    want = want.double()
+    return ((got.double() - want).abs()
+            / (atol + rtol * want.abs())).max().item()
+
+
+def phase_k5_vs_plain() -> dict:
+    """K5a and K5b against the plain versions on every case, and the
+    kernels' dropout bits against ``_dropout_bits``; returns the worst abs
+    error per kernel over the f32 cases ({"K5a": .., "K5b": ..})."""
+    from big_linear_algebra_tpu_torch.nn import fused_block as fb
+
+    b, c, f, h, w, _ = K5_SHAPES[0]
+    n_bits = f * b * h * w
+    got = fb.kernel_dropout_bits(1234567, n_bits, "cuda")
+    want = fb._dropout_bits(fb._seed_tensor(1234567, "cuda"), n_bits)
+    if not torch.equal(got, want):
+        fail(f"the kernels' dropout bits differ from _dropout_bits at "
+             f"{int((got != want).sum())} of {n_bits} indices")
+    kept = (want >= fb._threshold(K5_RATE)).float().mean().item()
+    gen = torch.Generator().manual_seed(8)
+    worst_abs = {"K5a": 0.0, "K5b": 0.0}
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    names = ("out", "dx", "d_td", "dw1", "dw2", "dw3")
+    worst_f32 = dict.fromkeys(names, 0.0)  # per output, err/tol
+    plain_f32 = dict.fromkeys(names, 0.0)  # the plain f32 version's
+    bad = []
+    n_cases = 0
+    for b, c, f, h, w, gsz in K5_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for train in (False, True):
+                *ops, g = _k5_inputs(b, c, f, h, w, dtype, gen)
+                seed = fb._seed_tensor(77 + n_cases, "cuda")
+                args = (*ops, seed, gsz, K5_RATE, train, 1e-8)
+                outs = (fb._kernel_fused_fwd(*args),
+                        *fb._kernel_fused_bwd(*args, g))
+                refs = (fb._plain_fused_fwd(*args),
+                        *fb._plain_fused_bwd(*args, g))
+                if dtype == torch.float32:
+                    plain32 = refs
+                    wide = [None if a is None else a.double()
+                            for a in (*ops, g)]
+                    wargs = (*wide[:5], seed, gsz, K5_RATE, train, 1e-8)
+                    refs = (fb._plain_fused_fwd(*wargs),
+                            *fb._plain_fused_bwd(*wargs, wide[5]))
+                    for name, x, y in zip(names, plain32, refs):
+                        if y is not None:
+                            plain_f32[name] = max(plain_f32[name],
+                                                  _k5_ratio(name, x, y))
+                torch.cuda.synchronize()
+                case = (f"{str(dtype)[6:]} B={b} C={c} F={f} {h}x{w} "
+                        f"train={train}")
+                for name, x, y in zip(names, outs, refs):
+                    if x is None and y is None:
+                        continue
+                    if x.shape != y.shape or x.dtype != dtype:
+                        bad.append(f"{case} {name}: {tuple(x.shape)} "
+                                   f"{x.dtype}, expected {tuple(y.shape)} "
+                                   f"{y.dtype}")
+                        continue
+                    diff = (x.double() - y.double()).abs().max().item()
+                    if dtype == torch.float32:
+                        kern = "K5a" if name == "out" else "K5b"
+                        worst_abs[kern] = max(worst_abs[kern], diff)
+                        ratio = _k5_ratio(name, x, y)
+                        worst_f32[name] = max(worst_f32[name], ratio)
+                        if not ratio <= 1.0:
+                            bad.append(f"{case} {name}: err exceeds its f32 "
+                                       f"tolerance by {ratio}x")
+                    else:
+                        ratio = (diff / y.double().abs().max().item()
+                                 / K5_BF16_RTOL_OF_MAX)
+                        if not ratio <= 1.0:
+                            bad.append(f"{case} {name}: err / max|ref| "
+                                       f"{ratio * K5_BF16_RTOL_OF_MAX} > "
+                                       f"{K5_BF16_RTOL_OF_MAX}")
+                    worst[dtype] = max(worst[dtype], ratio)
+                n_cases += 1
+    if bad:
+        fail(f"{len(bad)} K5a/K5b outputs disagree with the plain version:"
+             "\n  " + "\n  ".join(bad))
+    print(f"[11 K5 vs plain] dropout bits of {n_bits} indices bit-equal to "
+          f"_dropout_bits (kept at rate {K5_RATE}: {kept:.5f}); {n_cases} "
+          f"cases pass (f32/bf16 x train on/off x (B, C, F, H, W, group) "
+          f"{K5_SHAPES}): worst f32 err/tol against the plain version in "
+          f"f64 {worst[torch.float32]:.3f} ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in worst_f32.items())
+          + "; the plain f32 version's own: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in plain_f32.items())
+          + f"; out: atol {K5_F32_ATOL} + "
+          f"rtol {K5_F32_RTOL}*|ref|; gradients: atol {K5_GRAD_ATOL} + rtol "
+          f"{K5_GRAD_RTOL}*|ref|), worst bf16 err/tol "
+          f"{worst[torch.bfloat16]:.3f} (tol {K5_BF16_RTOL_OF_MAX} of "
+          f"max|ref|); worst f32 abs err K5a {worst_abs['K5a']:.3e}, K5b "
+          f"{worst_abs['K5b']:.3e}", flush=True)
+    return worst_abs
+
+
+def k5_bound_ms(kernel: str, b, c, f, h, w, dtype):
+    """K5a ("fwd") or K5b ("bwd") at a block with no 1x1 residual: every
+    input read once and every output written once, in the dtype, and the
+    conv products the function does at the dtype's peak. K5a: conv_1 and
+    conv_2 (2·B·HW·C_in·C_out·k² flops each); K5b: conv_1 again, and
+    conv_2's and conv_1's dx and weight gradients. (The TPU kernel's cost
+    estimate counts twice K5b's products: five times K5a's.)"""
+    item = torch.finfo(dtype).bits // 8
+    hw = h * w
+    conv1, conv2 = 9 * c * f, 9 * f * f
+    if kernel == "fwd":
+        flops = 2 * b * hw * (conv1 + conv2)
+        nbytes = item * (b * c * hw + b * f + conv1 + conv2 + b * f * hw)
+    else:
+        flops = 2 * b * hw * (3 * conv1 + 2 * conv2)
+        # x, td, w1, w2 and g in; dx, d_td, dw1 and dw2 out
+        nbytes = item * (2 * (b * c * hw + b * f + conv1 + conv2)
+                         + b * f * hw)
+    return _bound(nbytes, flops / PEAK_FLOPS[dtype])
+
+
+def _unfused_block(x, td, w1, w2, w3, gen, train, gsz):
+    """The port's unfused resnet block (the path without --fused-block)."""
+    from big_linear_algebra_tpu_torch.nn.conv import conv2d
+    from big_linear_algebra_tpu_torch.nn.dropout import dropout
+    from big_linear_algebra_tpu_torch.nn.norm import group_norm
+    from big_linear_algebra_tpu_torch.ops.activations import relu
+
+    h = conv2d(relu(group_norm(x, gsz)), w1, 1) + td[:, :, None, None]
+    h = dropout(relu(group_norm(h, gsz)), K5_RATE, gen,
+                deterministic=not train)
+    h = conv2d(h, w2, 1)
+    return h + (x if w3 is None else conv2d(x, w3, 1))
+
+
+def phase_k5_timing() -> dict:
+    """bf16 at the train step's 8x8 block (B=16, train) and the sampler's
+    (B=1, eval): K5a, K5b (both of its kernels), the plain versions and the
+    port's unfused block forward and backward (autograd through its
+    hand-written VJPs), in turns within this one process; the lower of each
+    pair is kept. Returns the train shape's numbers."""
+    from big_linear_algebra_tpu_torch.nn import fused_block as fb
+
+    gen = torch.Generator().manual_seed(9)
+    main = {}
+    for b, c, f, h, w, gsz in K5_TIMED:
+        train = b > 1
+        x, td, w1, w2, w3, g = _k5_inputs(b, c, f, h, w, torch.bfloat16, gen)
+        args = (x, td, w1, w2, w3, fb._seed_tensor(5, "cuda"), gsz, K5_RATE,
+                train, 1e-8)
+        cgen = torch.Generator(device="cuda").manual_seed(0)
+        leaves = [a.detach().requires_grad_() for a in (x, td, w1, w2)]
+        out = _unfused_block(*leaves, None, cgen, train, gsz)
+        fns = {"K5a": lambda: fb._kernel_fused_fwd(*args),
+               "plain fwd": lambda: fb._plain_fused_fwd(*args),
+               "unfused fwd": lambda: _unfused_block(
+                   x, td, w1, w2, w3, cgen, train, gsz),
+               "K5b": lambda: fb._kernel_fused_bwd(*args, g),
+               "plain bwd": lambda: fb._plain_fused_bwd(*args, g),
+               "unfused bwd": lambda: torch.autograd.grad(
+                   out, leaves, g, retain_graph=True)}
+        names = tuple(fns)
+        runs = {name: [] for name in names}
+        for name in names + names[::-1]:
+            runs[name].append(_time_ms(fns[name], iters=50, warmup=5))
+        ms = {name: min(d for d, _ in runs[name]) for name in names}
+        host = {name: min(hh for _, hh in runs[name]) for name in names}
+        bounds = {k: k5_bound_ms(k, b, c, f, h, w, torch.bfloat16)
+                  for k in ("fwd", "bwd")}
+        print(f"[12 K5 timing] bf16 B={b} C={c} F={f} {h}x{w} train={train}:"
+              f" device K5a {ms['K5a'] * 1e3:.2f} us (bound "
+              f"{bounds['fwd'][0] * 1e3:.3f} us, {bounds['fwd'][1]}), plain "
+              f"{ms['plain fwd'] * 1e3:.2f} us, unfused block "
+              f"{ms['unfused fwd'] * 1e3:.2f} us; K5b (data + weight "
+              f"gradients) {ms['K5b'] * 1e3:.2f} us (bound "
+              f"{bounds['bwd'][0] * 1e3:.3f} us, {bounds['bwd'][1]}), plain "
+              f"{ms['plain bwd'] * 1e3:.2f} us, unfused backward "
+              f"{ms['unfused bwd'] * 1e3:.2f} us | host per call: K5a "
+              f"{host['K5a'] * 1e3:.2f} us, K5b {host['K5b'] * 1e3:.2f} us, "
+              f"unfused fwd {host['unfused fwd'] * 1e3:.2f} us, bwd "
+              f"{host['unfused bwd'] * 1e3:.2f} us", flush=True)
+        if (b, c, f, h, w, gsz) == K5_TIMED[0]:
+            main = dict(ms, bound=bounds)
+    b, c, f, h, w, gsz = K5_WAVE
+    x, td, w1, w2, w3, g = _k5_inputs(b, c, f, h, w, torch.bfloat16, gen)
+    args = (x, td, w1, w2, w3, fb._seed_tensor(5, "cuda"), gsz, K5_RATE,
+            True, 1e-8)
+    wave = {"K5a": _time_ms(lambda: fb._kernel_fused_fwd(*args), 50, 5)[0],
+            "K5b": _time_ms(lambda: fb._kernel_fused_bwd(*args, g), 50,
+                            5)[0]}
+    print(f"[12 K5 timing] bf16 B={b} C={c} F={f} {h}x{w} train=True (one "
+          f"cluster of {fb._plan(b, c, f, h, w, 3, gsz)[0]} blocks fewer "
+          f"than the train step): device K5a {wave['K5a'] * 1e3:.2f} us, "
+          f"K5b {wave['K5b'] * 1e3:.2f} us", flush=True)
+    return main
+
+
+def _fused_counts(fb) -> tuple:
+    return fb.launch_count, fb.bwd_launch_count, fb.wgrad_launch_count
+
+
+def _zero_fused_counts(fb) -> None:
+    fb.launch_count = fb.bwd_launch_count = fb.wgrad_launch_count = 0
+
+
+def phase_unet_fused_run(tmp: str) -> int:
+    """``cifar_unet run 1 --fused-block`` at 32x32 from phase 6's checkpoint
+    in ``tmp``; returns K5a's launches."""
+    from big_linear_algebra_tpu_torch.data import bmp
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn import attention as at
+    from big_linear_algebra_tpu_torch.nn import fused_block as fb
+
+    out = io.StringIO()
+    _zero_fused_counts(fb)
+    at.launch_count = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cu.main(["run", "1", "--fused-block", "--sample-seed=0"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    k5a, k5b, wgrad = _fused_counts(fb)
+    if rc != 0:
+        fail(f"cifar_unet run --fused-block exited {rc}:\n{out.getvalue()}")
+    steps = cu.CONFIG.timesteps
+    if (k5a, k5b, wgrad) != (FUSED_PER_RUN_STEP * steps, 0, 0):
+        fail(f"run --fused-block launched K5a/K5b/weight gradients "
+             f"{(k5a, k5b, wgrad)} times, expected "
+             f"({FUSED_PER_RUN_STEP * steps}, 0, 0)")
+    path = os.path.join(tmp, "cifar_unet", "samples", "sample_0.bmp")
+    planes = bmp.read_bmp(path)
+    if any(p.shape != (32, 32) for p in planes):
+        fail(f"{path}: planes of shape {[p.shape for p in planes]}, "
+             "expected 32x32")
+    lo = min(int(p.min()) for p in planes)
+    hi = max(int(p.max()) for p in planes)
+    if lo == hi:
+        fail(f"{path}: constant image (every byte {lo})")
+    print(f"[13 unet fused run] run 1 --fused-block (32x32, full width, 1000 "
+          f"steps, bf16 compute) {run_s:.2f} s wall: K5a launches {k5a} "
+          f"({FUSED_PER_RUN_STEP} per step; K2 {at.launch_count}); "
+          f"samples/sample_0.bmp 32x32, bytes {lo}..{hi}", flush=True)
+    return k5a
+
+
+def phase_fused_oracle() -> None:
+    """From phase 6's checkpoint at 32x32: the f32 forward (batch 1) with
+    the fused blocks against the same forward unfused (bounded) and against
+    f64 (reported); then one f32 train-mode gradient at batch 16 with the
+    fused blocks, K5b against the plain backward on each fused block's
+    operands (bounded), and its leaves against the gradient with the plain
+    backward at those blocks, on the same dropout seeds (reported)."""
+    import dataclasses
+
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn import fused_block as fb
+
+    params = cu.load_params_csv(cu.CONFIG)
+    gen = torch.Generator().manual_seed(10)
+    x = torch.randn(1, 3, 32, 32, generator=gen).cuda()
+    tb = torch.tensor([500], device="cuda")
+    outs = {}
+    with torch.inference_mode():
+        for name, dt, fused in (("fused", "float32", True),
+                                ("unfused", "float32", False),
+                                ("f64", "float64", False)):
+            cfg = dataclasses.replace(cu.CONFIG, compute_dtype=dt,
+                                      fused_block=fused)
+            p = cu.tree_map(lambda a: a.to("cuda", getattr(torch, dt)),
+                             params)
+            _zero_fused_counts(fb)
+            outs[name] = cu.forward(p, x, tb, cfg).double()
+            torch.cuda.synchronize()
+            if fb.launch_count != (FUSED_PER_RUN_STEP if fused else 0):
+                fail(f"the {name} forward launched K5a {fb.launch_count} "
+                     "times")
+    if not all(torch.isfinite(o).all() for o in outs.values()):
+        fail("non-finite U-Net outputs")
+    scale = outs["unfused"].abs().max().item()
+    share = (outs["fused"] - outs["unfused"]).abs().max().item() / scale
+    f64_scale = outs["f64"].abs().max().item()
+    vs_f64 = {k: (outs[k] - outs["f64"]).abs().max().item() / f64_scale
+              for k in ("fused", "unfused")}
+    if not share <= K5_UNET_RTOL_OF_MAX:
+        fail(f"f32 forward with the fused blocks differs from the unfused "
+             f"one by {share:.3e} of max|ref| (tol {K5_UNET_RTOL_OF_MAX})")
+
+    # the gradient: batch 16, train mode (dropout on), f32
+    cfg = dataclasses.replace(cu.CONFIG, compute_dtype="float32",
+                              fused_block=True)
+    x0 = (torch.rand(16, 3, 32, 32, generator=gen) * 2 - 1).cuda()
+    tt = torch.randint(0, cfg.timesteps, (16,), generator=gen).cuda()
+    noise = torch.randn(16, 3, 32, 32, generator=gen).cuda()
+    kernel = fb._kernel_fused_bwd
+    sites = []
+
+    def capture(*args, **kw):
+        sites.append(tuple(a.detach().clone() if isinstance(a, torch.Tensor)
+                           else a for a in args))
+        return kernel(*args, **kw)
+
+    def grad():
+        leaves = cu.tree_map(lambda a: a.to("cuda").requires_grad_(),
+                             params)
+        step_gen = torch.Generator(device="cuda").manual_seed(11)
+        loss = cu.loss_fn(leaves, x0, tt, noise, cfg, step_gen)
+        flat = cu.tree_leaves(leaves)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        return loss.item(), [torch.zeros_like(p) if gr is None else
+                             gr.double() for p, gr in zip(flat, grads)]
+
+    fb._kernel_fused_bwd = capture
+    try:
+        _zero_fused_counts(fb)
+        loss_k, grads_k = grad()
+        torch.cuda.synchronize()
+        counts = _fused_counts(fb)
+        fb._kernel_fused_bwd = fb._plain_fused_bwd
+        loss_p, grads_p = grad()
+    finally:
+        fb._kernel_fused_bwd = kernel
+    per = FUSED_PER_TRAIN_STEP
+    if counts != (per, per, per) or len(sites) != per:
+        fail(f"the f32 train-mode gradient launched K5a/K5b/weight "
+             f"gradients {counts} times over {len(sites)} fused blocks, "
+             f"expected {per} each")
+    if not all(torch.isfinite(gr).all() for gr in grads_k + grads_p):
+        fail("non-finite gradient leaves")
+    worst_site = 0.0
+    for i, args in enumerate(sites):
+        got = kernel(*args)
+        want = fb._plain_fused_bwd(*args)
+        for name, a, b in zip(("dx", "d_td", "dw1", "dw2", "dw3"), got,
+                              want):
+            if a is None:
+                continue
+            ratio = _k5_ratio(name, a, b)
+            worst_site = max(worst_site, ratio)
+            if not ratio <= 1.0:
+                fail(f"fused block {i} of the f32 gradient, {name}: K5b err "
+                     f"exceeds atol {K5_GRAD_ATOL} + rtol {K5_GRAD_RTOL}"
+                     f"*|ref| by {ratio}x")
+    leaves = _leaf_errors(grads_k, grads_p)
+    print(f"[14 fused oracle] full-width 32x32 f32 forward, t=500: with the "
+          f"10 fused blocks vs unfused err/max|ref| {share:.3e} (tol "
+          f"{K5_UNET_RTOL_OF_MAX}); reported, no bound: fused vs f64 "
+          f"{vs_f64['fused']:.3e}, unfused vs f64 {vs_f64['unfused']:.3e} "
+          f"of max|ref| {f64_scale:.3f}. f32 train-mode gradient at batch "
+          f"16, {per} fused blocks: K5b vs plain on each block's operands, "
+          f"worst err/(atol {K5_GRAD_ATOL} + rtol {K5_GRAD_RTOL}*|ref|) "
+          f"{worst_site:.3e} (tol 1); reported, no bound: the gradient "
+          f"through K5b vs with the plain backward at the fused blocks, "
+          f"worst leaf {leaves[0]:.3e} of its max|ref|, {leaves[1]:.3e} of "
+          f"the largest max|ref|, median leaf {leaves[2]:.3e}; losses "
+          f"{loss_k:.6f}, {loss_p:.6f}", flush=True)
+
+
+def phase_unet_fused_train() -> dict:
+    """``train 1 --fused-block --max-steps=30`` at 32x32 from phase 6's
+    checkpoint (the CIFAR batches synthesized on first use), then a resumed
+    ``--max-steps=1``; returns the launches during the first ``train``."""
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn import fused_block as fb
+
+    losses = []
+    real_step = cu.train_step
+
+    def step(*a, **kw):
+        params, opt_state, loss = real_step(*a, **kw)
+        losses.append(loss)
+        return params, opt_state, loss
+
+    cu.train_step = step
+    try:
+        first = io.StringIO()
+        _zero_fused_counts(fb)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(first):
+            rc_train = cu.main(["train", "1", "--fused-block",
+                                f"--max-steps={FUSED_TRAIN_STEPS}"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        k5a, k5b, wgrad = _fused_counts(fb)
+        second = io.StringIO()
+        with contextlib.redirect_stdout(second):
+            rc_resume = cu.main(["train", "1", "--fused-block",
+                                 "--max-steps=1"])
+    finally:
+        cu.train_step = real_step
+    text, text2 = first.getvalue(), second.getvalue()
+    if (rc_train, rc_resume) != (0, 0):
+        fail(f"cifar_unet train --fused-block exited {rc_train}/{rc_resume}:"
+             f"\n{text}{text2}")
+    vals = torch.stack(losses).float().cpu()
+    if len(losses) != FUSED_TRAIN_STEPS + 1:
+        fail(f"{len(losses)} train steps, expected {FUSED_TRAIN_STEPS} + 1")
+    if not torch.isfinite(vals).all():
+        fail(f"non-finite step losses: {vals.tolist()}")
+    want = FUSED_PER_TRAIN_STEP * FUSED_TRAIN_STEPS
+    if (k5a, k5b, wgrad) != (want, want, want):
+        fail(f"train --fused-block launched K5a/K5b/weight gradients "
+             f"{(k5a, k5b, wgrad)} times in {FUSED_TRAIN_STEPS} steps, "
+             f"expected {want} each ({FUSED_PER_TRAIN_STEP} per step)")
+    head = vals[:10].mean().item()
+    tail = vals[FUSED_TRAIN_STEPS - 10:FUSED_TRAIN_STEPS].mean().item()
+    if not tail < head:
+        fail(f"the loss did not fall: mean of steps 1-10 {head}, of steps "
+             f"{FUSED_TRAIN_STEPS - 9}-{FUSED_TRAIN_STEPS} {tail}")
+    resumed = f"resumed train state at step {FUSED_TRAIN_STEPS} (epoch 1)"
+    if resumed not in text2:
+        fail(f"the second train did not resume at epoch 1:\n{text2}")
+    ep0 = _epoch_line(text, 0)
+    print(f"[15 unet fused train] train 1 --fused-block --max-steps="
+          f"{FUSED_TRAIN_STEPS} (32x32, full width, batch 16, bf16 compute, "
+          f"f32 masters, Adam) {train_s:.2f} s wall with the CIFAR "
+          f"synthesis, epoch {ep0['epoch_seconds']} s "
+          f"({ep0['images_per_sec']} images/s): launches K5a {k5a}, K5b "
+          f"{k5b}, K5b weight gradients {wgrad}; loss mean of steps 1-10 "
+          f"{head:.5f}, of steps {FUSED_TRAIN_STEPS - 9}-{FUSED_TRAIN_STEPS} "
+          f"{tail:.5f}; then '{resumed}', step loss "
+          f"{vals[-1].item():.5f}", flush=True)
+    return {"K5a": k5a, "K5b": k5b}
+
+
 def main() -> int:
     smi_line, exp2_per_s = phase_environment()
     phase_build()
@@ -1193,6 +1691,11 @@ def main() -> int:
         os.environ["BLA_DATA_DIR"] = tmp
         k2_launches = phase_unet_main_path(tmp)
         phase_unet_oracle()
+        k5_err = phase_k5_vs_plain()
+        k5 = phase_k5_timing()
+        k5a_launches = phase_unet_fused_run(tmp)
+        phase_fused_oracle()
+        fused_train = phase_unet_fused_train()
         del os.environ["BLA_DATA_DIR"]
     bwd_err = phase_k2bwd_vs_plain()
     bwd = phase_k2bwd_timing(exp2_per_s)
@@ -1218,6 +1721,25 @@ def main() -> int:
     } for name, kern, what, tpu in (
         ("K2c", "dq", "dq", K2C_TPU_KERNEL),
         ("K2d", "dkv", "dk, dv", K2D_TPU_KERNEL))]
+    k5_rows = [{
+        "name": name,
+        "route": "cuda",
+        "source": "big_linear_algebra_tpu_torch/csrc/fused_block.cu",
+        "replaces": tpu,
+        "launches": launches,
+        "max_abs_err": k5_err[kern],
+        "ms": k5[kern],
+        "plain_ms": k5[f"plain {way}"],
+        "bound_ms": k5["bound"][way][0],
+        "bound_by": k5["bound"][way][1],
+        # no single PyTorch call computes the block; phase 12 prints the
+        # port's unfused block beside it
+        "library_ms": None,
+    } for name, kern, way, tpu, launches in (
+        ("K5a fused resnet block forward", "K5a", "fwd", K5A_TPU_KERNEL,
+         k5a_launches),
+        ("K5b fused resnet block recompute backward (data and weight "
+         "gradients)", "K5b", "bwd", K5B_TPU_KERNEL, fused_train["K5b"]))]
     print(json.dumps({"kernels": [{
         "name": "K1 matmul (nn/nt/tn, bias+ReLU epilogue)",
         "route": "cuda",
@@ -1242,7 +1764,7 @@ def main() -> int:
         "bound_ms": k2["bound"],
         "bound_by": k2["bound_by"],
         "library_ms": k2["sdpa"],
-    }, *bwd_rows]}), flush=True)
+    }, *bwd_rows, *k5_rows]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

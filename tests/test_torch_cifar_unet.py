@@ -24,6 +24,9 @@ from tests.torch_parity import n, t
 
 CFG64 = dataclasses.replace(cu.TINY, image_size=64)
 JAX_CFG64 = dataclasses.replace(jax_cu.TINY, image_size=64)
+# The JAX forward as one jitted computation: op by op, the two forwards of
+# ``refs`` took 26 s of compiling on the CPU, jitted 5 s.
+JAX_FORWARD = jax.jit(jax_cu.forward, static_argnums=3)
 
 
 @pytest.fixture(scope="module")
@@ -41,10 +44,10 @@ def refs(jax_params):
     x64 = rng.standard_normal((1, 3, 64, 64)).astype(np.float32)
     t32, t64 = np.array([0, 5]), np.array([3])
     p = jax.tree.map(jnp.asarray, jax_params)
-    f64 = jax_cu.forward(p, jnp.asarray(x32), jnp.asarray(t32),
-                         dataclasses.replace(jax_cu.TINY,
-                                             compute_dtype="float64"))
-    f32 = jax_cu.forward(p, jnp.asarray(x64), jnp.asarray(t64), JAX_CFG64)
+    f64 = JAX_FORWARD(p, jnp.asarray(x32), jnp.asarray(t32),
+                      dataclasses.replace(jax_cu.TINY,
+                                          compute_dtype="float64"))
+    f32 = JAX_FORWARD(p, jnp.asarray(x64), jnp.asarray(t64), JAX_CFG64)
     return {"x32": x32, "t32": t32, "f64": n(f64),
             "x64": x64, "t64": t64, "f32": n(f32)}
 
@@ -150,10 +153,10 @@ def test_csv_trees_load_across_packages(tmp_path, monkeypatch, jax_params,
     cfg = dataclasses.replace(cu.TINY, compute_dtype="float64")
     with torch.inference_mode():
         got = cu.forward(ours, t(refs["x32"]), t(refs["t32"]), cfg)
-    want = jax_cu.forward(theirs, jnp.asarray(refs["x32"]),
-                          jnp.asarray(refs["t32"]),
-                          dataclasses.replace(jax_cu.TINY,
-                                              compute_dtype="float64"))
+    want = JAX_FORWARD(theirs, jnp.asarray(refs["x32"]),
+                       jnp.asarray(refs["t32"]),
+                       dataclasses.replace(jax_cu.TINY,
+                                           compute_dtype="float64"))
     assert _rel_err(got, n(want)) <= 1e-9
 
     monkeypatch.setenv("BLA_DATA_DIR", str(tmp_path / "port"))
@@ -209,7 +212,7 @@ def test_bmp_and_pixel_conversions_match_jax(tmp_path, rng, monkeypatch):
 def test_cli_flags(tmp_path, monkeypatch, capsys):
     monkeypatch.setenv("BLA_DATA_DIR", str(tmp_path))
     reasons = {"--layout=nhwc": "channels-last", "--prng=threefry": "Philox",
-               "--fused-block": "K5", "--dp": "parallel", "--tp": "parallel",
+               "--dp": "parallel", "--tp": "parallel",
                "--pp": "parallel", "--pp-micro=2": "parallel",
                "--pp-schedule=1f1b": "parallel",
                "--remat": "torch.utils.checkpoint",
