@@ -11,12 +11,18 @@ q, k, v of shape (B, N, d).
   softmax-Jacobian VJP.
 - ``flash_attention``: a ``torch.autograd.Function``. On a CUDA tensor the
   forward launches ``csrc/flash_attn.cu`` (K2: one CUDA kernel replaces both
-  TPU forwards, ``_flash_fwd_kernel`` and ``_flash_fwd_stream_kernel``) and
-  the backward launches ``csrc/flash_attn_bwd.cu`` (K2c for dq and K2d for
-  dk/dv, the TPU's streaming ``_flash_bwd_stream_dq_kernel`` and
-  ``_flash_bwd_stream_dkv_kernel``); on a CPU tensor the plain versions
-  ``_plain_flash`` and ``_plain_flash_bwd`` run. On a CUDA tensor a kernel
-  launches or the call raises: there is no fallback.
+  TPU forwards, ``_flash_fwd_kernel`` and ``_flash_fwd_stream_kernel``,
+  whatever ``stream`` asks for). The backward takes the JAX package's route
+  (``_bwd_route``): by default ``csrc/flash_attn_bwd.cu`` (K2c for dq and
+  K2d for dk/dv, the TPU's streaming ``_flash_bwd_stream_dq_kernel`` and
+  ``_flash_bwd_stream_dkv_kernel``); with ``stream=False``,
+  ``csrc/flash_attn_bwd_fused.cu`` (K3a, dq, dk and dv in one pass, the
+  TPU's ``_flash_bwd_fused_kernel``), or past the TPU's fused budget K2c
+  and K2d again, which compute what the TPU's row-resident two-pass
+  ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel`` (K3b, K3c) compute.
+  On a CPU tensor the plain versions ``_plain_flash`` and
+  ``_plain_flash_bwd`` run. On a CUDA tensor a kernel launches or the call
+  raises: there is no fallback.
 - ``attention``: the JAX package's dispatch, kept as it is: flash for
   self-attention shapes with N ≥ ``_FLASH_MIN_N`` outside f64, dense
   otherwise. The threshold was chosen on a TPU; re-deriving it for the H100
@@ -50,11 +56,42 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_DIMS = (4, 8, 16, 32, 64, 128)
 
 # Kernel launches since import (or since a caller last set them to 0): K2,
-# K2c and K2d. Each is counted only where its CUDA kernel is launched, so a
-# run can show that its main path went through the kernels.
+# K2c, K2d and K3a. Each is counted only where its CUDA kernel is launched,
+# so a run can show that its main path went through the kernels.
 launch_count = 0
 bwd_dq_launch_count = 0
 bwd_dkv_launch_count = 0
+bwd_fused_launch_count = 0
+
+# The JAX package's VMEM budget for the fused backward's row-resident
+# operands (nn/attention.py:605). These are the TPU's numbers, as is the
+# padding in ``_bwd_route``: they are kept so that one call reaches the
+# counterpart of the TPU kernel that the same call reaches in JAX.
+_BWD_FUSED_VMEM_BUDGET = 40 * 1024 * 1024
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _bwd_route(shape, dtype: torch.dtype, block_q: int, block_k: int,
+               stream) -> str:
+    """The backward kernels one call takes, by the JAX package's rule
+    (``_flash_bwd_padded``, nn/attention.py:651-704), from shape and dtype
+    alone: "stream" (``stream`` None or True: K2c + K2d), "fused" (False,
+    and the TPU's resident rows fit the budget: K3a) or "two_pass" (False
+    beyond it: the TPU's K3b + K3c, here K2c + K2d)."""
+    if stream is None or stream:
+        return "stream"
+    _, n, d = shape
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    n_pad = _round_up(n, math.lcm(block_q, block_k))
+    d_pad = _round_up(d, 128)
+    fused_bytes = (
+        n_pad * d_pad * (3 * itemsize + 4)     # q, g, dq out, dq f32 scratch
+        + n_pad * 128 * 8                      # lse + delta rows
+        + 4 * block_k * d_pad * itemsize * 2)  # k/v/dk/dv double-buffered
+    return "fused" if fused_bytes <= _BWD_FUSED_VMEM_BUDGET else "two_pass"
 
 
 def _dense_fwd(q, k, v):
@@ -140,8 +177,8 @@ def _bwd_prepare(g, o, lse, dtype):
 
 
 def _plain_flash_bwd(q, k, v, o, lse, g):
-    """The plain PyTorch version of K2c and K2d: (dq, dk, dv), the same
-    roundings as the kernels with the whole key axis as one block. The
+    """The plain PyTorch version of K2c and K2d, and of K3a: (dq, dk, dv),
+    the same roundings as the kernels with the whole key axis as one block. The
     scores are the forward's: q scaled by log2(e)/√d and rounded to its
     own dtype, so that p = exp2(s − lse2) stays ≤ 1 (the Pallas kernels
     scale the unrounded f32 score instead; in bf16 that score can exceed
@@ -270,6 +307,41 @@ def _kernel_flash_bwd(q, k, v, o, lse, g):
     return (_kernel_bwd_dq(*ops), *_kernel_bwd_dkv(*ops))
 
 
+def _kernel_flash_bwd_fused(q, k, v, o, lse, g):
+    """The prep in plain torch, then K3a from ``csrc/flash_attn_bwd_fused.cu``
+    on CUDA tensors → (dq, dk, dv); raises on anything the kernels do not
+    take and on a failed build or launch."""
+    return _kernel_bwd_fused(*_kernel_bwd_operands(q, k, v, o, lse, g))
+
+
+def _kernel_bwd_fused(q, k, v, g, lse2, delta):
+    """K3a on prepared operands (``_kernel_flash_bwd_fused``): a pass over
+    the key tiles that writes dk and dv and each tile's f32 share of dq
+    into a workspace, then a reduction that sums the shares in tile order
+    (two kernels, counted as one launch)."""
+    global bwd_fused_launch_count
+    b, n, d = q.shape
+    lib = cuda_utils.load_library("flash_attn_bwd_fused")
+    tiles = lib.bla_flash_bwd_fused_tiles
+    if tiles.argtypes is None:
+        tiles.restype = ctypes.c_int
+        tiles.argtypes = [ctypes.c_int, ctypes.c_int]
+    # (key tiles, B, N, d) f32: each key tile's share of dq
+    ws = torch.empty((tiles(n, d), b, n, d), dtype=torch.float32,
+                     device=q.device)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    fn = _function(lib, "bla_flash_bwd_fused", 10, 2)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = fn(_KERNEL_DTYPES[q.dtype], b, n, d, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), g.data_ptr(), lse2.data_ptr(), delta.data_ptr(),
+                ws.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                _qscale(d), 1.0 / math.sqrt(d), stream)
+    cuda_utils.check(lib, rc, "flash_attention fused backward launch")
+    bwd_fused_launch_count += 1
+    return dq, dk, dv
+
+
 def _by_device(q, kernel, plain):
     if q.device.type == "cuda":
         return kernel
@@ -280,7 +352,8 @@ def _by_device(q, kernel, plain):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v):
+    def forward(ctx, q, k, v, block_q, block_k, stream):
+        ctx.route = _bwd_route(q.shape, q.dtype, block_q, block_k, stream)
         o, lse = _by_device(q, _kernel_flash, _plain_flash)(q, k, v)
         ctx.save_for_backward(q, k, v, o, lse)
         return o
@@ -288,17 +361,22 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, o, lse = ctx.saved_tensors
-        return _by_device(q, _kernel_flash_bwd, _plain_flash_bwd)(
-            q, k, v, o, lse, g)
+        kernel = (_kernel_flash_bwd_fused if ctx.route == "fused"
+                  else _kernel_flash_bwd)
+        grads = _by_device(q, kernel, _plain_flash_bwd)(q, k, v, o, lse, g)
+        return (*grads, None, None, None)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    block_q: int = 512, block_k: int = 1024,
+                    stream=None) -> torch.Tensor:
     """Blockwise online-softmax attention; the N×N matrix is never stored,
     forward or backward. The kernels on a CUDA tensor, the plain versions
-    on a CPU tensor."""
+    on a CPU tensor. ``block_q``, ``block_k`` and ``stream`` are the JAX
+    package's arguments: they choose the backward's kernels by its rule
+    (``_bwd_route``); the CUDA kernels tile on their own."""
     _check_self_attention(q, k, v)
-    return _FlashAttention.apply(q, k, v)
+    return _FlashAttention.apply(q, k, v, block_q, block_k, stream)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor,

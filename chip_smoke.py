@@ -2,15 +2,17 @@
 
     python3 chip_smoke.py
 
-Phases, one line each (or a few), in the order 1–7, 11–15, 8–10; any
-failure exits non-zero:
+Phases, one line each (or a few), in the order 1–7, 16–18, 11–15, 8–10,
+19–21; any failure exits non-zero:
 1. environment: the card's name and power limit, torch and CUDA versions;
    fails when no CUDA device is available;
 2. build: compiles the kernels from ``big_linear_algebra_tpu_torch/csrc/``
    with nvcc, one process per source, started together: the GEMM (K1,
    ``matmul.cu``), flash attention (K2, ``flash_attn.cu``), its backward
-   (K2c and K2d, ``flash_attn_bwd.cu``) and the fused resnet block (K5a,
-   K5b, ``fused_block.cu``);
+   (K2c and K2d, ``flash_attn_bwd.cu``), the fused resnet block (K5a,
+   K5b, ``fused_block.cu``), the fused flash backward (K3a,
+   ``flash_attn_bwd_fused.cu``) and the implicit-GEMM conv (K4,
+   ``conv_implicit.cu``);
 3. K1 against plain, on the card: nn/nt/tn x f32/bf16 x
    {no epilogue, bias, bias+ReLU} at the three mnist_nn layer shapes and a
    ragged one, against the plain PyTorch version with TF32 off; a TF32
@@ -76,7 +78,28 @@ failure exits non-zero:
 15. ``cifar_unet train 1 --fused-block --max-steps=30`` at batch 16 (9
    fused blocks: up_2 resnet_1 fails the gate) with the launches of K5a
    and K5b read around it; finite losses, the last 10 steps' mean below
-   the first 10's; then one resumed step.
+   the first 10's; then one resumed step;
+16. K4 against plain, on the card: ``conv2d_implicit`` and
+   ``conv2d_packed`` (forward and dx, two launches each) against the plain
+   tap sum, f32/bf16 at the U-Net's 3x3 maps at batch 16 (32x32 to 4x4) and
+   a non-square 5x5 case;
+17. K4 timing beside the plain version and ``F.conv2d`` at (16, 128,
+   32x32) and (16, 256, 16x16), bf16 and f32, with the bounds;
+18. K4 at the U-Net's sites: every stride-1 3x3 conv of one f32 32x32
+   forward at batch 16 from phase 6's checkpoint, through both entry points
+   (forward, dx, dk) against ``conv2d`` in f64, with K4's launches read
+   around them; then ``conv2d_im2col`` at one site, with K1's nn, tn and
+   nt launches;
+19. K3 against plain, on the card: ``flash_attention(..., stream=False)``
+   through autograd against ``_plain_flash_bwd``, f32/bf16 x d 16, 64 x
+   (B, N) (2, 300), (16, 1024) x blocks (512, 1024), (384, 256), on the
+   fused route (K3a) and with the budget at 0 on the two-pass route (K2c +
+   K2d); two K3a runs bit-equal; a bf16 case at |s| ~ 1e5 finite;
+20. K3 timing: K3a beside K2c + K2d, the plain backward and SDPA's backward
+   at (16, 1024, 16) and (4, 4096, 64), bf16, with the bounds;
+21. K3 at the U-Net's sites: phase 10's four flash sites through
+   ``flash_attention(..., stream=False)`` (K3a, then the two-pass route),
+   with the launches read around them, against the plain backward.
 Then a JSON line of per-kernel results, the ``nvidia-smi`` name/power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -193,6 +216,28 @@ FUSED_TRAIN_STEPS = 30
 # resnet_1 (512 in-channels at 8x8) needs 58.2 MB of the gate's 50.3 MB
 FUSED_PER_RUN_STEP, FUSED_PER_TRAIN_STEP = 10, 9
 
+# K3a (and the two-pass route's K2c/K2d) against the plain backward: phase
+# 8's tolerances, fixed before the first run: the same p, dp and ds in f32,
+# sums in another order (K3a sums dq per key tile, then over the tiles in
+# tile order).
+K3A_TPU_KERNEL = "big_linear_algebra_tpu/nn/attention.py:712"
+K3BC_TPU_KERNEL = "big_linear_algebra_tpu/nn/attention.py:738 and :762"
+K3_SHAPES = [(2, 300), (16, 1024)]  # B, N
+K3_BLOCKS = [(512, 1024), (384, 256)]  # (block_q, block_k): route only
+K3_MAIN = (16, 1024, 16)  # the train step's flash shape
+K3_TIMED = [K3_MAIN, (4, 4096, 64)]  # bench.py's flash shape second
+# bf16 scores of |s| ~ 1e5 (q and k scaled by this, as the CPU test does)
+K3_LARGE_SCALE = 300.0
+# K4 against the plain tap sum: K1's scale-free f32 bound with K = C*k^2
+# (F*k^2 for dx), fixed before the first run; bf16 as K1.
+K4_TPU_KERNEL = "big_linear_algebra_tpu/nn/conv_implicit.py:85 and :171"
+# (B, C, H, W, F, k): the full-width U-Net's 3x3 maps at batch 16 (32x32 to
+# 4x4) and the JAX tests' non-square 5x5 case
+K4_SHAPES = [(16, 128, 32, 32, 128, 3), (16, 256, 16, 16, 256, 3),
+             (16, 256, 8, 8, 256, 3), (16, 256, 4, 4, 256, 3),
+             (3, 4, 5, 7, 8, 5)]
+K4_TIMED = [(16, 128, 32, 32, 128, 3), (16, 256, 16, 16, 256, 3)]
+
 MAIN_SHAPES = [(2048, 784, 256), (2048, 256, 128), (2048, 128, 10)]  # M, K, N
 RAGGED_SHAPE = (130, 257, 200)
 TPU_KERNEL = "big_linear_algebra_tpu/ops/matmul.py:220"
@@ -250,7 +295,8 @@ def phase_environment():
 def phase_build() -> None:
     from big_linear_algebra_tpu_torch.ops import cuda_utils
 
-    names = ("matmul", "flash_attn", "flash_attn_bwd", "fused_block")
+    names = ("matmul", "flash_attn", "flash_attn_bwd", "fused_block",
+             "flash_attn_bwd_fused", "conv_implicit")
     t0 = time.perf_counter()
     cuda_utils.build(names)
     for name in names:
@@ -1117,7 +1163,7 @@ def _condition_attention(cu, params, x0, tt, noise, cfg):
     return params, sites
 
 
-def phase_grad_oracle() -> None:
+def phase_grad_oracle() -> list:
     """From the trained CSV tree: one f32 full-width 64x64 gradient at
     batch 2 on fixed draws (dropout off) through K2c/K2d, on the
     conditioned net (``_condition_attention``); each leaf against the same
@@ -1125,7 +1171,8 @@ def phase_grad_oracle() -> None:
     the f64 gradient (dense attention; reported); the kernels against the
     plain backward on each flash site's operands (bounded). The trained
     net's own bf16 gradient must be finite; its sites' scores are reported.
-    Then one bf16 batch-16 train step's time."""
+    Then one bf16 batch-16 train step's time. Returns the f32 gradient's
+    flash-site operands (q, k, v, o, lse, g)."""
     import dataclasses
 
     from big_linear_algebra_tpu_torch.models import cifar_unet as cu
@@ -1210,6 +1257,7 @@ def phase_grad_oracle() -> None:
              f"the plain backward by {share[0]:.3e} of a leaf's max|ref| "
              f"(tol {GRAD_SHARE_RTOL_OF_MAX})")
     phase_train_step_time(cu, params)
+    return sites["f32"]
 
 
 def phase_train_step_time(cu, params, n_steps=3) -> None:
@@ -1678,6 +1726,502 @@ def phase_unet_fused_train() -> dict:
     return {"K5a": k5a, "K5b": k5b}
 
 
+def _k4_inputs(b, c, h, w, f, k, dtype, gen):
+    """x ~ N(0, 1) (B, C, H, W), He-normal kernels (F, C, k, k) and a
+    cotangent g ~ N(0, 1) (B, F, H, W), made on the CPU from ``gen``, on the
+    card."""
+    x = torch.randn(b, c, h, w, generator=gen)
+    kr = torch.randn(f, c, k, k, generator=gen) * (2.0 / (k * k * c)) ** 0.5
+    g = torch.randn(b, f, h, w, generator=gen)
+    return tuple(a.to("cuda", dtype) for a in (x, kr, g))
+
+
+def _conv_grads(fn, x, kr, g):
+    """(out, dx, dk) of ``fn(x, kr)`` through autograd on the card."""
+    xs = [x.detach().clone().requires_grad_(),
+          kr.detach().clone().requires_grad_()]
+    out = fn(*xs)
+    return (out.detach(), *torch.autograd.grad(out, xs, g))
+
+
+def phase_k4_vs_plain() -> float:
+    """K4 through ``conv2d_implicit`` and ``conv2d_packed`` (forward and
+    dx, two launches each) against the plain tap sum on every case; returns
+    the worst f32 abs error."""
+    from big_linear_algebra_tpu_torch.nn import conv_implicit as ci
+
+    gen = torch.Generator().manual_seed(15)
+    worst_abs = 0.0
+    # f32: err / bound; bf16: err / max|ref| / tol
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    bad = []
+    n_cases = 0
+    for b, c, h, w, f, k in K4_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, kr, g = _k4_inputs(b, c, h, w, f, k, dtype, gen)
+            k_t = torch.flip(kr, dims=(-2, -1)).transpose(0, 1)
+            want = (ci._plain_conv(x, kr), ci._plain_conv(g, k_t))
+            for name, counter in (("conv2d_implicit", "implicit_launch_count"),
+                                  ("conv2d_packed", "packed_launch_count")):
+                before = getattr(ci, counter)
+                out, dx, _ = _conv_grads(getattr(ci, name), x, kr, g)
+                torch.cuda.synchronize()
+                launched = getattr(ci, counter) - before
+                case = (f"{name} {str(dtype)[6:]} B={b} C={c} {h}x{w} F={f} "
+                        f"k={k}")
+                if launched != 2:
+                    bad.append(f"{case}: K4 launched {launched} times, "
+                               "expected 2 (forward, dx)")
+                    continue
+                for what, got, ref, a, bb, kk in (
+                        ("out", out, want[0], x, kr, c * k * k),
+                        ("dx", dx, want[1], g, kr, f * k * k)):
+                    if got.shape != ref.shape or got.dtype != dtype:
+                        bad.append(f"{case} {what}: {tuple(got.shape)} "
+                                   f"{got.dtype}, expected "
+                                   f"{tuple(ref.shape)} {dtype}")
+                        continue
+                    err = (got.float() - ref.float()).abs().max().item()
+                    if dtype == torch.float32:
+                        ratio = err / f32_bound(a, bb, kk)
+                        worst_abs = max(worst_abs, err)
+                    else:
+                        ratio = (err / ref.float().abs().max().item()
+                                 / BF16_RTOL_OF_MAX)
+                    worst[dtype] = max(worst[dtype], ratio)
+                    if not ratio <= 1.0:
+                        bad.append(f"{case} {what}: err {err} exceeds its "
+                                   f"tolerance by {ratio}x")
+                n_cases += 1
+    if bad:
+        fail(f"{len(bad)} K4 outputs disagree with the plain version:\n  "
+             + "\n  ".join(bad))
+    print(f"[16 K4 vs plain] {n_cases} cases pass (conv2d_implicit and "
+          f"conv2d_packed x f32/bf16 x (B, C, H, W, F, k) {K4_SHAPES}; "
+          f"forward and dx): worst f32 err/bound {worst[torch.float32]:.3f} "
+          f"(bound {F32_ULPS}*K*max|a|*max|b|*2^-24, K = C*k^2 or F*k^2), "
+          f"worst bf16 err/max|ref| "
+          f"{worst[torch.bfloat16] * BF16_RTOL_OF_MAX:.3e} (tol "
+          f"{BF16_RTOL_OF_MAX}); worst f32 abs err {worst_abs:.3e}",
+          flush=True)
+    return worst_abs
+
+
+def k4_bound_ms(b, c, h, w, f, k, dtype):
+    """The JAX kernel's cost estimate (nn/conv_implicit.py:100-104):
+    2·B·F·H·W·C·k² flops at the dtype's peak, and x, the taps and the
+    output moved once in the dtype, whichever takes longer."""
+    item = torch.finfo(dtype).bits // 8
+    nbytes = (b * c * h * w + k * k * c * f + b * f * h * w) * item
+    return _bound(nbytes, 2 * b * f * h * w * c * k * k / PEAK_FLOPS[dtype])
+
+
+def phase_k4_timing() -> dict:
+    """K4 (through ``conv2d_implicit``'s wrapper), the plain tap sum and
+    ``F.conv2d`` (cuDNN, TF32 off for f32) as the library call, at the
+    U-Net's 32x32 and 16x16 maps in bf16 and f32, in turns within this one
+    process; the lower of each pair is kept. Returns the bf16 32x32
+    numbers."""
+    import torch.nn.functional as F
+
+    from big_linear_algebra_tpu_torch.nn import conv_implicit as ci
+
+    gen = torch.Generator().manual_seed(16)
+    names = ("K4", "plain", "F.conv2d")
+    main = {}
+    for b, c, h, w, f, k in K4_TIMED:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, kr, _ = _k4_inputs(b, c, h, w, f, k, dtype, gen)
+            fns = {"K4": lambda: ci._kernel_implicit(x, kr),
+                   "plain": lambda: ci._plain_conv(x, kr),
+                   "F.conv2d": lambda: F.conv2d(x, kr, padding=k // 2)}
+            runs = {name: [] for name in names}
+            for name in names + names[::-1]:
+                runs[name].append(_time_ms(fns[name], iters=20, warmup=3))
+            ms = {name: min(d for d, _ in runs[name]) for name in names}
+            bound, bound_by = k4_bound_ms(b, c, h, w, f, k, dtype)
+            flops = 2 * b * f * h * w * c * k * k
+            print(f"[17 K4 timing] {str(dtype)[6:]} B={b} C={c} {h}x{w} F={f} "
+                  f"k={k}: device K4 {ms['K4'] * 1e3:.2f} us "
+                  f"({flops / (ms['K4'] * 1e-3) / 1e12:.2f} TFLOP/s), plain "
+                  f"{ms['plain'] * 1e3:.2f} us, F.conv2d "
+                  f"{ms['F.conv2d'] * 1e3:.2f} us; bound {bound * 1e3:.3f} us "
+                  f"({bound_by}; {flops} flops)", flush=True)
+            if (b, c, h, w, f, k) == K4_TIMED[0] and dtype == torch.bfloat16:
+                main = dict(ms, bound=bound, bound_by=bound_by)
+    return main
+
+
+def phase_k4_unet_sites() -> dict:
+    """From phase 6's checkpoint at 32x32: the activations and kernels of
+    every stride-1 3x3 conv site of one f32 forward at batch 16 (random t,
+    dropout off). At each site, with K4's counts set to 0 before the sites
+    and read after them (against what the gates admit): ``conv2d_implicit``
+    and ``conv2d_packed`` forward and backward on a N(0, 1) cotangent,
+    bounded against the port's ``conv2d`` (cuDNN) evaluated in f64 on the
+    same f32 operands (the f32 bound, K = C*9 for the output, F*9 for dx,
+    B*H*W for dk); the f32 ``conv2d`` (TF32 off) is reported beside it.
+    Then ``conv2d_im2col`` forward and backward at the first 32x32 site
+    whose input and output channels match (128 at full width), bounded the
+    same way, with K1's launches and variants.
+    Returns {"K4": launches, "K1": launches}."""
+    import dataclasses
+
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn import conv_implicit as ci
+    from big_linear_algebra_tpu_torch.nn import conv_pallas as cp
+    from big_linear_algebra_tpu_torch.nn.conv import conv2d
+    from big_linear_algebra_tpu_torch.ops import matmul as mm
+
+    cfg = dataclasses.replace(cu.CONFIG, compute_dtype="float32")
+    params = cu.tree_map(lambda a: a.to("cuda", torch.float32),
+                         cu.load_params_csv(cu.CONFIG))
+    gen = torch.Generator().manual_seed(17)
+    x0 = (torch.rand(16, 3, 32, 32, generator=gen) * 2 - 1).cuda()
+    tt = torch.randint(0, cfg.timesteps, (16,), generator=gen).cuda()
+    sites = []
+    real = cu.conv2d
+
+    def capture(h, w, stride):
+        if stride == 1 and tuple(w.shape[-2:]) == (3, 3):
+            sites.append((h.detach().clone(), w.detach()))
+        return real(h, w, stride)
+
+    cu.conv2d = capture
+    try:
+        with torch.no_grad():
+            cu.forward(params, x0, tt, cfg)
+    finally:
+        cu.conv2d = real
+    del params
+    expect = {"implicit": 0, "packed": 0}
+    for h, w in sites:
+        g_shape = (h.shape[0], w.shape[0], *h.shape[2:])
+        t_shape = (w.shape[1], w.shape[0], *w.shape[2:])
+        for name, gate in (("implicit", ci.supported),
+                           ("packed", ci.packed_supported)):
+            expect[name] += (int(gate(h.shape, w.shape, 1))
+                             + int(gate(g_shape, t_shape, 1)))
+
+    def reference(h, w, g):
+        """conv2d's (out, dx, dk) in f64 and in f32 on the same operands."""
+        return [_conv_grads(lambda a, b: conv2d(a, b, 1), h.to(dt), w.to(dt),
+                            g.to(dt)) for dt in (torch.float64, torch.float32)]
+
+    def ratios(got, h, w, g, ref):
+        """err / bound of (out, dx, dk) against ``ref``."""
+        b, c, hh, ww = h.shape
+        f = w.shape[0]
+        bounds = (f32_bound(h, w, c * 9), f32_bound(g, w, f * 9),
+                  f32_bound(h, g, b * hh * ww))
+        return [(x.double() - y.double()).abs().max().item() / bnd
+                for x, y, bnd in zip(got, ref, bounds)]
+
+    worst = {"K4": 0.0, "conv2d f32": 0.0, "im2col": 0.0}
+    ci.implicit_launch_count = ci.packed_launch_count = 0
+    for i, (h, w) in enumerate(sites):
+        g = torch.randn(h.shape[0], w.shape[0], *h.shape[2:],
+                        generator=gen).cuda()
+        ref64, ref32 = reference(h, w, g)
+        worst["conv2d f32"] = max(worst["conv2d f32"],
+                                  *ratios(ref32, h, w, g, ref64))
+        for fn in (ci.conv2d_implicit, ci.conv2d_packed):
+            got = _conv_grads(fn, h, w, g)
+            r = ratios(got, h, w, g, ref64)
+            worst["K4"] = max(worst["K4"], *r)
+            if not max(r) <= 1.0:
+                fail(f"U-Net conv site {i} (x {tuple(h.shape)}, kernels "
+                     f"{tuple(w.shape)}), {fn.__name__}: out/dx/dk err / "
+                     f"bound {r}")
+    torch.cuda.synchronize()
+    launches = {"implicit": ci.implicit_launch_count,
+                "packed": ci.packed_launch_count}
+    if launches != expect or not all(launches.values()):
+        fail(f"K4 launched {launches} times over {len(sites)} conv sites, "
+             f"expected {expect} (forward and dx where the gates admit)")
+
+    h, w = next((h, w) for h, w in sites
+                if h.shape[1] == w.shape[0] and h.shape[-1] == 32)
+    g = torch.randn(h.shape[0], w.shape[0], *h.shape[2:],
+                    generator=gen).cuda()
+    variants = []
+    real_mm = mm._kernel_mm
+
+    def record(a, b, variant, *rest):
+        variants.append(variant)
+        return real_mm(a, b, variant, *rest)
+
+    mm._kernel_mm = record
+    mm.launch_count = 0
+    try:
+        got = _conv_grads(lambda a, b: cp.conv2d_im2col(a, b, 1), h, w, g)
+        torch.cuda.synchronize()
+    finally:
+        mm._kernel_mm = real_mm
+    k1 = mm.launch_count
+    if k1 != 3 or variants != ["nn", "tn", "nt"]:
+        fail(f"conv2d_im2col launched K1 {k1} times ({variants}), expected "
+             "3 (nn, tn, nt)")
+    r = ratios(got, h, w, g, reference(h, w, g)[0])
+    worst["im2col"] = max(r)
+    if not max(r) <= 1.0:
+        fail(f"conv2d_im2col at x {tuple(h.shape)}: out/dx/dk err / bound "
+             f"{r}")
+    shapes = sorted({(tuple(h.shape[1:]), w.shape[0]) for h, w in sites})
+    print(f"[18 K4 unet sites] {len(sites)} stride-1 3x3 conv sites of an "
+          f"f32 full-width 32x32 forward at batch 16 ((C, H, W), F: "
+          f"{shapes}): K4 launches conv2d_implicit {launches['implicit']}, "
+          f"conv2d_packed {launches['packed']} (as the gates admit); "
+          f"forward, dx and dk of both against conv2d in f64, worst err/"
+          f"bound {worst['K4']:.3e} (tol 1; the f32 bound, K = C*9, F*9, "
+          f"B*H*W); reported, no bound: conv2d in f32 (cuDNN, TF32 off) vs "
+          f"f64, worst err/bound {worst['conv2d f32']:.3e}. conv2d_im2col at "
+          f"x {tuple(h.shape)}, kernels {tuple(w.shape)}: K1 launches {k1} "
+          f"({', '.join(variants)}), worst err/bound vs conv2d in f64 "
+          f"{worst['im2col']:.3e} (tol 1)", flush=True)
+    return {"K4": launches["implicit"] + launches["packed"], "K1": k1}
+
+
+def _k3_counts(at) -> tuple:
+    """Launches of (K2, K3a, K2c, K2d)."""
+    return (at.launch_count, at.bwd_fused_launch_count,
+            at.bwd_dq_launch_count, at.bwd_dkv_launch_count)
+
+
+def _zero_k3_counts(at) -> None:
+    at.launch_count = at.bwd_fused_launch_count = 0
+    at.bwd_dq_launch_count = at.bwd_dkv_launch_count = 0
+
+
+def _flash_grads(at, q, k, v, g, block_q=512, block_k=1024):
+    """(dq, dk, dv) of ``flash_attention(q, k, v, block_q, block_k,
+    stream=False)`` through autograd on the card."""
+    xs = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+    out = at.flash_attention(*xs, block_q, block_k, False)
+    return torch.autograd.grad(out, xs, g)
+
+
+def _k3_ratio(got, want) -> float:
+    """err / tolerance of one gradient against ``want`` at phase 8's
+    tolerances (f32: elementwise atol + rtol*|ref|; bf16: of max|ref|)."""
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        return (diff / (K2BWD_F32_ATOL + K2BWD_F32_RTOL
+                        * want.float().abs())).max().item()
+    return (diff.max().item() / want.float().abs().max().item()
+            / K2BWD_BF16_RTOL_OF_MAX)
+
+
+def _with_budget(at, budget, fn):
+    """``fn()`` with the fused backward's budget set to ``budget``."""
+    saved = at._BWD_FUSED_VMEM_BUDGET
+    at._BWD_FUSED_VMEM_BUDGET = budget
+    try:
+        return fn()
+    finally:
+        at._BWD_FUSED_VMEM_BUDGET = saved
+
+
+def phase_k3_vs_plain() -> dict:
+    """``flash_attention(..., stream=False)`` through autograd against
+    ``_plain_flash_bwd`` on every case, on the fused route (K3a) and with
+    the budget at 0 on the two-pass route (K2c/K2d standing for the TPU's
+    K3b/K3c), each call's launches checked; two K3a runs bit-equal; a bf16
+    case at |s| ~ 1e5 finite. Returns the worst abs errors ({"K3a": ..,
+    "K3bc": ..})."""
+    from big_linear_algebra_tpu_torch.nn import attention as at
+
+    gen = torch.Generator().manual_seed(13)
+    worst_abs = {"K3a": 0.0, "K3bc": 0.0}
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    bad = []
+    n_cases = 0
+    routes = (("fused", "K3a", at._BWD_FUSED_VMEM_BUDGET, (1, 1, 0, 0)),
+              ("two_pass", "K3bc", 0, (1, 0, 1, 1)))
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (16, 64):
+            for b, n in K3_SHAPES:
+                for bq, bk in K3_BLOCKS:
+                    q, k, v, o, lse, g = _k2bwd_inputs(b, n, d, dtype, gen)
+                    want = at._plain_flash_bwd(q, k, v, o, lse, g)
+                    case = (f"{str(dtype)[6:]} B={b} N={n} d={d} blocks "
+                            f"({bq}, {bk})")
+                    for route, kern, budget, expect in routes:
+                        def run():
+                            _zero_k3_counts(at)
+                            grads = _flash_grads(at, q, k, v, g, bq, bk)
+                            torch.cuda.synchronize()
+                            return (at._bwd_route(q.shape, dtype, bq, bk,
+                                                  False), grads,
+                                    _k3_counts(at))
+                        got_route, got, counts = _with_budget(at, budget, run)
+                        if got_route != route or counts != expect:
+                            bad.append(f"{case}: route {got_route}, launches "
+                                       f"K2/K3a/K2c/K2d {counts}, expected "
+                                       f"{route}, {expect}")
+                            continue
+                        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+                            if x.shape != y.shape or x.dtype != y.dtype:
+                                bad.append(f"{case} {route} {name}: "
+                                           f"{tuple(x.shape)} {x.dtype}")
+                                continue
+                            worst_abs[kern] = max(
+                                worst_abs[kern],
+                                (x.float() - y.float()).abs().max().item())
+                            ratio = _k3_ratio(x, y)
+                            worst[dtype] = max(worst[dtype], ratio)
+                            if not ratio <= 1.0:
+                                bad.append(f"{case} {route} {name}: err "
+                                           f"exceeds its tolerance by "
+                                           f"{ratio}x")
+                    n_cases += 1
+    equal = []
+    for dtype in (torch.float32, torch.bfloat16):
+        ops = at._kernel_bwd_operands(*_k2bwd_inputs(*K3_MAIN, dtype, gen))
+        first = at._kernel_bwd_fused(*ops)
+        second = at._kernel_bwd_fused(*ops)
+        torch.cuda.synchronize()
+        equal.append(all(torch.equal(a, b) for a, b in zip(first, second)))
+        if not equal[-1]:
+            bad.append(f"{str(dtype)[6:]} {K3_MAIN}: two K3a runs differ")
+    q, k, v, g = (torch.randn(2, 256, 16, generator=gen) for _ in range(4))
+    q, k, v, g = (a.to("cuda", torch.bfloat16) for a in
+                  (q * K3_LARGE_SCALE, k * K3_LARGE_SCALE, v, g))
+    o, lse = at._kernel_flash(q, k, v)
+    got = at._kernel_flash_bwd_fused(q, k, v, o, lse, g)
+    want = at._plain_flash_bwd(q, k, v, o, lse, g)
+    max_s = _score_overshoot(at, q, k, lse)[0]
+    large = max(_k3_ratio(x, y) for x, y in zip(got, want))
+    if not all(bool(torch.isfinite(x).all()) for x in got) or large > 1.0:
+        bad.append(f"bf16 at max|s| {max_s:.4g}: K3a finite "
+                   f"{[bool(torch.isfinite(x).all()) for x in got]}, err/tol "
+                   f"{large}")
+    if bad:
+        fail(f"{len(bad)} K3 checks failed:\n  " + "\n  ".join(bad))
+    print(f"[19 K3 vs plain] {n_cases} cases pass through flash_attention("
+          f"..., stream=False) (f32/bf16 x d 16, 64 x (B, N) {K3_SHAPES} x "
+          f"blocks {K3_BLOCKS}), each on the fused route (K3a, 1 launch) and "
+          f"with the budget at 0 on the two-pass route (K2c + K2d): dq, dk, "
+          f"dv worst f32 err/(atol {K2BWD_F32_ATOL} + rtol {K2BWD_F32_RTOL}"
+          f"*|ref|) {worst[torch.float32]:.3f}, worst bf16 err/max|ref| "
+          f"{worst[torch.bfloat16] * K2BWD_BF16_RTOL_OF_MAX:.3e} (tol "
+          f"{K2BWD_BF16_RTOL_OF_MAX}); worst abs err K3a "
+          f"{worst_abs['K3a']:.3e}, two-pass {worst_abs['K3bc']:.3e}. Two "
+          f"K3a runs at {K3_MAIN} bit-equal (f32, bf16): {equal}. bf16 at "
+          f"max|s| {max_s:.4g} (log2 units): finite, err/tol {large:.3e}",
+          flush=True)
+    return worst_abs
+
+
+def k3_bound_ms(b: int, n: int, d: int, dtype, exp2_per_s: float):
+    """K3a: q, k, v, g read once (input dtype), lse2 and delta (f32) read
+    once, dq, dk and dv written once; 10·B·N²·d flops (five products) at
+    the dtype's peak and B·N² exp2 at the card's exp2 rate, whichever takes
+    longer. The workspace is the kernel's own traffic, not the function's."""
+    item = torch.finfo(dtype).bits // 8
+    nbytes = 7 * b * n * d * item + 2 * 4 * b * n
+    ops_s = max(10 * b * n * n * d / PEAK_FLOPS[dtype],
+                b * n * n / exp2_per_s)
+    return _bound(nbytes, ops_s)
+
+
+def phase_k3_timing(exp2_per_s: float) -> dict:
+    """bf16 at the train step's flash shape and at (4, 4096, 64): K3a and
+    K2c + K2d on prepared operands, the plain backward and SDPA's backward,
+    in turns within this one process; the lower of each pair is kept.
+    Returns the main shape's numbers."""
+    import torch.nn.functional as F
+
+    from big_linear_algebra_tpu_torch.nn import attention as at
+    from big_linear_algebra_tpu_torch.ops import cuda_utils
+
+    gen = torch.Generator().manual_seed(14)
+    names = ("K3a", "K2c+K2d", "plain", "sdpa")
+    main = {}
+    for b, n, d in K3_TIMED:
+        args = _k2bwd_inputs(b, n, d, torch.bfloat16, gen)
+        ops = at._kernel_bwd_operands(*args)
+        q4, k4, v4 = (x[:, None].detach().requires_grad_()
+                      for x in args[:3])
+        o4 = F.scaled_dot_product_attention(q4, k4, v4)
+        g4 = args[5][:, None]
+        fns = {"K3a": lambda: at._kernel_bwd_fused(*ops),
+               "K2c+K2d": lambda: (at._kernel_bwd_dq(*ops),
+                                   at._kernel_bwd_dkv(*ops)),
+               "plain": lambda: at._plain_flash_bwd(*args),
+               "sdpa": lambda: torch.autograd.grad(o4, (q4, k4, v4), g4,
+                                                   retain_graph=True)}
+        iters = 50 if n <= 1024 else 10
+        runs = {name: [] for name in names}
+        for name in names + names[::-1]:
+            runs[name].append(_time_ms(fns[name], iters=iters, warmup=2))
+        ms = {name: min(dv for dv, _ in runs[name]) for name in names}
+        bound = k3_bound_ms(b, n, d, torch.bfloat16, exp2_per_s)
+        pair = [k2bwd_bound_ms(kern, b, n, d, torch.bfloat16, exp2_per_s)
+                for kern in ("dq", "dkv")]
+        pair = (pair[0][0] + pair[1][0], max(pair)[1])
+        tiles = cuda_utils.load_library(
+            "flash_attn_bwd_fused").bla_flash_bwd_fused_tiles(n, d)
+        print(f"[20 K3 timing] bf16 B={b} N={n} d={d}: device K3a "
+              f"{ms['K3a'] * 1e3:.2f} us (bound {bound[0] * 1e3:.3f} us, "
+              f"{bound[1]}; dq workspace {tiles * b * n * d * 4 / 1e6:.1f} "
+              f"MB), K2c + K2d {ms['K2c+K2d'] * 1e3:.2f} us (bound "
+              f"{pair[0] * 1e3:.3f} us), plain backward "
+              f"{ms['plain'] * 1e3:.2f} us, SDPA backward "
+              f"{ms['sdpa'] * 1e3:.2f} us ({b * n * n} exp2, "
+              f"{10 * b * n * n * d} flops)", flush=True)
+        if (b, n, d) == K3_MAIN:
+            main = dict(ms, bound=bound, pair_bound=pair)
+    return main
+
+
+def phase_k3_unet_sites(sites) -> dict:
+    """The four flash sites of phase 10's conditioned full-width 64x64 f32
+    gradient, through ``flash_attention(..., stream=False)`` with the
+    launch counts set to 0 before and read after: K3a; then, with the
+    budget at 0, the two-pass route (K2c/K2d). K3a against the plain
+    backward and against K2c/K2d on each site's operands, and the two-pass
+    route against the plain backward, at phase 8's f32 tolerances. Returns
+    the launches ({"K3a": .., "K3bc": ..})."""
+    from big_linear_algebra_tpu_torch.nn import attention as at
+
+    def run():
+        _zero_k3_counts(at)
+        grads = [_flash_grads(at, q, k, v, g) for q, k, v, _, _, g in sites]
+        torch.cuda.synchronize()
+        return grads, _k3_counts(at)
+
+    fused, fused_counts = run()
+    two_pass, two_counts = _with_budget(at, 0, run)
+    n = len(sites)
+    if fused_counts != (n, n, 0, 0) or two_counts != (n, 0, n, n):
+        fail(f"flash_attention(..., stream=False) at the {n} U-Net sites "
+             f"launched K2/K3a/K2c/K2d {fused_counts}, with the budget at 0 "
+             f"{two_counts}; expected {(n, n, 0, 0)} and {(n, 0, n, n)}")
+    worst = {"K3a vs plain": 0.0, "K3a vs K2c/K2d": 0.0,
+             "two-pass vs plain": 0.0}
+    for i, (site, a, b) in enumerate(zip(sites, fused, two_pass)):
+        want = at._plain_flash_bwd(*site)
+        for name, x, y, z in zip(("dq", "dk", "dv"), a, b, want):
+            for key, got, ref in (("K3a vs plain", x, z),
+                                  ("K3a vs K2c/K2d", x, y),
+                                  ("two-pass vs plain", y, z)):
+                ratio = _k3_ratio(got, ref)
+                worst[key] = max(worst[key], ratio)
+                if not ratio <= 1.0:
+                    fail(f"flash site {i} of the f32 gradient, {name}: "
+                         f"{key} err exceeds atol {K2BWD_F32_ATOL} + rtol "
+                         f"{K2BWD_F32_RTOL}*|ref| by {ratio}x")
+    print(f"[21 K3 unet sites] the {n} flash sites (q {tuple(sites[0][0].shape)}"
+          f") of phase 10's conditioned f32 gradient through flash_attention("
+          f"..., stream=False): launches K2/K3a/K2c/K2d {fused_counts}; with "
+          f"the budget at 0 {two_counts}; worst err/(atol {K2BWD_F32_ATOL} + "
+          f"rtol {K2BWD_F32_RTOL}*|ref|): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + " (tol 1)", flush=True)
+    return {"K3a": fused_counts[1], "K3bc": two_counts[2]}
+
+
 def main() -> int:
     smi_line, exp2_per_s = phase_environment()
     phase_build()
@@ -1691,6 +2235,9 @@ def main() -> int:
         os.environ["BLA_DATA_DIR"] = tmp
         k2_launches = phase_unet_main_path(tmp)
         phase_unet_oracle()
+        k4_err = phase_k4_vs_plain()
+        k4 = phase_k4_timing()
+        k4_launches = phase_k4_unet_sites()
         k5_err = phase_k5_vs_plain()
         k5 = phase_k5_timing()
         k5a_launches = phase_unet_fused_run(tmp)
@@ -1702,8 +2249,54 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="bla_smoke_") as tmp:
         os.environ["BLA_DATA_DIR"] = tmp
         train_launches = phase_unet_train(tmp)
-        phase_grad_oracle()
+        flash_sites = phase_grad_oracle()
         del os.environ["BLA_DATA_DIR"]
+    k3_err = phase_k3_vs_plain()
+    k3 = phase_k3_timing(exp2_per_s)
+    k3_launches = phase_k3_unet_sites(flash_sites)
+    del flash_sites
+    k3_rows = [{
+        "name": "K3a flash attention fused backward (dq, dk, dv; stream=False)",
+        "route": "cuda",
+        "source": "big_linear_algebra_tpu_torch/csrc/flash_attn_bwd_fused.cu",
+        "replaces": K3A_TPU_KERNEL,
+        "launches": k3_launches["K3a"],
+        "max_abs_err": k3_err["K3a"],
+        "ms": k3["K3a"],
+        "plain_ms": k3["plain"],
+        "bound_ms": k3["bound"][0],
+        "bound_by": k3["bound"][1],
+        "library_ms": k3["sdpa"],
+    }, {
+        # the TPU's row-resident two-pass kernels compute what K2c and K2d
+        # compute; row residency is a VMEM tiling the card does not have
+        "name": "K3b/K3c flash attention two-pass backward (stream=False "
+                "past the fused budget), launched as K2c + K2d",
+        "route": "cuda",
+        "source": "big_linear_algebra_tpu_torch/csrc/flash_attn_bwd.cu",
+        "replaces": K3BC_TPU_KERNEL,
+        "launches": k3_launches["K3bc"],
+        "max_abs_err": k3_err["K3bc"],
+        "ms": k3["K2c+K2d"],
+        "plain_ms": k3["plain"],
+        "bound_ms": k3["pair_bound"][0],
+        "bound_by": k3["pair_bound"][1],
+        "library_ms": k3["sdpa"],
+    }]
+    k4_row = {
+        "name": "K4 implicit-GEMM conv (conv2d_implicit, conv2d_packed; "
+                "forward and dx)",
+        "route": "cuda",
+        "source": "big_linear_algebra_tpu_torch/csrc/conv_implicit.cu",
+        "replaces": K4_TPU_KERNEL,
+        "launches": k4_launches["K4"],
+        "max_abs_err": k4_err,
+        "ms": k4["K4"],
+        "plain_ms": k4["plain"],
+        "bound_ms": k4["bound"],
+        "bound_by": k4["bound_by"],
+        "library_ms": k4["F.conv2d"],
+    }
     bwd_rows = [{
         "name": f"{name} flash attention backward ({what})",
         "route": "cuda",
@@ -1764,7 +2357,7 @@ def main() -> int:
         "bound_ms": k2["bound"],
         "bound_by": k2["bound_by"],
         "library_ms": k2["sdpa"],
-    }, *bwd_rows, *k5_rows]}), flush=True)
+    }, *bwd_rows, *k3_rows, k4_row, *k5_rows]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
