@@ -2,8 +2,12 @@
 //
 // Replaces the TPU kernels of big_linear_algebra_tpu/nn/attention.py that
 // the JAX package's backward runs by default (_flash_bwd_padded, stream):
-//   _flash_bwd_stream_dq_kernel  (K2c, launched at :662) -> flash_bwd_dq_kernel
-//   _flash_bwd_stream_dkv_kernel (K2d, launched at :682) -> flash_bwd_dkv_kernel
+//   _flash_bwd_stream_dq_kernel  (K2c, launched at :662) -> flash_bwd_dq_tc
+//     (bf16) and flash_bwd_dq_kernel (f32, and bf16 at D < 16)
+//   _flash_bwd_stream_dkv_kernel (K2d, launched at :682) -> flash_bwd_dkv_tc
+//     (bf16) and flash_bwd_dkv_kernel (f32, and bf16 at D < 16)
+// Past the TPU's fused budget the same entries stand for the row-resident
+// two-pass kernels (:738 _flash_bwd_dq_kernel, :762 _flash_bwd_dkv_kernel).
 // Inputs: q, k, v, g of shape (B, N, D) in the input type (g already cast to
 // it), and per row lse2 = lse * log2(e) and delta = sum_d g * o, both (B, N)
 // f32 (the JAX package's _flash_bwd_prepare, done in plain torch by the
@@ -18,40 +22,71 @@
 // with scale = 1/sqrt(D) applied once at the end; outputs in the input type.
 // The plain PyTorch version is _plain_flash_bwd in nn/attention.py.
 //
-// Design. The TPU walked a sequential grid axis (k/v blocks for dq, q blocks
-// for dk/dv) and carried the sums in VMEM scratch. GPU blocks run in no
-// order, so each block owns a tile of output rows and loops over the other
-// side's tiles itself:
-// - K2c: one block of 256 threads per (batch, tile of 16 q rows); K/V tiles
-//   of BT rows are staged in shared memory as f32.
-// - K2d: one block per (batch, tile of 16 k rows); q/g tiles and their lse2
-//   and delta are staged, and query rows past N are masked (their lse rows
-//   are not read).
-// - As in the forward (flash_attn.cu), 16 threads share an output row: G of
-//   them split its D dims (a shuffle sums the partial dot products) and
-//   S = 16/G split the rows of each staged tile; the S partial sums are
-//   merged with shuffles at the end. Each output row is owned by one block,
-//   so there are no atomics and the results are deterministic.
-// - The scores are recomputed exactly as the forward (flash_attn.cu) formed
-//   them, from q scaled and rounded to the input type, so p <= 1 against
-//   the forward's lse. The Pallas kernels instead scale the unrounded f32
-//   score; in bf16 that score can exceed the forward's by more than 128
-//   once |s| nears 1e5 (the full-width U-Net's up_3 sites at init), and p
-//   then overflows to inf and the gradient to NaN. In f32 both agree to
-//   rounding.
-// - The other rounding points are the Pallas kernels': ds is rounded to the
-//   input type before both of its products, p before the dv product.
-// - Ragged N is masked in the kernel (staged rows past N read 0): no padding
-//   copy. D is a template parameter: 4, 8, 16, 32, 64 or 128.
+// The TPU walked a sequential grid axis (k/v blocks for dq, q blocks for
+// dk/dv) and carried the sums in VMEM scratch. GPU blocks run in no order,
+// so each block owns a tile of output rows and loops over the other side's
+// tiles itself. Each output row is owned by one warp: no atomics, and two
+// runs are bit-equal.
 //
-// What bounds it on the H100: per score two D-long dot products and one exp2
-// (both kernels), then one D-long update (K2c) or two (K2d). At the U-Net's
-// D = 16 that is 6*D = 96 (K2c) and 8*D = 128 (K2d) flops per exp2, so an
-// ideal kernel is bound by exp2 (16 per clock per SM) in bf16 and by the f32
-// CUDA-core rate in f32. This first version does every product with FP32 FMA
-// on the CUDA cores and stages tiles without prefetch; mma.sync / wgmma for
-// the products, cp.async staging and a key split across blocks are the next
-// steps.
+// What bounds them on the H100. Per score both kernels do two D-long dot
+// products (s, dp) and one exp2, then one D-long update (K2c) or two (K2d):
+// 6*D or 8*D flops per exp2. At the U-Net's D = 16 that is 96 or 128 flops
+// per exp2, so in bf16 the exp2 rate (16 per clock per SM) bounds them, and
+// the per-score f32 work around it (subtract, multiply, mask, round) comes
+// next; at D = 64 the products do (bf16 tensor-core flops).
+//
+// bf16, D in {16, 32, 64, 128}: the tensor-core kernels (namespace tc).
+// - Every product is mma.sync.m16n8k16 (bf16 in, f32 sums in registers).
+//   mma.sync, not wgmma: a warp owns 16 output rows and the S/dP
+//   accumulators feed the next product straight from registers, which
+//   mma.sync's fragment layouts allow with no shared-memory round trip; at
+//   D = 16 the products are not what bounds the kernel.
+//   K2c: S = q^ K^T and dP = G V^T, then dQ += dS K.
+//   K2d: S^T = K q^^T and dP^T = V G^T, then dV += P^T G and dK += dS^T Q;
+//   the transposed orientation puts P^T and dS^T in the A position.
+//   An m16n8 accumulator pair packs (as bf16, round to nearest even) into
+//   the m16k16 A fragment of the next product: that packing is exactly the
+//   rounding of p and ds that the plain version does.
+// - A block is 4 warps x 16 rows = 64 output rows (256 blocks at the train
+//   step's (16, 1024, 16), more than the 132 SMs; 128-row blocks would give
+//   128). The warp's own operands (q^ and G for K2c, K and V for K2d) are
+//   A fragments loaded once from global memory into registers; q^ is formed
+//   there: bf16(q * sscale), as the forward forms it.
+// - The other side is staged as bf16 through a two-stage ring of BT-row
+//   tiles with cp.async (16-byte pieces; rows past N zero-filled by
+//   src-size 0; lse2 and delta for K2d by 4-byte pieces), so the next
+//   tile's copy overlaps this tile's products. Rows are padded by 16 bytes
+//   so that ldmatrix's eight rows fall on distinct banks. B fragments come
+//   from ldmatrix: K (K2c) and q^, G (K2d) as stored for S and dP; with
+//   .trans for the second products, whose B operand is k-major.
+// - K2d scales and rounds the staged raw q in registers after ldmatrix for
+//   S^T, and uses the raw tile for dK. It reads lse2 and delta per column of
+//   the S^T fragment, from the staged copies.
+// - Ragged N is masked in the kernel: p = 0 for keys past N (K2c) and for
+//   query rows past N (K2d), whose lse2 and delta are not read; rows of
+//   the warp's own side past N read 0 and are not stored.
+// - BT = 64 rows for D <= 64 and 32 at D = 128: static shared memory at
+//   most 38 KB. A warp holds its fragments, its sums and one 16x16 S/dP
+//   chunk in registers. At D = 128 K2d's K and V fragments and dK and dV
+//   sums would pass 255 registers, so it sums dv and dk in two sweeps.
+// - Only a tile that reaches past N pays for the mask (a second copy of
+//   the tile's code); shared addresses are formed once per lane.
+// - __launch_bounds__(128, 1): with no minimum of blocks per SM, ptxas kept
+//   the d = 16 kernels at 64-78 registers, left the 16-row chunks of a tile
+//   in sequence, and spilled at d = 32; with it they take 111-114 registers
+//   (4 blocks per SM, more than the 2 that the train step's 256 blocks put
+//   on an SM) and overlap the chunks' products, exp2 and loads. ptxas -v
+//   reports no spills at any d (chip_smoke.py phase 8 fails on one).
+// - Operands must be 16-byte aligned (the wrapper makes them so); the
+//   entry returns cudaErrorMisalignedAddress otherwise.
+//
+// f32, and bf16 at D in {4, 8}: the FMA kernels below. mma on f32 operands
+// would be TF32, and the port keeps f32 true f32; D < 16 would have to pad
+// the k16 step. As in the forward (flash_attn.cu), 16 threads of a 256-
+// thread block share an output row (G split its D dims, S = 16/G split the
+// rows of each staged tile; shuffles merge them) and a block owns 16 rows;
+// tiles are staged in shared memory as f32, so each FMA reads one operand
+// from shared memory: bound by the f32 CUDA-core rate and shared memory.
 //
 // C interface (bound with ctypes): each entry returns cudaGetLastError()
 // after its launch; it launches on the given stream and never synchronises.
@@ -60,6 +95,9 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+#include <cstring>
+#include <type_traits>
 
 namespace {
 
@@ -298,6 +336,475 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ---- The tensor-core kernels (bf16, D in {16, 32, 64, 128}) ----
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int ROWS = 16 * WARPS;  // output rows per block
+
+template <int D>
+struct Geo {
+  static constexpr int BT = D <= 64 ? 64 : 32;  // rows per staged tile
+  static constexpr int LD = D + 8;              // shared row stride (bf16)
+  static constexpr int KT = D / 16;             // k16 steps over d
+  static constexpr int NT = D / 8;              // n8 tiles over d
+  static constexpr int CHUNKS = BT / 16;        // 16-row chunks per tile
+  static constexpr int CPR = D / 8;             // 16-byte pieces per row
+  static_assert(D % 16 == 0 && D <= 128, "unsupported head dim");
+};
+
+__device__ __forceinline__ uint32_t smem(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !ok (src-size 0).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared, zero-filled when !ok.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most one committed group is still in flight.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// ldmatrix.x4 at a shared-space address: lane l gives row l % 8 of matrix
+// l / 8.
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// c += a . b on the tensor cores: a 16x16 (row), b 16x8 (col), c 16x8 f32.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 values rounded to bf16 (nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  uint32_t u;
+  memcpy(&u, &h, sizeof(u));
+  return u;
+}
+
+// Two bf16 values scaled in f32 and rounded back: the forward's q^.
+__device__ __forceinline__ uint32_t scale2(uint32_t w, float sscale) {
+  return pack(__fmul_rn(__uint_as_float(w << 16), sscale),
+              __fmul_rn(__uint_as_float(w & 0xffff0000u), sscale));
+}
+
+// Byte offsets of ldmatrix's lane addresses in a staged tile of row stride
+// LD, for the 16x16 block at (0, 0); block (row0, col0) adds at<LD>(row0,
+// col0). n-major: B fragments of two n8 tiles (rows = n) of one k16 step
+// (columns = k): r[0..1] rows 0-7, r[2..3] rows 8-15. k-major, with .trans:
+// B fragments of one k16 step (rows = k) for two n8 tiles (columns = n):
+// r[0..1] columns 0-7, r[2..3] columns 8-15.
+template <int LD>
+__device__ __forceinline__ uint32_t lane_n_major() {
+  const int l = threadIdx.x % 32;
+  return ((l % 8 + (l / 16) * 8) * LD + ((l / 8) % 2) * 8) * 2;
+}
+template <int LD>
+__device__ __forceinline__ uint32_t lane_k_major() {
+  const int l = threadIdx.x % 32;
+  return ((l % 8 + ((l / 8) % 2) * 8) * LD + (l / 16) * 8) * 2;
+}
+template <int LD>
+__device__ __forceinline__ constexpr uint32_t at(int row0, int col0) {
+  return (row0 * LD + col0) * 2;
+}
+
+// The m16k16 A fragments of rows [r0, r0 + 16) of an (n, D) matrix, from
+// global memory (rows past n read 0); with SCALE, as the forward's q^.
+template <int D, bool SCALE>
+__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4],
+                                       const bf16* __restrict__ x,
+                                       size_t base, int r0, int n,
+                                       float sscale) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kt = 0; kt < D / 16; ++kt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + lane / 4 + (i % 2) * 8;
+      const int col = kt * 16 + 2 * (lane % 4) + (i / 2) * 8;
+      uint32_t w = 0;
+      if (r < n) {
+        w = *reinterpret_cast<const uint32_t*>(
+            x + base + static_cast<size_t>(r) * D + col);
+        if (SCALE) w = scale2(w, sscale);
+      }
+      a[kt][i] = w;
+    }
+  }
+}
+
+// Stage rows [r0, r0 + BT) of two (n, D) matrices into a ring slot at
+// shared addresses as, bs.
+template <int D>
+__device__ __forceinline__ void stage(const bf16* __restrict__ a,
+                                      const bf16* __restrict__ b, uint32_t as,
+                                      uint32_t bs, size_t base, int r0,
+                                      int n) {
+  using G = Geo<D>;
+  static_assert(G::BT * G::CPR % THREADS == 0, "uneven staging");
+#pragma unroll
+  for (int i = 0; i < G::BT * G::CPR / THREADS; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    const int r = e / G::CPR;
+    const int c = (e % G::CPR) * 8;
+    const bool ok = r0 + r < n;
+    const size_t off = ok ? base + static_cast<size_t>(r0 + r) * D + c : 0;
+    cp_async16(as + at<G::LD>(r, c), a + off, ok);
+    cp_async16(bs + at<G::LD>(r, c), b + off, ok);
+  }
+}
+
+// Stage lse2 and delta of rows [r0, r0 + BT) into a ring slot.
+template <int BT>
+__device__ __forceinline__ void stage_stats(const float* __restrict__ lse2,
+                                            const float* __restrict__ delta,
+                                            uint32_t ls, uint32_t dls,
+                                            size_t sbase, int r0, int n) {
+  static_assert(2 * BT <= THREADS, "one value per thread");
+  const int e = threadIdx.x;
+  const int r = e % BT;
+  const bool ok = r0 + r < n;
+  const size_t off = ok ? sbase + r0 + r : 0;
+  if (e < BT)
+    cp_async4(ls + 4 * r, lse2 + off, ok);
+  else if (e < 2 * BT)
+    cp_async4(dls + 4 * r, delta + off, ok);
+}
+
+// Store a warp's 16 x D f32 sums (times mul) as bf16 rows [r0, r0 + 16).
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
+                                           bf16* __restrict__ out,
+                                           size_t base, int r0, int n,
+                                           float mul) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + lane / 4 + 8 * h;
+    if (r >= n) continue;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      const int col = nt * 8 + 2 * (lane % 4);
+      *reinterpret_cast<uint32_t*>(out + base + static_cast<size_t>(r) * D +
+                                   col) =
+          pack(acc[nt][2 * h] * mul, acc[nt][2 * h + 1] * mul);
+    }
+  }
+}
+
+// K2c's work on one staged K/V tile (shared addresses kt, vt) of keys
+// [k0, k0 + BT). MASK: the tile reaches past N, so p = 0 for keys >= n.
+template <int D, bool MASK>
+__device__ __forceinline__ void dq_tile(uint32_t kt, uint32_t vt,
+                                        const uint32_t (&qa)[D / 16][4],
+                                        const uint32_t (&ga)[D / 16][4],
+                                        const float (&l2)[2],
+                                        const float (&dl)[2],
+                                        float (&acc)[D / 8][4], int k0,
+                                        int n) {
+  using G = Geo<D>;
+  constexpr int LD = G::LD;
+  const int lane = threadIdx.x % 32;
+  const uint32_t on = lane_n_major<LD>();
+  const uint32_t ok = lane_k_major<LD>();
+#pragma unroll
+  for (int j = 0; j < G::CHUNKS; ++j) {
+    float s[2][4] = {};
+    float dp[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < G::KT; ++kk) {
+      uint32_t b[4];
+      ldsm(b, kt + on + at<LD>(16 * j, 16 * kk));
+      mma(s[0], qa[kk], b[0], b[1]);
+      mma(s[1], qa[kk], b[2], b[3]);
+      ldsm(b, vt + on + at<LD>(16 * j, 16 * kk));
+      mma(dp[0], ga[kk], b[0], b[1]);
+      mma(dp[1], ga[kk], b[2], b[3]);
+    }
+    uint32_t dsa[4];  // dS as the A fragment of dQ += dS K
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int key = k0 + 16 * j + 8 * nt + 2 * (lane % 4);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = !MASK || key + e < n
+                              ? exp2f(s[nt][2 * h + e] - l2[h])
+                              : 0.f;
+          ds[e] = p * (dp[nt][2 * h + e] - dl[h]);
+        }
+        dsa[2 * nt + h] = pack(ds[0], ds[1]);
+      }
+    }
+#pragma unroll
+    for (int np = 0; np < G::KT; ++np) {
+      uint32_t b[4];
+      ldsm_trans(b, kt + ok + at<LD>(16 * j, 16 * np));
+      mma(acc[2 * np], dsa, b[0], b[1]);
+      mma(acc[2 * np + 1], dsa, b[2], b[3]);
+    }
+  }
+}
+
+// K2c: dq for one block of 64 q rows, 16 per warp.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ g,
+                    const float* __restrict__ lse2,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int n, float sscale, float scale) {
+  using G = Geo<D>;
+  constexpr uint32_t SLOT = G::BT * G::LD * 2;  // bytes per ring slot
+  __shared__ __align__(16) bf16 ks[2 * G::BT * G::LD];
+  __shared__ __align__(16) bf16 vs[2 * G::BT * G::LD];
+
+  const int lane = threadIdx.x % 32;
+  const int r0 = blockIdx.x * ROWS + (threadIdx.x / 32) * 16;
+  const size_t base = static_cast<size_t>(blockIdx.y) * n * D;
+  const size_t sbase = static_cast<size_t>(blockIdx.y) * n;
+  const int tiles = (n + G::BT - 1) / G::BT;
+  const uint32_t ks0 = smem(ks);
+  const uint32_t vs0 = smem(vs);
+
+  stage<D>(k, v, ks0, vs0, base, 0, n);
+  cp_async_commit();
+
+  uint32_t qa[G::KT][4];
+  uint32_t ga[G::KT][4];
+  load_a<D, true>(qa, q, base, r0, n, sscale);
+  load_a<D, false>(ga, g, base, r0, n, 0.f);
+  float l2[2];  // the thread's rows of a C fragment: lane / 4 and + 8
+  float dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + lane / 4 + 8 * h;
+    l2[h] = r < n ? lse2[sbase + r] : 0.f;
+    dl[h] = r < n ? delta[sbase + r] : 0.f;
+  }
+  float acc[G::NT][4] = {};
+
+  for (int t = 0; t < tiles; ++t) {
+    const uint32_t cur = (t % 2) * SLOT;
+    if (t + 1 < tiles)
+      stage<D>(k, v, ks0 + (SLOT - cur), vs0 + (SLOT - cur), base,
+               (t + 1) * G::BT, n);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    if ((t + 1) * G::BT <= n)
+      dq_tile<D, false>(ks0 + cur, vs0 + cur, qa, ga, l2, dl, acc,
+                        t * G::BT, n);
+    else
+      dq_tile<D, true>(ks0 + cur, vs0 + cur, qa, ga, l2, dl, acc, t * G::BT,
+                       n);
+    __syncthreads();
+  }
+  store_rows<D>(acc, dq, base, r0, n, scale);
+}
+
+// K2d's work on one staged Q/G tile (shared addresses qt, gt; lse2 and
+// delta at lt, dlt) of query rows [q0, q0 + BT): S^T and dP^T, then dv
+// (DV) and dk (DK). MASK: the tile reaches past N, so p = 0 for query rows
+// >= n.
+template <int D, bool DV, bool DK, bool MASK>
+__device__ __forceinline__ void dkv_tile(
+    uint32_t qt, uint32_t gt, const float* lt, const float* dlt,
+    const uint32_t (&ka)[D / 16][4], const uint32_t (&va)[DK ? D / 16 : 1][4],
+    float (&dka)[DK ? D / 8 : 1][4], float (&dva)[DV ? D / 8 : 1][4],
+    int q0, int n, float sscale) {
+  using G = Geo<D>;
+  constexpr int LD = G::LD;
+  const int lane = threadIdx.x % 32;
+  const uint32_t on = lane_n_major<LD>();
+  const uint32_t ok = lane_k_major<LD>();
+#pragma unroll
+  for (int j = 0; j < G::CHUNKS; ++j) {
+    float s[2][4] = {};  // S^T: 16 keys x 16 queries
+    float dp[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < G::KT; ++kk) {
+      uint32_t b[4];
+      ldsm(b, qt + on + at<LD>(16 * j, 16 * kk));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) b[i] = scale2(b[i], sscale);
+      mma(s[0], ka[kk], b[0], b[1]);
+      mma(s[1], ka[kk], b[2], b[3]);
+      if constexpr (DK) {
+        ldsm(b, gt + on + at<LD>(16 * j, 16 * kk));
+        mma(dp[0], va[kk], b[0], b[1]);
+        mma(dp[1], va[kk], b[2], b[3]);
+      }
+    }
+    uint32_t pa[4];   // P^T (bf16) as the A fragment of dV += P^T G
+    uint32_t dsa[4];  // dS^T as the A fragment of dK += dS^T Q
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      // the thread's two query columns of this n8 tile
+      const int col = 16 * j + 8 * nt + 2 * (lane % 4);
+      const float2 l2 = *reinterpret_cast<const float2*>(lt + col);
+      const float2 dl = *reinterpret_cast<const float2*>(dlt + col);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float p0 = !MASK || q0 + col < n
+                             ? exp2f(s[nt][2 * h] - l2.x)
+                             : 0.f;
+        const float p1 = !MASK || q0 + col + 1 < n
+                             ? exp2f(s[nt][2 * h + 1] - l2.y)
+                             : 0.f;
+        pa[2 * nt + h] = pack(p0, p1);
+        dsa[2 * nt + h] = pack(p0 * (dp[nt][2 * h] - dl.x),
+                               p1 * (dp[nt][2 * h + 1] - dl.y));
+      }
+    }
+#pragma unroll
+    for (int np = 0; np < G::KT; ++np) {
+      uint32_t b[4];
+      if constexpr (DV) {
+        ldsm_trans(b, gt + ok + at<LD>(16 * j, 16 * np));
+        mma(dva[2 * np], pa, b[0], b[1]);
+        mma(dva[2 * np + 1], pa, b[2], b[3]);
+      }
+      if constexpr (DK) {
+        ldsm_trans(b, qt + ok + at<LD>(16 * j, 16 * np));
+        mma(dka[2 * np], dsa, b[0], b[1]);
+        mma(dka[2 * np + 1], dsa, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// One sweep of K2d over the q tiles for a warp's 16 k rows: dv (DV) and
+// dk (DK) summed in registers and stored at the end. qs/gs hold two ring
+// slots of BT rows each, ls/dls two slots of BT values.
+template <int D, bool DV, bool DK>
+__device__ __forceinline__ void dkv_sweep(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ g,
+    const float* __restrict__ lse2, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int n, float sscale,
+    float scale, bf16* qs, bf16* gs, float* ls, float* dls) {
+  using G = Geo<D>;
+  constexpr uint32_t SLOT = G::BT * G::LD * 2;  // bytes per ring slot
+  const int r0 = blockIdx.x * ROWS + (threadIdx.x / 32) * 16;
+  const size_t base = static_cast<size_t>(blockIdx.y) * n * D;
+  const size_t sbase = static_cast<size_t>(blockIdx.y) * n;
+  const int tiles = (n + G::BT - 1) / G::BT;
+  const uint32_t qs0 = smem(qs);
+  const uint32_t gs0 = smem(gs);
+  const uint32_t ls0 = smem(ls);
+  const uint32_t dls0 = smem(dls);
+
+  stage<D>(q, g, qs0, gs0, base, 0, n);
+  stage_stats<G::BT>(lse2, delta, ls0, dls0, sbase, 0, n);
+  cp_async_commit();
+
+  uint32_t ka[G::KT][4];
+  uint32_t va[DK ? G::KT : 1][4];
+  load_a<D, false>(ka, k, base, r0, n, 0.f);
+  if constexpr (DK) load_a<D, false>(va, v, base, r0, n, 0.f);
+  float dka[DK ? G::NT : 1][4] = {};
+  float dva[DV ? G::NT : 1][4] = {};
+
+  for (int t = 0; t < tiles; ++t) {
+    const int slot = t % 2;
+    if (t + 1 < tiles) {
+      const int nxt = slot ^ 1;
+      stage<D>(q, g, qs0 + nxt * SLOT, gs0 + nxt * SLOT, base,
+               (t + 1) * G::BT, n);
+      stage_stats<G::BT>(lse2, delta, ls0 + nxt * G::BT * 4,
+                         dls0 + nxt * G::BT * 4, sbase, (t + 1) * G::BT, n);
+    }
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const uint32_t qt = qs0 + slot * SLOT;
+    const uint32_t gt = gs0 + slot * SLOT;
+    const float* lt = ls + slot * G::BT;
+    const float* dlt = dls + slot * G::BT;
+    if ((t + 1) * G::BT <= n)
+      dkv_tile<D, DV, DK, false>(qt, gt, lt, dlt, ka, va, dka, dva,
+                                 t * G::BT, n, sscale);
+    else
+      dkv_tile<D, DV, DK, true>(qt, gt, lt, dlt, ka, va, dka, dva, t * G::BT,
+                                n, sscale);
+    __syncthreads();
+  }
+  if constexpr (DK) store_rows<D>(dka, dk, base, r0, n, scale);
+  if constexpr (DV) store_rows<D>(dva, dv, base, r0, n, 1.f);
+}
+
+// K2d: dk and dv for one block of 64 k rows, 16 per warp. At D = 128 the
+// two sums and the K and V fragments would need more than 255 registers
+// (ptxas spilled), so dv and dk are summed in two sweeps there (S^T is
+// formed twice).
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ g,
+                     const float* __restrict__ lse2,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int n, float sscale,
+                     float scale) {
+  using G = Geo<D>;
+  __shared__ __align__(16) bf16 qs[2 * G::BT * G::LD];
+  __shared__ __align__(16) bf16 gs[2 * G::BT * G::LD];
+  __shared__ __align__(16) float ls[2 * G::BT];
+  __shared__ __align__(16) float dls[2 * G::BT];
+  if constexpr (D <= 64) {
+    dkv_sweep<D, true, true>(q, k, v, g, lse2, delta, dk, dv, n, sscale,
+                             scale, qs, gs, ls, dls);
+  } else {
+    dkv_sweep<D, true, false>(q, k, v, g, lse2, delta, dk, dv, n, sscale,
+                              scale, qs, gs, ls, dls);
+    dkv_sweep<D, false, true>(q, k, v, g, lse2, delta, dk, dv, n, sscale,
+                              scale, qs, gs, ls, dls);
+  }
+}
+
+}  // namespace tc
+
 struct Args {
   int b, n;
   const void *q, *k, *v, *g;
@@ -307,23 +814,54 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, typename T>
-cudaError_t launch(const Args& a, bool dkv) {
-  const dim3 grid((a.n + BR - 1) / BR, a.b);
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* g = static_cast<const T*>(a.g);
+template <int D>
+cudaError_t launch_tc(const Args& a, bool dkv) {
+  using tc::bf16;
+  const void* ptrs[] = {a.q, a.k, a.v, a.g, dkv ? a.dk : a.dq,
+                        dkv ? a.dv : a.dq};
+  for (const void* p : ptrs) {
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return cudaErrorMisalignedAddress;
+  }
+  const dim3 grid((a.n + tc::ROWS - 1) / tc::ROWS, a.b);
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  const bf16* g = static_cast<const bf16*>(a.g);
   if (dkv) {
-    flash_bwd_dkv_kernel<D, T><<<grid, THREADS, 0, a.stream>>>(
-        q, k, v, g, a.lse2, a.delta, static_cast<T*>(a.dk),
-        static_cast<T*>(a.dv), a.n, a.sscale, a.scale);
+    tc::flash_bwd_dkv_tc<D><<<grid, tc::THREADS, 0, a.stream>>>(
+        q, k, v, g, a.lse2, a.delta, static_cast<bf16*>(a.dk),
+        static_cast<bf16*>(a.dv), a.n, a.sscale, a.scale);
   } else {
-    flash_bwd_dq_kernel<D, T><<<grid, THREADS, 0, a.stream>>>(
-        q, k, v, g, a.lse2, a.delta, static_cast<T*>(a.dq), a.n, a.sscale,
-        a.scale);
+    tc::flash_bwd_dq_tc<D><<<grid, tc::THREADS, 0, a.stream>>>(
+        q, k, v, g, a.lse2, a.delta, static_cast<bf16*>(a.dq), a.n,
+        a.sscale, a.scale);
   }
   return cudaGetLastError();
+}
+
+// bf16 at D >= 16 on the tensor cores; the rest on the FMA kernels.
+template <int D, typename T>
+cudaError_t launch(const Args& a, bool dkv) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && D >= 16) {
+    return launch_tc<D>(a, dkv);
+  } else {
+    const dim3 grid((a.n + BR - 1) / BR, a.b);
+    const T* q = static_cast<const T*>(a.q);
+    const T* k = static_cast<const T*>(a.k);
+    const T* v = static_cast<const T*>(a.v);
+    const T* g = static_cast<const T*>(a.g);
+    if (dkv) {
+      flash_bwd_dkv_kernel<D, T><<<grid, THREADS, 0, a.stream>>>(
+          q, k, v, g, a.lse2, a.delta, static_cast<T*>(a.dk),
+          static_cast<T*>(a.dv), a.n, a.sscale, a.scale);
+    } else {
+      flash_bwd_dq_kernel<D, T><<<grid, THREADS, 0, a.stream>>>(
+          q, k, v, g, a.lse2, a.delta, static_cast<T*>(a.dq), a.n,
+          a.sscale, a.scale);
+    }
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>
@@ -385,6 +923,34 @@ extern "C" int bla_flash_bwd_dkv(int dtype, int b, int n, int d,
                nullptr, dk, dv,
                sscale,  scale, static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, d, a, true);
+}
+
+// Blocks per SM of the tensor-core kernel for head dim d (16, 32, 64 or
+// 128): K2c when dkv is 0, K2d otherwise; -1 for another d.
+extern "C" int bla_flash_bwd_tc_blocks_per_sm(int d, int dkv) {
+  int blocks = -1;
+  auto query = [&](auto kernel) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                  tc::THREADS, 0);
+  };
+  switch (d) {
+    case 16:
+      dkv ? query(tc::flash_bwd_dkv_tc<16>) : query(tc::flash_bwd_dq_tc<16>);
+      break;
+    case 32:
+      dkv ? query(tc::flash_bwd_dkv_tc<32>) : query(tc::flash_bwd_dq_tc<32>);
+      break;
+    case 64:
+      dkv ? query(tc::flash_bwd_dkv_tc<64>) : query(tc::flash_bwd_dq_tc<64>);
+      break;
+    case 128:
+      dkv ? query(tc::flash_bwd_dkv_tc<128>)
+          : query(tc::flash_bwd_dq_tc<128>);
+      break;
+    default:
+      break;
+  }
+  return blocks;
 }
 
 extern "C" const char* bla_cuda_error_string(int err) {

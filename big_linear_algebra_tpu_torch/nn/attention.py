@@ -295,7 +295,11 @@ def _kernel_bwd_operands(q, k, v, o, lse, g):
     _check_self_attention(q, k, v)
     g, lse2, delta = _bwd_prepare(g, o, lse, q.dtype)
     _check_kernel_operands("flash_attention backward", q, k, v, g)
-    q, k, v, g = (x.contiguous() for x in (q, k, v, g))
+    # contiguous and 16-byte aligned: the bf16 kernels copy rows in 16-byte
+    # pieces (a view at an odd offset is copied)
+    q, k, v, g = (x if x.is_contiguous() and x.data_ptr() % 16 == 0
+                  else x.clone(memory_format=torch.contiguous_format)
+                  for x in (q, k, v, g))
     return q, k, v, g, lse2.float().contiguous(), delta.float().contiguous()
 
 

@@ -44,6 +44,16 @@ def tree_leaves(tree) -> List[Any]:
     return [tree]
 
 
+def _sorted_tree_map(fn: Callable[[Any], Any], tree):
+    """``fn`` over the leaves of a nested dict, called in sorted key-path
+    order (``jax.tree.flatten``'s order); the result keeps ``tree``'s own
+    key order."""
+    if isinstance(tree, Mapping):
+        out = {k: _sorted_tree_map(fn, tree[k]) for k in sorted(tree)}
+        return {k: out[k] for k in tree}
+    return fn(tree)
+
+
 def sgd_update(params: Any, grads: Any, lr) -> Any:
     """θ ← θ − lr·g (model/mnist_nn.c:303-315's negative-scale + add)."""
     return tree_map(lambda p, g: p - lr * g, params, grads)
@@ -121,8 +131,9 @@ def adam_update(params: Any, grads: Any, state: AdamState, lr,
     Moment and update arithmetic run in the moment dtype (≥ f32); the new
     value is rounded back to each leaf's own dtype. ``sr_seed``: when given
     (a uint32 base, int or int64 tensor), bf16 leaves are written with
-    stochastic rounding, one derived seed per leaf (``leaf_seeds``); f32 and
-    f64 leaves are untouched by it."""
+    stochastic rounding, one derived seed per leaf (``leaf_seeds``), leaf
+    *i* in sorted key-path order as the JAX package numbers them, whatever
+    order the dict was built in; f32 and f64 leaves are untouched by it."""
     step = state.step + 1
     t = torch.tensor(float(step), dtype=torch.float32)
     m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.to(m_.dtype),
@@ -143,6 +154,6 @@ def adam_update(params: Any, grads: Any, state: AdamState, lr,
         new_params = tree_map(write, params, m, v)
     else:
         seeds = iter(leaf_seeds(sr_seed, len(tree_leaves(params))))
-        new_params = tree_map(lambda p, m_, v_: write(p, m_, v_, next(seeds)),
-                              params, m, v)
+        seed_tree = _sorted_tree_map(lambda _: next(seeds), params)
+        new_params = tree_map(write, params, m, v, seed_tree)
     return new_params, AdamState(step=step, m=m, v=v)

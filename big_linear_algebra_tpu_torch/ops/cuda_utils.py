@@ -6,7 +6,9 @@ interface. ``load_library(name)`` compiles one with ``nvcc`` for ``sm_90a``
 into ``build/torch_kernels/`` at the repository root on first use, keyed by a
 hash of the sources and flags (an edited source rebuilds; an unchanged one
 loads the cached library), and loads it with ctypes; ``build(names)`` starts
-one nvcc per source at once. Nothing is built when a module is imported, so
+one nvcc per source at once. nvcc runs with ``-Xptxas -v``, and its output
+(each kernel's registers, shared memory and spills) is kept beside the
+library for ``build_log(name)``. Nothing is built when a module is imported, so
 the CPU tests import every module without a toolchain.
 
 A build failure raises: there is no fallback to another implementation.
@@ -26,7 +28,7 @@ from typing import Iterable, List, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -83,10 +85,18 @@ def build(names: Iterable[str]) -> None:
                 errors.append(f"building {so.name} failed "
                               f"({' '.join(cmd)}):\n{out}")
             else:
+                so.with_suffix(".log").write_text(out)
                 # atomic: a concurrent loader sees all or none
                 os.replace(tmp, so)
         if errors:
             raise RuntimeError("\n".join(errors))
+
+
+def build_log(name: str) -> str:
+    """What nvcc printed while building ``csrc/<name>.cu`` (ptxas's
+    per-kernel registers, shared memory and spills); builds it if needed."""
+    build([name])
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -40,7 +40,10 @@ Phases, one line each (or a few), in the order 1–7, 16–18, 11–15, 8–10,
 8. K2c/K2d against plain, on the card: f32/bf16 x d in {16, 64} x (B, N)
    in {(16, 1024) the train step's shape, (2, 300) ragged, (1, 4096)}, and
    the other head dims at (2, 300); dq, dk, dv against
-   ``_plain_flash_bwd`` on the same (q, k, v, o, lse, g); then each
+   ``_plain_flash_bwd`` on the same (q, k, v, o, lse, g); the bf16
+   tensor-core kernels' registers, shared memory and spills (the build's
+   ``-Xptxas -v``), blocks per SM and HMMA count (``cuobjdump -sass``),
+   failing on a spill or on no HMMA; two bf16 runs bit-equal; then each
    kernel's time beside the plain backward's and the backward of
    ``F.scaled_dot_product_attention``, the library yardstick;
 9. cifar_unet train path: in a fresh temporary data directory,
@@ -107,6 +110,7 @@ line, and as the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import os
@@ -911,6 +915,96 @@ def phase_k2bwd_vs_plain() -> dict:
           f"{K2BWD_BF16_RTOL_OF_MAX}); worst abs err dq "
           f"{worst_abs['dq']:.3e}, dk/dv {worst_abs['dkv']:.3e}", flush=True)
     return worst_abs
+
+
+def phase_k2bwd_build_info() -> None:
+    """The tensor-core kernels of ``flash_attn_bwd.cu`` (bf16, d 16..128):
+    registers, shared memory and spills from the build's ``-Xptxas -v``
+    (kept by ``cuda_utils``), blocks per SM from the occupancy API, and
+    the HMMA/HGMMA instructions in their SASS (``cuobjdump -sass``). Fails
+    on a spill or on a kernel without tensor-core instructions."""
+    from big_linear_algebra_tpu_torch.ops import cuda_utils
+
+    name_re = re.compile(r"(flash_bwd_(dq|dkv)_tc)ILi(\d+)E")
+    stats, ptxas, cur = {}, {}, None
+    for line in cuda_utils.build_log("flash_attn_bwd").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\S+?)'?(?: for|$)", line)
+        if m:
+            k = name_re.search(m.group(1))
+            cur = (k.group(1), int(k.group(3))) if k else None
+            if cur:
+                stats.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        ptxas.setdefault(cur, []).append(line.strip())
+        if (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)):
+            stats[cur]["spill"] = int(m.group(1)) + int(m.group(2))
+        if (m := re.search(r"Used (\d+) registers", line)):
+            stats[cur]["regs"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            stats[cur]["smem"] = int(sm.group(1)) if sm else 0
+    cuobjdump = os.path.join(os.path.dirname(cuda_utils.nvcc()), "cuobjdump")
+    if not os.path.isfile(cuobjdump):
+        fail(f"{cuobjdump} not found: the SASS cannot be checked for "
+             "tensor-core instructions")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", str(cuda_utils.library_path("flash_attn_bwd"))],
+        capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass failed: {sass.stderr.strip()}")
+    for func in re.split(r"\n\s*Function : ", sass.stdout)[1:]:
+        k = name_re.search(func.split("\n", 1)[0])
+        if k:
+            stats.setdefault((k.group(1), int(k.group(3))), {})["mma"] = (
+                len(re.findall(r"\bH(?:G)?MMA\b", func)))
+    blocks_per_sm = cuda_utils.load_library(
+        "flash_attn_bwd").bla_flash_bwd_tc_blocks_per_sm
+    blocks_per_sm.restype = ctypes.c_int
+    blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+    want = [(kern, d) for kern in ("flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+            for d in (16, 32, 64, 128)]
+    bad, parts = [], []
+    for kern, d in want:
+        st = stats.get((kern, d), {})
+        st["blocks"] = blocks_per_sm(d, int(kern == "flash_bwd_dkv_tc"))
+        if set(st) != {"spill", "regs", "smem", "mma", "blocks"}:
+            bad.append(f"{kern}<{d}>: incomplete build/SASS record {st}")
+            continue
+        if st["spill"] or not st["mma"] or st["blocks"] < 1:
+            bad.append(f"{kern}<{d}>: {st}; ptxas: {ptxas.get((kern, d))}")
+        parts.append(f"{'K2c' if 'dq' in kern else 'K2d'} d={d} "
+                     f"{st['regs']} regs, {st['smem']} B smem, spill "
+                     f"{st['spill']} B, {st['blocks']} blocks/SM, "
+                     f"{st['mma']} HMMA")
+    if bad:
+        fail("tensor-core K2c/K2d (spill, no HMMA or no block fits):\n  "
+             + "\n  ".join(bad))
+    print("[8 K2c/K2d build] bf16 tensor-core kernels (128 threads, 64 "
+          "output rows a block; -Xptxas -v, cudaOccupancy, cuobjdump -sass):"
+          " " + "; ".join(parts), flush=True)
+
+
+def phase_k2bwd_bitequal() -> None:
+    """Two bf16 runs of K2c and of K2d on the same operands at the train
+    step's shape must be bit-equal (each output row has one owner warp;
+    no atomics)."""
+    from big_linear_algebra_tpu_torch.nn import attention as at
+
+    gen = torch.Generator().manual_seed(8)
+    ops = at._kernel_bwd_operands(*_k2bwd_inputs(*K2BWD_MAIN, torch.bfloat16,
+                                                 gen))
+    first = (at._kernel_bwd_dq(*ops), *at._kernel_bwd_dkv(*ops))
+    second = (at._kernel_bwd_dq(*ops), *at._kernel_bwd_dkv(*ops))
+    torch.cuda.synchronize()
+    differ = [name for name, a, b in zip(("dq", "dk", "dv"), first, second)
+              if not torch.equal(a.view(torch.int16), b.view(torch.int16))]
+    if differ:
+        fail(f"two bf16 K2c/K2d runs at {K2BWD_MAIN} differ in {differ}")
+    print(f"[8 K2c/K2d bit-equal] two bf16 runs at (B, N, d) = {K2BWD_MAIN}:"
+          " dq, dk, dv bit-equal", flush=True)
 
 
 def phase_k2bwd_timing(exp2_per_s: float) -> dict:
@@ -2245,6 +2339,8 @@ def main() -> int:
         fused_train = phase_unet_fused_train()
         del os.environ["BLA_DATA_DIR"]
     bwd_err = phase_k2bwd_vs_plain()
+    phase_k2bwd_build_info()
+    phase_k2bwd_bitequal()
     bwd = phase_k2bwd_timing(exp2_per_s)
     with tempfile.TemporaryDirectory(prefix="bla_smoke_") as tmp:
         os.environ["BLA_DATA_DIR"] = tmp

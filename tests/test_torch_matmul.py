@@ -110,3 +110,22 @@ def test_kernel_wrapper_rejects_cpu_tensors_and_missing_nvcc(monkeypatch):
     monkeypatch.setenv("PATH", "")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_utils.nvcc()
+
+
+def test_build_keeps_the_ptxas_log(monkeypatch, tmp_path):
+    """``build`` passes ``-Xptxas -v`` and keeps what nvcc printed beside
+    the library, where ``build_log`` reads it without rebuilding."""
+    home = tmp_path / "cuda"
+    (home / "bin").mkdir(parents=True)
+    fake = home / "bin" / "nvcc"
+    fake.write_text('#!/bin/sh\ncase "$*" in *"-Xptxas -v"*) ;; *) exit 1;; '
+                    'esac\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    ': > "$2"\necho "ptxas info    : Used 42 registers"\n')
+    fake.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    monkeypatch.setattr(cuda_utils, "BUILD_DIR", tmp_path / "build")
+    log = cuda_utils.build_log("flash_attn_bwd")
+    assert "Used 42 registers" in log
+    assert cuda_utils.library_path("flash_attn_bwd").is_file()
+    fake.write_text("#!/bin/sh\nexit 1\n")  # a rebuild would now fail
+    assert cuda_utils.build_log("flash_attn_bwd") == log

@@ -288,6 +288,51 @@ def test_leaf_seeds_and_fmix32_match_jax():
         np.asarray(jax_optim._fmix32(jnp.asarray(h))).astype(np.int64))
 
 
+def test_adam_bf16_seeds_follow_jax_leaf_order(rng):
+    """Leaf i's dither seed goes to the i-th leaf in sorted key-path order,
+    as ``jax.tree.flatten`` numbers them, whatever order the dict was
+    built in (the U-Net's trees are built in network order)."""
+    def tree():
+        def leaf():
+            return rng.standard_normal(257).astype(np.float32) * 0.05
+        return {"time_w": leaf(), "time_b": leaf(),
+                "up": {"resnet_1": leaf(), "attn_1": leaf()}}
+
+    base = 0xDEADBEEF
+    p, g = tree(), tree()
+    jp = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), p)
+    jg = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), g)
+    want, _ = jax_optim.adam_update(
+        jp, jg, jax_optim.adam_init(jp), 1e-3,
+        sr_key=jax.random.wrap_key_data(jnp.array([base, 0], jnp.uint32)))
+    want = jax.tree.map(lambda a: np.asarray(a).view(np.int16), want)
+
+    def port(keys, sub_keys):
+        def build(x):
+            out = {k: t(x[k], torch.bfloat16) for k in keys if k != "up"}
+            out["up"] = {k: t(x["up"][k], torch.bfloat16) for k in sub_keys}
+            return {k: out[k] for k in keys}
+        tp = build(p)
+        got, _ = optim.adam_update(tp, build(g), optim.adam_init(tp), 1e-3,
+                                   sr_seed=base)
+        assert list(got) == list(keys)  # the input's structure is kept
+        assert list(got["up"]) == list(sub_keys)
+        return got
+
+    for keys, sub_keys in ((("time_w", "time_b", "up"),
+                            ("resnet_1", "attn_1")),
+                           (("time_b", "time_w", "up"),
+                            ("attn_1", "resnet_1"))):
+        got = port(keys, sub_keys)
+        for path in (("time_w",), ("time_b",), ("up", "resnet_1"),
+                     ("up", "attn_1")):
+            a, b = got, want
+            for k in path:
+                a, b = a[k], b[k]
+            np.testing.assert_array_equal(a.view(torch.int16).numpy(), b,
+                                          err_msg=f"{keys} {path}")
+
+
 def test_sgd_update():
     p = {"a": torch.ones(3), "b": {"c": torch.zeros(2)}}
     g = {"a": torch.full((3,), 2.0), "b": {"c": torch.ones(2)}}
