@@ -13,48 +13,81 @@
 // Their arithmetic is kept step for step:
 // - exp2 domain: q is scaled by qscale = log2(e)/sqrt(D) in f32 and rounded
 //   back to the input type, so every score needs only exp2;
-// - P is rounded to the input type before the PV product;
+// - P is rounded to the input type before the PV product; l sums the
+//   unrounded f32 p;
 // - all sums are f32; keys past N score -inf.
-// The plain PyTorch version is _plain_flash in nn/attention.py.
+// The plain PyTorch version is _plain_flash in nn/attention.py. The two
+// TPU kernels differ only in whether the K/V rows stay resident in VMEM
+// (the TPU chose streaming past a 64 MB budget); here K/V tiles always
+// stream through shared memory and nothing is sized by N, so one entry
+// stands for both.
 //
-// Design: one kernel covers both TPU kernels. They differ only in whether
-// the K/V rows stay resident in VMEM (the TPU chose streaming past a 64 MB
-// budget); here K/V tiles always stream through shared memory and nothing is
-// sized by N.
-// - One block of 256 threads per (batch, tile of 16 q rows); a loop over
-//   K/V tiles of BK rows inside the block takes the place of the TPU's
-//   sequential key grid axis (GPU blocks run in no order).
-// - 16 threads share a q row: G of them split its D dims (dims g, g+G, ...;
-//   a shuffle sums the partial scores) and S = 16/G split the keys of each
-//   tile (keys s, s+S, ...). Each thread keeps its own running max m, sum l
-//   and accumulator acc in registers; at the end the S key slices are merged
-//   with shuffles (rescaled to the common max), within one warp.
-// - Tiles are staged in shared memory as f32. The row stride D+G puts the
-//   words that a warp reads at once in distinct banks.
-// - Ragged N is masked in the kernel (staged rows past N read 0 and score
-//   -inf; rows past N are not stored): no padding copy. A slice whose keys
-//   so far are all masked has m = -inf; the exp2 offset then uses 0, not
-//   -inf - -inf.
-// - D is a template parameter: 4, 8, 16, 32, 64 or 128. The wrapper rejects
-//   any other D.
+// What bounds it on the H100. Per score: one D-long dot product, one exp2
+// and one D-long update of acc (4·D flops). At the U-Net's D = 16 that is
+// 64 flops per exp2, so the exp2 rate (16 per clock per SM) bounds an ideal
+// kernel, and the per-score f32 work around each exp2 (max, subtract, sum,
+// pack, mask) comes next; at D = 64 the bf16 tensor-core flops do.
 //
-// What bounds it on the H100: per score one D-long dot product, one exp2 and
-// one D-long update of acc. At the U-Net's D = 16 that is 4·D = 64 flops per
-// exp2, below the exp2 units' share of the peak, so an ideal kernel would be
-// bound by exp2 (16 per clock per SM) and, at the U-Net's N = 1024, would
-// take well under a microsecond, where the launch dominates. This first
-// version does its products with FP32 FMA on the CUDA cores, also for bf16,
-// and issues its loads without prefetch; mma.sync / wgmma for the two
-// products are the next steps.
+// bf16, D in {16, 32, 64, 128}: the tensor-core kernel (namespace tc).
+// - Both products on mma.sync.m16n8k16 (bf16 in, f32 sums in registers).
+//   A warp owns 16 q rows; its q^ = bf16(q * qscale) are A fragments loaded
+//   once from global memory (tc::load_a, the rounding of _plain_flash).
+//   S = q^ K^T takes K as stored as the "col" B operand (ldmatrix);
+//   O += P V takes V through ldmatrix.trans. The m16n8 S accumulators pack
+//   (bf16, round to nearest even) into the m16k16 A fragment of P: that
+//   packing is the plain version's p.to(q.dtype), and P never touches
+//   shared memory.
+// - Online softmax in registers, once per staged tile: in the m16n8 C
+//   layout a row's values sit in one quad of lanes (c0/c1 row lane/4,
+//   c2/c3 row lane/4 + 8, each with its own max, alpha and l); the row max
+//   takes shfl_xor 1 and 2. The max is subtracted before exp2, and a row
+//   whose keys so far are all masked offsets by 0, so -inf - -inf never
+//   occurs. exp2 is the SFU's ex2.approx.ftz, without exp2f's denormal
+//   handling (a p below 2^-126 is 0): 12% faster at the train step's
+//   (16, 1024, 16) on the H100. At the end the quad sums l; o = acc / l
+//   is stored as bf16 and lse = (m + log2 l) / log2(e) by one lane of the
+//   quad.
+// - K and V are staged as bf16 through a two-slot cp.async ring
+//   (tc::stage, rows padded by 16 bytes for ldmatrix), so the next tile's
+//   copy overlaps this tile's work. Rows past N are zero-filled and score
+//   -inf; only a tile that reaches past N pays for the mask (a second copy
+//   of the tile's code). q rows past N read 0 and are not stored. No
+//   padding copy.
+// - A block is 4 warps x 16 rows = 64 q rows, one block per 64-row q tile:
+//   256 blocks at the train step's (16, 1024, 16) and at (4, 4096, 64), 16
+//   at the sampler's (1, 1024, 16). The keys are not split over blocks:
+//   on the H100 the 16 blocks already beat SDPA at (1, 1024, 16).
+// - __launch_bounds__(128, 2): a minimum of blocks per SM keeps ptxas from
+//   capping registers and running the tile's chunks in sequence, as in
+//   K2c/K2d (flash_attn_bwd.cu); chip_smoke.py phase 5 reports registers,
+//   shared memory and spills.
+// - Operands must be 16-byte aligned (cp.async and ldmatrix); the entry
+//   returns cudaErrorMisalignedAddress otherwise, and the wrapper copies a
+//   view that is not.
 //
-// C interface (bound with ctypes): bla_flash_fwd returns cudaGetLastError()
-// after the launch; it launches on the given stream and never synchronises.
+// f32, and bf16 at D in {4, 8}: the FMA kernel below. mma on f32 operands
+// would be TF32, and the port keeps f32 true f32; D < 16 stays here rather
+// than padding the k16 step. 16 threads of a 256-thread block share a q row:
+// G of them split its D dims (a shuffle sums the partial scores) and
+// S = 16/G split the keys of each tile; each keeps its own (m, l, acc),
+// merged at the end with shuffles (rescaled to the common max). Tiles are
+// staged in shared memory as f32 (row stride D+G: distinct banks). Bound by
+// the f32 CUDA-core rate and shared memory.
+//
+// C interface (bound with ctypes): bla_flash_fwd returns the launch's error
+// (cudaGetLastError() after it); it launches on the given stream and never
+// synchronises. bla_flash_fwd_tc_blocks_per_sm reports the tensor-core
+// kernel's occupancy.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <cstddef>
+#include <cstdint>
+#include <type_traits>
+
+#include "mma_sm80.cuh"
 
 namespace {
 
@@ -209,14 +242,189 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ---- The tensor-core kernel (bf16, D in {16, 32, 64, 128}) ----
+namespace tc {
+
+// 2^x on the SFU without the denormal handling of exp2f: a result below
+// 2^-126 (a probability that rounds to nothing in any sum here) is 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One staged K/V tile (shared addresses kt, vt) of keys [k0, k0 + BT) for
+// a warp's 16 rows: S = q^ K^T, the online-softmax update of (m, l, acc),
+// then acc += P V. MASK: the tile reaches past N, so keys >= n score -inf.
+template <int D, bool MASK>
+__device__ __forceinline__ void fwd_tile(uint32_t kt, uint32_t vt,
+                                         const uint32_t (&qa)[D / 16][4],
+                                         float (&m)[2], float (&l)[2],
+                                         float (&acc)[D / 8][4], int k0,
+                                         int n) {
+  using G = Geo<D>;
+  constexpr int LD = G::LD;
+  constexpr int NB = G::BT / 8;  // n8 key tiles
+  const int lane = threadIdx.x % 32;
+  const uint32_t on = lane_n_major<LD>();
+  const uint32_t ok = lane_k_major<LD>();
+  float s[NB][4];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < G::CHUNKS; ++j) {
+#pragma unroll
+    for (int kk = 0; kk < G::KT; ++kk) {
+      uint32_t b[4];
+      ldsm(b, kt + on + at<LD>(16 * j, 16 * kk));
+      mma(s[2 * j], qa[kk], b[0], b[1]);
+      mma(s[2 * j + 1], qa[kk], b[2], b[3]);
+    }
+  }
+  if (MASK) {
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k0 + 8 * nb + 2 * (lane % 4) + e % 2 >= n)
+          s[nb][e] = -CUDART_INF_F;
+  }
+  // c0/c1 are row lane/4 (h = 0), c2/c3 row lane/4 + 8 (h = 1)
+  float off[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = m[h];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      mx = fmaxf(mx, fmaxf(s[nb][2 * h], s[nb][2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, 2));
+    // all keys of the row masked so far: offset by 0, so that exp2 sees
+    // -inf - 0 = -inf (giving 0) and never -inf - -inf
+    off[h] = mx == -CUDART_INF_F ? 0.f : mx;
+    const float alpha = ex2(m[h] - off[h]);
+    m[h] = mx;
+    l[h] *= alpha;
+#pragma unroll
+    for (int nt = 0; nt < G::NT; ++nt) {
+      acc[nt][2 * h] *= alpha;
+      acc[nt][2 * h + 1] *= alpha;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < G::CHUNKS; ++j) {
+    uint32_t pa[4];  // P (bf16) of 16 keys as the A fragment of acc += P V
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float p0 = ex2(s[2 * j + t][2 * h] - off[h]);
+        const float p1 = ex2(s[2 * j + t][2 * h + 1] - off[h]);
+        l[h] += p0 + p1;
+        pa[2 * t + h] = pack(p0, p1);
+      }
+    }
+#pragma unroll
+    for (int np = 0; np < G::KT; ++np) {
+      uint32_t b[4];
+      ldsm_trans(b, vt + ok + at<LD>(16 * j, 16 * np));
+      mma(acc[2 * np], pa, b[0], b[1]);
+      mma(acc[2 * np + 1], pa, b[2], b[3]);
+    }
+  }
+}
+
+// K2 on the tensor cores: one block of 64 q rows (16 per warp) over all
+// the key tiles.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 2)
+    flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int n, float sscale) {
+  using G = Geo<D>;
+  constexpr uint32_t SLOT = G::BT * G::LD * 2;  // bytes per ring slot
+  __shared__ __align__(16) bf16 ks[2 * G::BT * G::LD];
+  __shared__ __align__(16) bf16 vs[2 * G::BT * G::LD];
+
+  const int lane = threadIdx.x % 32;
+  const int r0 = blockIdx.x * ROWS + (threadIdx.x / 32) * 16;
+  const size_t base = static_cast<size_t>(blockIdx.y) * n * D;
+  const size_t sbase = static_cast<size_t>(blockIdx.y) * n;
+  const int tiles = (n + G::BT - 1) / G::BT;
+  const uint32_t ks0 = smem(ks);
+  const uint32_t vs0 = smem(vs);
+
+  stage<D>(k, v, ks0, vs0, base, 0, n);
+  cp_async_commit();
+
+  uint32_t qa[G::KT][4];
+  load_a<D, true>(qa, q, base, r0, n, sscale);
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.f, 0.f};
+  float acc[G::NT][4] = {};
+
+  for (int t = 0; t < tiles; ++t) {
+    const uint32_t cur = (t % 2) * SLOT;
+    if (t + 1 < tiles)
+      stage<D>(k, v, ks0 + (SLOT - cur), vs0 + (SLOT - cur), base,
+               (t + 1) * G::BT, n);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    if ((t + 1) * G::BT <= n)
+      fwd_tile<D, false>(ks0 + cur, vs0 + cur, qa, m, l, acc, t * G::BT, n);
+    else
+      fwd_tile<D, true>(ks0 + cur, vs0 + cur, qa, m, l, acc, t * G::BT, n);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(FULL_MASK, l[h], 1);
+    l[h] += __shfl_xor_sync(FULL_MASK, l[h], 2);
+    const int r = r0 + lane / 4 + 8 * h;
+    if (r >= n) continue;
+#pragma unroll
+    for (int nt = 0; nt < G::NT; ++nt) {
+      const int col = nt * 8 + 2 * (lane % 4);
+      *reinterpret_cast<uint32_t*>(o + base + static_cast<size_t>(r) * D +
+                                   col) =
+          pack(acc[nt][2 * h] / l[h], acc[nt][2 * h + 1] / l[h]);
+    }
+    if (lane % 4 == 0) lse[sbase + r] = (m[h] + log2f(l[h])) / LOG2E;
+  }
+}
+
+template <int D>
+cudaError_t launch(int b, int n, const void* q, const void* k, const void* v,
+                   void* o, float* lse, float qscale, cudaStream_t stream) {
+  const void* ptrs[] = {q, k, v, o};
+  for (const void* p : ptrs) {
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return cudaErrorMisalignedAddress;
+  }
+  flash_fwd_tc<D><<<dim3((n + ROWS - 1) / ROWS, b), THREADS, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, n, qscale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// bf16 at D >= 16 on the tensor cores; the rest on the FMA kernel.
 template <int D, typename T>
 cudaError_t launch(int b, int n, const void* q, const void* k, const void* v,
                    void* o, float* lse, float qscale, cudaStream_t stream) {
-  const dim3 grid((n + BQ - 1) / BQ, b);
-  flash_fwd_kernel<D, T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, n, qscale);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && D >= 16) {
+    return tc::launch<D>(b, n, q, k, v, o, lse, qscale, stream);
+  } else {
+    const dim3 grid((n + BQ - 1) / BQ, b);
+    flash_fwd_kernel<D, T><<<grid, THREADS, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), lse, n, qscale);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>
@@ -258,6 +466,33 @@ extern "C" int bla_flash_fwd(int dtype, int b, int n, int d, const void* q,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// Blocks per SM of the tensor-core kernel for head dim d (16, 32, 64 or
+// 128); -1 for another d.
+extern "C" int bla_flash_fwd_tc_blocks_per_sm(int d) {
+  int blocks = -1;
+  auto query = [&](auto kernel) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                  tc::THREADS, 0);
+  };
+  switch (d) {
+    case 16:
+      query(tc::flash_fwd_tc<16>);
+      break;
+    case 32:
+      query(tc::flash_fwd_tc<32>);
+      break;
+    case 64:
+      query(tc::flash_fwd_tc<64>);
+      break;
+    case 128:
+      query(tc::flash_fwd_tc<128>);
+      break;
+    default:
+      break;
+  }
+  return blocks;
 }
 
 extern "C" const char* bla_cuda_error_string(int err) {

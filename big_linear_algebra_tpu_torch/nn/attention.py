@@ -233,6 +233,15 @@ def _function(lib, name, n_ptrs, n_floats):
     return fn
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a contiguous copy of it where it is not contiguous and
+    16-byte aligned: the bf16 kernels copy rows in 16-byte pieces, so a
+    view at an odd offset is copied."""
+    if x.is_contiguous() and x.data_ptr() % 16 == 0:
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 def _kernel_flash(q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/flash_attn.cu`` on CUDA tensors → (o, lse f32); raises
@@ -241,7 +250,7 @@ def _kernel_flash(q: torch.Tensor, k: torch.Tensor,
     _check_self_attention(q, k, v)
     _check_kernel_operands("flash_attention", q, k, v)
     b, n, d = q.shape
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(x) for x in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((b, n), dtype=torch.float32, device=q.device)
     lib = cuda_utils.load_library("flash_attn")
@@ -295,11 +304,7 @@ def _kernel_bwd_operands(q, k, v, o, lse, g):
     _check_self_attention(q, k, v)
     g, lse2, delta = _bwd_prepare(g, o, lse, q.dtype)
     _check_kernel_operands("flash_attention backward", q, k, v, g)
-    # contiguous and 16-byte aligned: the bf16 kernels copy rows in 16-byte
-    # pieces (a view at an odd offset is copied)
-    q, k, v, g = (x if x.is_contiguous() and x.data_ptr() % 16 == 0
-                  else x.clone(memory_format=torch.contiguous_format)
-                  for x in (q, k, v, g))
+    q, k, v, g = (_aligned(x) for x in (q, k, v, g))
     return q, k, v, g, lse2.float().contiguous(), delta.float().contiguous()
 
 

@@ -4,8 +4,9 @@
 Kernels live in ``big_linear_algebra_tpu_torch/csrc/<name>.cu`` with a plain C
 interface. ``load_library(name)`` compiles one with ``nvcc`` for ``sm_90a``
 into ``build/torch_kernels/`` at the repository root on first use, keyed by a
-hash of the sources and flags (an edited source rebuilds; an unchanged one
-loads the cached library), and loads it with ctypes; ``build(names)`` starts
+hash of the flags, the source and the shared headers ``csrc/*.cuh`` (an
+edited source or header rebuilds; an unchanged one loads the cached
+library), and loads it with ctypes; ``build(names)`` starts
 one nvcc per source at once. nvcc runs with ``-Xptxas -v``, and its output
 (each kernel's registers, shared memory and spills) is kept beside the
 library for ``build_log(name)``. Nothing is built when a module is imported, so
@@ -48,9 +49,12 @@ def nvcc() -> str:
 
 
 def _source_hash(src: Path) -> str:
+    """Hash of the flags, the source and every header of ``CSRC`` (sorted by
+    name): a source may include any of them, so an edited header rebuilds."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(src.name.encode())
-    h.update(src.read_bytes())
+    for path in [src, *sorted(src.parent.glob("*.cuh"))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 

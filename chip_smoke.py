@@ -16,7 +16,11 @@ Phases, one line each (or a few), in the order 1–7, 16–18, 11–15, 8–10,
 3. K1 against plain, on the card: nn/nt/tn x f32/bf16 x
    {no epilogue, bias, bias+ReLU} at the three mnist_nn layer shapes and a
    ragged one, against the plain PyTorch version with TF32 off; a TF32
-   product at the layer shapes must fail the f32 bound; then the
+   product at the layer shapes must fail the f32 bound; two f32 runs
+   bit-equal at each of those shapes; the kernels' registers, shared
+   memory and spills (the build's ``-Xptxas -v``), blocks per SM and the
+   rule's grid (block shape, K splits over a cluster) at each shape,
+   failing on a spill or on clusters that do not all fit at once; then the
    kernel's time beside the plain version's and torch.matmul's (CUDA events,
    after warm-up);
 4. mnist_nn main path: ``mnist_nn init`` then ``mnist_nn run`` on the
@@ -26,8 +30,13 @@ Phases, one line each (or a few), in the order 1–7, 16–18, 11–15, 8–10,
 5. K2 against plain, on the card: f32/bf16 x d in {16, 64} x (B, N) in
    {(1, 1024) the U-Net's shape, (2, 300) ragged, (1, 4096), (1, 16384)},
    and the other head dims the kernel takes at (2, 300); o and lse against
-   ``_plain_flash``; then the kernel's time beside the plain version's and
-   ``F.scaled_dot_product_attention``'s, the library yardstick;
+   ``_plain_flash``, and bf16 operands that are views one element past an
+   aligned buffer; two bf16 runs bit-equal at (1, 1024, 16) and at (16,
+   1024, 16); the bf16 tensor-core kernels' registers, shared memory,
+   spills, blocks per SM and HMMA count, failing on a spill or on no HMMA;
+   then the kernel's time beside the plain version's and
+   ``F.scaled_dot_product_attention``'s, the library yardstick, at (1,
+   1024, 16), (16, 1024, 16) and (4, 4096, 64);
 6. cifar_unet main path: ``cifar_unet init`` then ``run 1
    --image-size=64`` (DDPM sampling, 1000 full-width U-Net forwards) in a
    temporary data directory, with K2's launch count read around ``run``;
@@ -244,11 +253,16 @@ K4_TIMED = [(16, 128, 32, 32, 128, 3), (16, 256, 16, 16, 256, 3)]
 
 MAIN_SHAPES = [(2048, 784, 256), (2048, 256, 128), (2048, 128, 10)]  # M, K, N
 RAGGED_SHAPE = (130, 257, 200)
+# K1's block shapes, in the C entry's numbering: 128x64 tiles of 128
+# threads with 8x8 each, and 128x16 tiles of 64 threads with 8x4 (N <= 16)
+K1_SHAPES = ("Wide", "Thin")
 TPU_KERNEL = "big_linear_algebra_tpu/ops/matmul.py:220"
 K2_TPU_KERNEL = "big_linear_algebra_tpu/nn/attention.py:545"
 K2_SHAPES = [(1, 1024), (2, 300), (1, 4096), (1, 16384)]  # B, N
 K2_MAIN = (1, 1024, 16)  # B, N, d at the U-Net's four flash sites, 64x64
-K2_TIMED = [K2_MAIN, (4, 4096, 64)]
+K2_TRAIN = (16, 1024, 16)  # B, N, d at the flash sites of a train step
+K2_TIMED = [K2_MAIN, K2_TRAIN, (4, 4096, 64)]
+K2_ODD_VIEWS = [K2_MAIN, (2, 300, 64)]  # bf16 operands at +1 element
 K2C_TPU_KERNEL = "big_linear_algebra_tpu/nn/attention.py:662"
 K2D_TPU_KERNEL = "big_linear_algebra_tpu/nn/attention.py:682"
 K2BWD_SHAPES = [(16, 1024), (2, 300), (1, 4096)]  # B, N
@@ -491,6 +505,88 @@ def phase_timing() -> dict:
     return totals
 
 
+def phase_k1_bitequal() -> None:
+    """Two runs of K1 on the same operands must be bit-equal at each
+    mnist_nn layer shape and the ragged one, for nn, nt and tn in f32 with
+    the bias+ReLU epilogue (split-K sums the cluster's partial tiles in
+    rank order; no atomics)."""
+    from big_linear_algebra_tpu_torch.ops import matmul as mm
+
+    gen = torch.Generator().manual_seed(9)
+    differ, n_cases = [], 0
+    for m, k, n in MAIN_SHAPES + [RAGGED_SHAPE]:
+        for variant in ("nn", "nt", "tn"):
+            a, b, bias = _operands(variant, m, k, n, torch.float32, gen)
+            first = mm._kernel_mm(a, b, variant, torch.float32, bias, "relu")
+            second = mm._kernel_mm(a, b, variant, torch.float32, bias,
+                                   "relu")
+            torch.cuda.synchronize()
+            if not torch.equal(first.view(torch.int32),
+                               second.view(torch.int32)):
+                differ.append(f"{variant} M={m} K={k} N={n}")
+            n_cases += 1
+    if differ:
+        fail(f"two K1 runs differ at {differ}")
+    print(f"[3 K1 bit-equal] two f32 runs bit-equal in all {n_cases} cases "
+          f"(nn/nt/tn x {MAIN_SHAPES + [RAGGED_SHAPE]})", flush=True)
+
+
+def phase_k1_build_info() -> None:
+    """K1's kernels (wide and thin block shape x nn/nt/tn x f32/bf16 in):
+    registers, shared memory and spills from the build's ``-Xptxas -v``,
+    blocks per SM of each (occupancy API), and the rule's grid at each
+    mnist_nn layer shape and the ragged one. Fails on a spill, a missing
+    record, a block that does not fit, or a grid whose clusters do not all
+    fit at once for one of the kernels
+    (``cudaOccupancyMaxActiveClusters``)."""
+    stats = _kernel_stats("matmul", re.compile(
+        r"mm_kernelI\w*?(Wide|Thin)ELi(\d)E(f|13__nv_bfloat16)E"))
+    blocks_per_sm = _int_fn("matmul", "bla_matmul_blocks_per_sm", 3)
+    max_clusters = _int_fn("matmul", "bla_matmul_max_clusters", 4)
+    from big_linear_algebra_tpu_torch.ops import cuda_utils
+
+    plan = cuda_utils.load_library("matmul").bla_matmul_plan
+    plan.restype = None
+    plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    variants = ("nn", "nt", "tn")
+    dtypes = (("f", "f32"), ("13__nv_bfloat16", "bf16"))
+    bad, parts = [], []
+    for shape in K1_SHAPES:
+        for variant in range(3):
+            for dt, (mangled, dname) in enumerate(dtypes):
+                st = stats.get((shape, str(variant), mangled), {})
+                st["blocks"] = blocks_per_sm(K1_SHAPES.index(shape), variant,
+                                             dt)
+                what = f"mm_kernel<{shape}, {variants[variant]}, {dname}>"
+                why = _check_stats(what, st, False)
+                if why:
+                    bad.append(why)
+                    continue
+                parts.append(f"{what} {st['regs']} regs, {st['smem']} B "
+                             f"smem, spill {st['spill']} B, {st['blocks']} "
+                             f"blocks/SM")
+    if bad:
+        fail("K1 kernels (spill, incomplete record or no block fits):\n  "
+             + "\n  ".join(bad))
+    grids = []
+    for m, k, n in MAIN_SHAPES + [RAGGED_SHAPE]:
+        out = (ctypes.c_int * 4)()
+        plan(m, n, k, out)
+        shape, mt, nt, sp = out
+        fit = min(max_clusters(shape, variant, dt, sp)
+                  for variant in range(3) for dt in range(2))
+        if mt * nt > fit:
+            fail(f"K1 at M={m} K={k} N={n}: {mt * nt} clusters of {sp} "
+                 f"blocks, but the card holds {fit} at once for one of the "
+                 f"{K1_SHAPES[shape]} kernels")
+        grids.append(f"M={m} K={k} N={n}: {K1_SHAPES[shape]} tiles {mt}x{nt}"
+                     f", {sp} K splits (cluster) -> {mt * nt * sp} blocks "
+                     f"({mt * nt} clusters; each of the 6 kernels holds at "
+                     f"least {fit} at once)")
+    print("[3 K1 build] " + "; ".join(parts) + " | grids: "
+          + "; ".join(grids), flush=True)
+
+
 def _bound(nbytes: float, ops_s: float):
     """(ms, what bounds it): the larger of the bytes over the HBM rate and
     ``ops_s``, the operations' time at their peak rate."""
@@ -603,51 +699,65 @@ def phase_k2_vs_plain() -> float:
     gen = torch.Generator().manual_seed(3)
     cases = [(b, n, d) for d in (16, 64) for b, n in K2_SHAPES]
     cases += [(2, 300, d) for d in at._KERNEL_DIMS if d not in (16, 64)]
+    # bf16 views one element past a 16-byte boundary: the wrapper copies
+    # them for the tensor-core kernel
+    odd = [(torch.bfloat16, b, n, d, True) for b, n, d in K2_ODD_VIEWS]
     worst_abs = 0.0
     worst = {"f32 o err/tol": 0.0, "bf16 o err/max|ref|": 0.0, "lse": 0.0}
     bad = []
     n_cases = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        for b, n, d in cases:
-            q, k, v = _k2_inputs(b, n, d, dtype, gen)
-            o, lse = at._kernel_flash(q, k, v)
-            want_o, want_lse = at._plain_flash(q, k, v)
-            torch.cuda.synchronize()
-            case = f"{str(dtype)[6:]} B={b} N={n} d={d}"
-            if o.shape != want_o.shape or lse.shape != (b, n) \
-                    or lse.dtype != torch.float32:
-                bad.append(f"{case}: shapes o {tuple(o.shape)} lse "
-                           f"{tuple(lse.shape)} {lse.dtype}")
-                continue
-            diff = (o.float() - want_o.float()).abs()
-            worst_abs = max(worst_abs, diff.max().item())
-            lse_err = (lse - want_lse).abs().max().item()
-            worst["lse"] = max(worst["lse"], lse_err)
-            if not lse_err <= K2_LSE_ATOL:
-                bad.append(f"{case}: lse max abs err {lse_err} > "
-                           f"{K2_LSE_ATOL}")
-            if dtype == torch.float32:
-                ratio = (diff / (K2_F32_ATOL + K2_F32_RTOL
-                                 * want_o.abs())).max().item()
-                worst["f32 o err/tol"] = max(worst["f32 o err/tol"], ratio)
-                if not ratio <= 1.0:
-                    bad.append(f"{case}: o err exceeds atol {K2_F32_ATOL} + "
-                               f"rtol {K2_F32_RTOL}*|ref| by {ratio}x")
-            else:
-                rel = diff.max().item() / want_o.float().abs().max().item()
-                worst["bf16 o err/max|ref|"] = max(
-                    worst["bf16 o err/max|ref|"], rel)
-                if not rel <= K2_BF16_RTOL_OF_MAX:
-                    bad.append(f"{case}: o err / max|ref| {rel} > "
-                               f"{K2_BF16_RTOL_OF_MAX}")
-            n_cases += 1
+    plain_cases = [(dtype, b, n, d, False)
+                   for dtype in (torch.float32, torch.bfloat16)
+                   for b, n, d in cases]
+    for dtype, b, n, d, at_odd in plain_cases + odd:
+        q, k, v = _k2_inputs(b, n, d, dtype, gen)
+        if at_odd:
+            q, k, v = (torch.cat([x.new_zeros(1), x.flatten()])[1:]
+                       .view(b, n, d) for x in (q, k, v))
+            if any(x.data_ptr() % 16 == 0 for x in (q, k, v)):
+                fail("a view one element past an aligned buffer is "
+                     "aligned")
+        o, lse = at._kernel_flash(q, k, v)
+        want_o, want_lse = at._plain_flash(q, k, v)
+        torch.cuda.synchronize()
+        case = (f"{str(dtype)[6:]} B={b} N={n} d={d}"
+                + (" (views at +1 element)" if at_odd else ""))
+        if o.shape != want_o.shape or lse.shape != (b, n) \
+                or lse.dtype != torch.float32:
+            bad.append(f"{case}: shapes o {tuple(o.shape)} lse "
+                       f"{tuple(lse.shape)} {lse.dtype}")
+            continue
+        diff = (o.float() - want_o.float()).abs()
+        worst_abs = max(worst_abs, diff.max().item())
+        lse_err = (lse - want_lse).abs().max().item()
+        worst["lse"] = max(worst["lse"], lse_err)
+        if not lse_err <= K2_LSE_ATOL:
+            bad.append(f"{case}: lse max abs err {lse_err} > "
+                       f"{K2_LSE_ATOL}")
+        if dtype == torch.float32:
+            ratio = (diff / (K2_F32_ATOL + K2_F32_RTOL
+                             * want_o.abs())).max().item()
+            worst["f32 o err/tol"] = max(worst["f32 o err/tol"], ratio)
+            if not ratio <= 1.0:
+                bad.append(f"{case}: o err exceeds atol {K2_F32_ATOL} + "
+                           f"rtol {K2_F32_RTOL}*|ref| by {ratio}x")
+        else:
+            rel = diff.max().item() / want_o.float().abs().max().item()
+            worst["bf16 o err/max|ref|"] = max(
+                worst["bf16 o err/max|ref|"], rel)
+            if not rel <= K2_BF16_RTOL_OF_MAX:
+                bad.append(f"{case}: o err / max|ref| {rel} > "
+                           f"{K2_BF16_RTOL_OF_MAX}")
+        n_cases += 1
     if bad:
         fail(f"{len(bad)} K2 cases disagree with the plain version:\n  "
              + "\n  ".join(bad))
     print(f"[5 K2 vs plain] {n_cases} cases pass (f32/bf16 x d 16, 64 x "
           f"(B, N) {K2_SHAPES}, and d {[d for _, _, d in cases[8:]]} at "
-          f"(2, 300)): worst f32 o err/(atol {K2_F32_ATOL} + rtol "
-          f"{K2_F32_RTOL}*|ref|) {worst['f32 o err/tol']:.3f}, worst bf16 o "
+          f"(2, 300); bf16 q, k, v as views one element past an aligned "
+          f"buffer at (B, N, d) {K2_ODD_VIEWS}): worst f32 o err/(atol "
+          f"{K2_F32_ATOL} + rtol {K2_F32_RTOL}*|ref|) "
+          f"{worst['f32 o err/tol']:.3f}, worst bf16 o "
           f"err/max|ref| {worst['bf16 o err/max|ref|']:.3e} (tol "
           f"{K2_BF16_RTOL_OF_MAX}), worst lse abs err {worst['lse']:.3e} "
           f"(tol {K2_LSE_ATOL}), worst o abs err {worst_abs:.3e}",
@@ -655,17 +765,63 @@ def phase_k2_vs_plain() -> float:
     return worst_abs
 
 
+def phase_k2_bitequal() -> None:
+    """Two bf16 runs of K2 on the same operands must be bit-equal at the
+    sampler's (1, 1024, 16) and at the train step's (16, 1024, 16)."""
+    from big_linear_algebra_tpu_torch.nn import attention as at
+
+    gen = torch.Generator().manual_seed(10)
+    parts = []
+    for b, n, d in (K2_MAIN, K2_TRAIN):
+        q, k, v = _k2_inputs(b, n, d, torch.bfloat16, gen)
+        o1, l1 = at._kernel_flash(q, k, v)
+        o2, l2 = at._kernel_flash(q, k, v)
+        torch.cuda.synchronize()
+        if not (torch.equal(o1.view(torch.int16), o2.view(torch.int16))
+                and torch.equal(l1.view(torch.int32), l2.view(torch.int32))):
+            fail(f"two bf16 K2 runs at (B, N, d) = {(b, n, d)} differ")
+        parts.append(str((b, n, d)))
+    print(f"[5 K2 bit-equal] two bf16 runs bit-equal (o and lse) at "
+          + ", ".join(parts), flush=True)
+
+
+def phase_k2_build_info() -> None:
+    """K2's bf16 tensor-core kernels (d 16..128): registers, shared memory
+    and spills from the build's ``-Xptxas -v``, blocks per SM from the
+    occupancy API, and the HMMA/HGMMA instructions in their SASS. Fails on
+    a spill or on a kernel without tensor-core instructions."""
+    stats = _kernel_stats("flash_attn", re.compile(r"flash_fwd_tcILi(\d+)E"))
+    blocks_per_sm = _int_fn("flash_attn", "bla_flash_fwd_tc_blocks_per_sm", 1)
+    bad, parts = [], []
+    for d in (16, 32, 64, 128):
+        st = stats.get((str(d),), {})
+        st["blocks"] = blocks_per_sm(d)
+        why = _check_stats(f"flash_fwd_tc<{d}>", st, True)
+        if why:
+            bad.append(why)
+            continue
+        parts.append(f"d={d} {st['regs']} regs, {st['smem']} B smem, spill "
+                     f"{st['spill']} B, {st['blocks']} blocks/SM, "
+                     f"{st['mma']} HMMA")
+    if bad:
+        fail("tensor-core K2 (spill, no HMMA or no block fits):\n  "
+             + "\n  ".join(bad))
+    print("[5 K2 build] bf16 tensor-core kernels (128 threads, 64 q rows a "
+          "block; -Xptxas -v, cudaOccupancy, cuobjdump -sass): "
+          + "; ".join(parts), flush=True)
+
+
 def phase_k2_timing(exp2_per_s: float) -> dict:
-    """bf16 at the U-Net's flash shape and at (4, 4096, 64): the kernel,
-    the plain version and SDPA (on (B, 1, N, d), one head, so that PyTorch
-    may pick its fused backends), in turns within this one process; the
-    lower of each pair is kept. Returns the main shape's numbers."""
+    """bf16 at the U-Net's flash shapes (sampling, train step) and at (4,
+    4096, 64): the kernel, the plain version and SDPA (on (B, 1, N, d), one
+    head, so that PyTorch may pick its fused backends), in turns within
+    this one process; the lower of each pair is kept. Returns the main
+    shape's numbers."""
     import torch.nn.functional as F
 
     from big_linear_algebra_tpu_torch.nn import attention as at
 
     gen = torch.Generator().manual_seed(4)
-    names = ("kernel", "plain", "sdpa")
     main = {}
     for b, n, d in K2_TIMED:
         q, k, v = _k2_inputs(b, n, d, torch.bfloat16, gen)
@@ -673,6 +829,7 @@ def phase_k2_timing(exp2_per_s: float) -> dict:
         fns = {"kernel": lambda: at._kernel_flash(q, k, v),
                "plain": lambda: at._plain_flash(q, k, v),
                "sdpa": lambda: F.scaled_dot_product_attention(q4, k4, v4)}
+        names = tuple(fns)
         runs = {name: [] for name in names}
         for name in names + names[::-1]:
             runs[name].append(_time_ms(fns[name]))
@@ -680,12 +837,13 @@ def phase_k2_timing(exp2_per_s: float) -> dict:
         host = {name: min(h for _, h in runs[name]) for name in names}
         bound, bound_by = k2_bound_ms(b, n, d, torch.bfloat16, exp2_per_s)
         tflops = 4 * b * n * n * d / (ms["kernel"] * 1e-3) / 1e12
+        grid = f"grid {(n + 63) // 64}x{b}"
         print(f"[5 K2 timing] bf16 B={b} N={n} d={d}: device kernel "
-              f"{ms['kernel'] * 1e3:.2f} us ({tflops:.2f} TFLOP/s), plain "
-              f"{ms['plain'] * 1e3:.2f} us, SDPA {ms['sdpa'] * 1e3:.2f} us; "
-              f"bound {bound * 1e3:.3f} us ({bound_by}; {b * n * n} exp2, "
-              f"{4 * b * n * n * d} flops) | host per call: kernel "
-              f"{host['kernel'] * 1e3:.2f} us, plain "
+              f"{ms['kernel'] * 1e3:.2f} us ({tflops:.2f} TFLOP/s, {grid}), "
+              f"plain {ms['plain'] * 1e3:.2f} us, SDPA "
+              f"{ms['sdpa'] * 1e3:.2f} us; bound {bound * 1e3:.3f} us "
+              f"({bound_by}; {b * n * n} exp2, {4 * b * n * n * d} flops) | "
+              f"host per call: kernel {host['kernel'] * 1e3:.2f} us, plain "
               f"{host['plain'] * 1e3:.2f} us, SDPA "
               f"{host['sdpa'] * 1e3:.2f} us", flush=True)
         if (b, n, d) == K2_MAIN:
@@ -917,28 +1075,27 @@ def phase_k2bwd_vs_plain() -> dict:
     return worst_abs
 
 
-def phase_k2bwd_build_info() -> None:
-    """The tensor-core kernels of ``flash_attn_bwd.cu`` (bf16, d 16..128):
-    registers, shared memory and spills from the build's ``-Xptxas -v``
-    (kept by ``cuda_utils``), blocks per SM from the occupancy API, and
-    the HMMA/HGMMA instructions in their SASS (``cuobjdump -sass``). Fails
-    on a spill or on a kernel without tensor-core instructions."""
+def _kernel_stats(lib: str, name_re) -> dict:
+    """Per kernel of ``csrc/<lib>.cu`` whose mangled name matches
+    ``name_re`` (keyed by the match's groups): registers, shared memory and
+    spills from the build's ``-Xptxas -v`` (kept by ``cuda_utils``), the
+    HMMA/HGMMA instructions in its SASS (``cuobjdump -sass``), and ptxas's
+    lines under ``"ptxas"``."""
     from big_linear_algebra_tpu_torch.ops import cuda_utils
 
-    name_re = re.compile(r"(flash_bwd_(dq|dkv)_tc)ILi(\d+)E")
-    stats, ptxas, cur = {}, {}, None
-    for line in cuda_utils.build_log("flash_attn_bwd").splitlines():
+    stats, cur = {}, None
+    for line in cuda_utils.build_log(lib).splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\S+?)'?(?: for|$)", line)
         if m:
             k = name_re.search(m.group(1))
-            cur = (k.group(1), int(k.group(3))) if k else None
+            cur = k.groups() if k else None
             if cur:
-                stats.setdefault(cur, {})
+                stats.setdefault(cur, {"ptxas": []})
             continue
         if cur is None:
             continue
-        ptxas.setdefault(cur, []).append(line.strip())
+        stats[cur]["ptxas"].append(line.strip())
         if (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                            r"loads", line)):
             stats[cur]["spill"] = int(m.group(1)) + int(m.group(2))
@@ -951,34 +1108,64 @@ def phase_k2bwd_build_info() -> None:
         fail(f"{cuobjdump} not found: the SASS cannot be checked for "
              "tensor-core instructions")
     sass = subprocess.run(
-        [cuobjdump, "-sass", str(cuda_utils.library_path("flash_attn_bwd"))],
+        [cuobjdump, "-sass", str(cuda_utils.library_path(lib))],
         capture_output=True, text=True, timeout=300)
     if sass.returncode != 0:
         fail(f"cuobjdump -sass failed: {sass.stderr.strip()}")
     for func in re.split(r"\n\s*Function : ", sass.stdout)[1:]:
         k = name_re.search(func.split("\n", 1)[0])
         if k:
-            stats.setdefault((k.group(1), int(k.group(3))), {})["mma"] = (
+            stats.setdefault(k.groups(), {"ptxas": []})["mma"] = (
                 len(re.findall(r"\bH(?:G)?MMA\b", func)))
-    blocks_per_sm = cuda_utils.load_library(
-        "flash_attn_bwd").bla_flash_bwd_tc_blocks_per_sm
-    blocks_per_sm.restype = ctypes.c_int
-    blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
-    want = [(kern, d) for kern in ("flash_bwd_dq_tc", "flash_bwd_dkv_tc")
-            for d in (16, 32, 64, 128)]
+    return stats
+
+
+def _int_fn(lib: str, entry: str, n_args: int):
+    """``entry`` of ``csrc/<lib>.cu``, a C function of ``n_args`` ints that
+    returns an int."""
+    from big_linear_algebra_tpu_torch.ops import cuda_utils
+
+    fn = getattr(cuda_utils.load_library(lib), entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * n_args
+    return fn
+
+
+def _check_stats(what: str, st: dict, need_mma: bool) -> str:
+    """"" if the record is complete, without spills, with a block that fits
+    (and with tensor-core instructions if ``need_mma``); else why not."""
+    need = {"spill", "regs", "smem", "blocks"} | ({"mma"} if need_mma
+                                                  else set())
+    if not need <= set(st):
+        return f"{what}: incomplete build/SASS record {st}"
+    if st["spill"] or st["blocks"] < 1 or (need_mma and not st["mma"]):
+        return f"{what}: {st}"
+    return ""
+
+
+def phase_k2bwd_build_info() -> None:
+    """The tensor-core kernels of ``flash_attn_bwd.cu`` (bf16, d 16..128):
+    registers, shared memory and spills from the build's ``-Xptxas -v``,
+    blocks per SM from the occupancy API, and the HMMA/HGMMA instructions
+    in their SASS. Fails on a spill or on a kernel without tensor-core
+    instructions."""
+    stats = _kernel_stats("flash_attn_bwd",
+                          re.compile(r"flash_bwd_(dq|dkv)_tcILi(\d+)E"))
+    blocks_per_sm = _int_fn("flash_attn_bwd",
+                            "bla_flash_bwd_tc_blocks_per_sm", 2)
     bad, parts = [], []
-    for kern, d in want:
-        st = stats.get((kern, d), {})
-        st["blocks"] = blocks_per_sm(d, int(kern == "flash_bwd_dkv_tc"))
-        if set(st) != {"spill", "regs", "smem", "mma", "blocks"}:
-            bad.append(f"{kern}<{d}>: incomplete build/SASS record {st}")
-            continue
-        if st["spill"] or not st["mma"] or st["blocks"] < 1:
-            bad.append(f"{kern}<{d}>: {st}; ptxas: {ptxas.get((kern, d))}")
-        parts.append(f"{'K2c' if 'dq' in kern else 'K2d'} d={d} "
-                     f"{st['regs']} regs, {st['smem']} B smem, spill "
-                     f"{st['spill']} B, {st['blocks']} blocks/SM, "
-                     f"{st['mma']} HMMA")
+    for kern in ("dq", "dkv"):
+        for d in (16, 32, 64, 128):
+            st = stats.get((kern, str(d)), {})
+            st["blocks"] = blocks_per_sm(d, int(kern == "dkv"))
+            why = _check_stats(f"flash_bwd_{kern}_tc<{d}>", st, True)
+            if why:
+                bad.append(why)
+                continue
+            parts.append(f"{'K2c' if kern == 'dq' else 'K2d'} d={d} "
+                         f"{st['regs']} regs, {st['smem']} B smem, spill "
+                         f"{st['spill']} B, {st['blocks']} blocks/SM, "
+                         f"{st['mma']} HMMA")
     if bad:
         fail("tensor-core K2c/K2d (spill, no HMMA or no block fits):\n  "
              + "\n  ".join(bad))
@@ -2321,9 +2508,13 @@ def main() -> int:
     phase_build()
     f32_err = phase_kernel_vs_plain()
     phase_tf32_control()
+    phase_k1_bitequal()
+    phase_k1_build_info()
     k1 = phase_timing()
     k1_launches = phase_main_path()
     k2_err = phase_k2_vs_plain()
+    phase_k2_bitequal()
+    phase_k2_build_info()
     k2 = phase_k2_timing(exp2_per_s)
     with tempfile.TemporaryDirectory(prefix="bla_smoke_") as tmp:
         os.environ["BLA_DATA_DIR"] = tmp

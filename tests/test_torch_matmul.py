@@ -129,3 +129,21 @@ def test_build_keeps_the_ptxas_log(monkeypatch, tmp_path):
     assert cuda_utils.library_path("flash_attn_bwd").is_file()
     fake.write_text("#!/bin/sh\nexit 1\n")  # a rebuild would now fail
     assert cuda_utils.build_log("flash_attn_bwd") == log
+
+
+def test_build_hash_covers_the_headers(monkeypatch, tmp_path):
+    """An edited ``csrc/*.cuh`` header changes the library path of every
+    source (a stale library would otherwise load); an untouched one does
+    not."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "kern.cu").write_text('#include "helpers.cuh"\n')
+    header = csrc / "helpers.cuh"
+    header.write_text("// v1\n")
+    monkeypatch.setattr(cuda_utils, "CSRC", csrc)
+    first = cuda_utils.library_path("kern")
+    assert cuda_utils.library_path("kern") == first
+    header.write_text("// v2\n")
+    assert cuda_utils.library_path("kern") != first
+    header.write_text("// v1\n")
+    assert cuda_utils.library_path("kern") == first

@@ -210,3 +210,20 @@ def test_flash_kernel_wrapper_rejects_what_it_cannot_take():
         at._kernel_flash(q.double(), q.double(), q.double())
     with pytest.raises(ValueError, match="self-attention-shaped"):
         at.flash_attention(q, torch.zeros(1, 32, 16), torch.zeros(1, 32, 16))
+
+
+def test_kernel_operands_are_copied_unless_aligned():
+    """The flash kernels copy rows in 16-byte pieces: a contiguous operand
+    at a 16-byte boundary is passed as it is, and a view at an odd offset
+    or a strided one is copied into a fresh contiguous tensor with the same
+    values."""
+    buf = torch.arange(1 + 2 * 64 * 16, dtype=torch.bfloat16)
+    whole = buf[:-1].view(2, 64, 16)
+    assert whole.data_ptr() % 16 == 0
+    assert at._aligned(whole) is whole
+    odd = buf[1:].view(2, 64, 16)
+    strided = whole.transpose(1, 2)
+    for x in (odd, strided):
+        y = at._aligned(x)
+        assert y.is_contiguous() and y.data_ptr() % 16 == 0
+        assert y.data_ptr() != x.data_ptr() and torch.equal(y, x)
