@@ -233,15 +233,6 @@ def _function(lib, name, n_ptrs, n_floats):
     return fn
 
 
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """``x``, or a contiguous copy of it where it is not contiguous and
-    16-byte aligned: the bf16 kernels copy rows in 16-byte pieces, so a
-    view at an odd offset is copied."""
-    if x.is_contiguous() and x.data_ptr() % 16 == 0:
-        return x
-    return x.clone(memory_format=torch.contiguous_format)
-
-
 def _kernel_flash(q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/flash_attn.cu`` on CUDA tensors → (o, lse f32); raises
@@ -250,7 +241,7 @@ def _kernel_flash(q: torch.Tensor, k: torch.Tensor,
     _check_self_attention(q, k, v)
     _check_kernel_operands("flash_attention", q, k, v)
     b, n, d = q.shape
-    q, k, v = (_aligned(x) for x in (q, k, v))
+    q, k, v = (cuda_utils.aligned(x) for x in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((b, n), dtype=torch.float32, device=q.device)
     lib = cuda_utils.load_library("flash_attn")
@@ -304,7 +295,7 @@ def _kernel_bwd_operands(q, k, v, o, lse, g):
     _check_self_attention(q, k, v)
     g, lse2, delta = _bwd_prepare(g, o, lse, q.dtype)
     _check_kernel_operands("flash_attention backward", q, k, v, g)
-    q, k, v, g = (_aligned(x) for x in (q, k, v, g))
+    q, k, v, g = (cuda_utils.aligned(x) for x in (q, k, v, g))
     return q, k, v, g, lse2.float().contiguous(), delta.float().contiguous()
 
 
@@ -324,20 +315,19 @@ def _kernel_flash_bwd_fused(q, k, v, o, lse, g):
 
 
 def _kernel_bwd_fused(q, k, v, g, lse2, delta):
-    """K3a on prepared operands (``_kernel_flash_bwd_fused``): a pass over
-    the key tiles that writes dk and dv and each tile's f32 share of dq
-    into a workspace, then a reduction that sums the shares in tile order
-    (two kernels, counted as one launch)."""
+    """K3a on prepared operands (``_kernel_flash_bwd_fused``), counted as
+    one launch. The f32 workspace, (slots, B, N, d) with the kernel's slot
+    count (0 where one thread-block cluster covers all N keys), holds the
+    partial sums of dq that a second kernel adds in slot order."""
     global bwd_fused_launch_count
     b, n, d = q.shape
     lib = cuda_utils.load_library("flash_attn_bwd_fused")
-    tiles = lib.bla_flash_bwd_fused_tiles
-    if tiles.argtypes is None:
-        tiles.restype = ctypes.c_int
-        tiles.argtypes = [ctypes.c_int, ctypes.c_int]
-    # (key tiles, B, N, d) f32: each key tile's share of dq
-    ws = torch.empty((tiles(n, d), b, n, d), dtype=torch.float32,
-                     device=q.device)
+    slots = lib.bla_flash_bwd_fused_slots
+    if slots.argtypes is None:
+        slots.restype = ctypes.c_int
+        slots.argtypes = [ctypes.c_int] * 3
+    ws = torch.empty((slots(_KERNEL_DTYPES[q.dtype], n, d), b, n, d),
+                     dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     fn = _function(lib, "bla_flash_bwd_fused", 10, 2)
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -10,7 +10,8 @@ library), and loads it with ctypes; ``build(names)`` starts
 one nvcc per source at once. nvcc runs with ``-Xptxas -v``, and its output
 (each kernel's registers, shared memory and spills) is kept beside the
 library for ``build_log(name)``. Nothing is built when a module is imported, so
-the CPU tests import every module without a toolchain.
+the CPU tests import every module without a toolchain. ``aligned(x)``
+copies an operand that the bf16 kernels cannot read in 16-byte pieces.
 
 A build failure raises: there is no fallback to another implementation.
 """
@@ -25,6 +26,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Iterable, List, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -118,6 +121,15 @@ def load_library(name: str) -> ctypes.CDLL:
         lib.bla_cuda_error_string.argtypes = [ctypes.c_int]
         _libs[name] = lib
         return lib
+
+
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a contiguous copy of it where it is not contiguous and
+    16-byte aligned: the bf16 kernels copy rows in 16-byte pieces, so a
+    view at an odd offset is copied."""
+    if x.is_contiguous() and x.data_ptr() % 16 == 0:
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -94,21 +94,31 @@ Phases, one line each (or a few), in the order 1–7, 16–18, 11–15, 8–10,
 16. K4 against plain, on the card: ``conv2d_implicit`` and
    ``conv2d_packed`` (forward and dx, two launches each) against the plain
    tap sum, f32/bf16 at the U-Net's 3x3 maps at batch 16 (32x32 to 4x4) and
-   a non-square 5x5 case;
-17. K4 timing beside the plain version and ``F.conv2d`` at (16, 128,
-   32x32) and (16, 256, 16x16), bf16 and f32, with the bounds;
+   a non-square 5x5 case, and ``conv2d_implicit`` on bf16 operands that
+   are views one element past an aligned buffer;
+17. K4's kernels (bf16 on the tensor cores, f32 on the CUDA cores):
+   registers, shared memory, spills, blocks per SM and HMMA count, failing
+   on a spill or on a bf16 kernel without HMMA; then K4's time beside the
+   plain version and ``F.conv2d`` at (16, 128, 32x32) and (16, 256,
+   16x16), bf16 and f32, with the bounds and the tile rule, two runs
+   bit-equal at each;
 18. K4 at the U-Net's sites: every stride-1 3x3 conv of one f32 32x32
    forward at batch 16 from phase 6's checkpoint, through both entry points
    (forward, dx, dk) against ``conv2d`` in f64, with K4's launches read
-   around them; then ``conv2d_im2col`` at one site, with K1's nn, tn and
+   around them; K4's forward summed over the sites beside ``F.conv2d``'s,
+   f32 and bf16; then ``conv2d_im2col`` at one site, with K1's nn, tn and
    nt launches;
 19. K3 against plain, on the card: ``flash_attention(..., stream=False)``
    through autograd against ``_plain_flash_bwd``, f32/bf16 x d 16, 64 x
    (B, N) (2, 300), (16, 1024) x blocks (512, 1024), (384, 256), on the
    fused route (K3a) and with the budget at 0 on the two-pass route (K2c +
-   K2d); two K3a runs bit-equal; a bf16 case at |s| ~ 1e5 finite;
-20. K3 timing: K3a beside K2c + K2d, the plain backward and SDPA's backward
-   at (16, 1024, 16) and (4, 4096, 64), bf16, with the bounds;
+   K2d); two K3a runs bit-equal; a bf16 case at |s| ~ 1e5 finite and as
+   close to the plain backward with f64 sums as the plain f32 version;
+20. K3a's bf16 tensor-core kernels: registers, shared memory, spills,
+   blocks per SM, cluster size and HMMA count, failing on a spill or on no
+   HMMA; K3 timing: K3a beside K2c + K2d, the plain backward and SDPA's
+   backward at (16, 1024, 16) and (4, 4096, 64), bf16, with the bounds and
+   the dq workspace; K3a beside K2c + K2d in f32 at (16, 1024, 16);
 21. K3 at the U-Net's sites: phase 10's four flash sites through
    ``flash_attention(..., stream=False)`` (K3a, then the two-pass route),
    with the launches read around them, against the plain backward.
@@ -250,6 +260,20 @@ K4_SHAPES = [(16, 128, 32, 32, 128, 3), (16, 256, 16, 16, 256, 3),
              (16, 256, 8, 8, 256, 3), (16, 256, 4, 4, 256, 3),
              (3, 4, 5, 7, 8, 5)]
 K4_TIMED = [(16, 128, 32, 32, 128, 3), (16, 256, 16, 16, 256, 3)]
+K4_ODD_VIEWS = [(16, 128, 32, 32, 128, 3), (3, 4, 5, 7, 8, 5)]  # bf16 at +1
+# The bf16 |s| ~ 1e5 case, at phase 8's bf16 tolerance of max|ref|: dq, dk
+# and dv against K2c + K2d on the same operands (the same scores, ds and
+# roundings, summed in the same order), dv also against the plain backward
+# evaluated with f64 sums (the same bf16 roundings of q^, p and ds). dq and
+# dk are not held to a plain reference there: with one-hot rows they can be
+# rounding noise of ds = p * (dp - delta) (dp ~ delta, and p is exp2 of a
+# difference of two scores near 1e5 whose f32 sums differ in the last
+# place), and the plain version in f32 is then itself about max|ref| from
+# the f64 sums. Phase 19 prints each version's error against them.
+# K3a's tensor-core kernel at more than one thread-block cluster of keys
+# (workspace slots, then the reduce kernel) and at a last cluster of
+# padding blocks: (B, N) in bf16 at d 16, 32, 64, 128.
+K3_CLUSTER_SHAPES = [(1, 1100), (4, 4096)]
 
 MAIN_SHAPES = [(2048, 784, 256), (2048, 256, 128), (2048, 128, 10)]  # M, K, N
 RAGGED_SHAPE = (130, 257, 200)
@@ -901,6 +925,8 @@ def phase_unet_oracle() -> None:
     one bf16 forward's time."""
     import dataclasses
 
+    import torch.nn.functional as F
+
     from big_linear_algebra_tpu_torch.models import cifar_unet as cu
     from big_linear_algebra_tpu_torch.nn import attention as at
 
@@ -1456,6 +1482,8 @@ def phase_grad_oracle() -> list:
     flash-site operands (q, k, v, o, lse, g)."""
     import dataclasses
 
+    import torch.nn.functional as F
+
     from big_linear_algebra_tpu_torch.models import cifar_unet as cu
     from big_linear_algebra_tpu_torch.nn import attention as at
 
@@ -1837,6 +1865,8 @@ def phase_fused_oracle() -> None:
     backward at those blocks, on the same dropout seeds (reported)."""
     import dataclasses
 
+    import torch.nn.functional as F
+
     from big_linear_algebra_tpu_torch.models import cifar_unet as cu
     from big_linear_algebra_tpu_torch.nn import fused_block as fb
 
@@ -2017,6 +2047,14 @@ def _k4_inputs(b, c, h, w, f, k, dtype, gen):
     return tuple(a.to("cuda", dtype) for a in (x, kr, g))
 
 
+def _odd_view(t):
+    """A copy of ``t`` as a view one element past an aligned buffer (not
+    16-byte aligned)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.flatten())
+    return buf[1:].view(t.shape)
+
+
 def _conv_grads(fn, x, kr, g):
     """(out, dx, dk) of ``fn(x, kr)`` through autograd on the card."""
     xs = [x.detach().clone().requires_grad_(),
@@ -2074,12 +2112,34 @@ def phase_k4_vs_plain() -> float:
                         bad.append(f"{case} {what}: err {err} exceeds its "
                                    f"tolerance by {ratio}x")
                 n_cases += 1
+    for b, c, h, w, f, k in K4_ODD_VIEWS:
+        x, kr, g = (_odd_view(a) for a in _k4_inputs(b, c, h, w, f, k,
+                                                      torch.bfloat16, gen))
+        k_t = torch.flip(kr, dims=(-2, -1)).transpose(0, 1)
+        want = (ci._plain_conv(x, kr), ci._plain_conv(g, k_t))
+        before = ci.implicit_launch_count
+        out, dx, _ = _conv_grads(ci.conv2d_implicit, x, kr, g)
+        torch.cuda.synchronize()
+        case = f"bf16 views at +1 element B={b} C={c} {h}x{w} F={f} k={k}"
+        if ci.implicit_launch_count - before != 2:
+            bad.append(f"{case}: K4 launched "
+                       f"{ci.implicit_launch_count - before} times")
+        for what, got, ref in (("out", out, want[0]), ("dx", dx, want[1])):
+            ratio = ((got.float() - ref.float()).abs().max().item()
+                     / ref.float().abs().max().item() / BF16_RTOL_OF_MAX)
+            worst[torch.bfloat16] = max(worst[torch.bfloat16], ratio)
+            if not ratio <= 1.0:
+                bad.append(f"{case} {what}: err exceeds its tolerance by "
+                           f"{ratio}x")
+        n_cases += 1
     if bad:
         fail(f"{len(bad)} K4 outputs disagree with the plain version:\n  "
              + "\n  ".join(bad))
     print(f"[16 K4 vs plain] {n_cases} cases pass (conv2d_implicit and "
           f"conv2d_packed x f32/bf16 x (B, C, H, W, F, k) {K4_SHAPES}; "
-          f"forward and dx): worst f32 err/bound {worst[torch.float32]:.3f} "
+          f"forward and dx; and conv2d_implicit on bf16 views one element "
+          f"past an aligned buffer at {K4_ODD_VIEWS}): worst f32 err/bound "
+          f"{worst[torch.float32]:.3f} "
           f"(bound {F32_ULPS}*K*max|a|*max|b|*2^-24, K = C*k^2 or F*k^2), "
           f"worst bf16 err/max|ref| "
           f"{worst[torch.bfloat16] * BF16_RTOL_OF_MAX:.3e} (tol "
@@ -2097,12 +2157,64 @@ def k4_bound_ms(b, c, h, w, f, k, dtype):
     return _bound(nbytes, 2 * b * f * h * w * c * k * k / PEAK_FLOPS[dtype])
 
 
+def _k4_plan(dtype, b, c, h, w, f, k) -> dict:
+    """K4's tile rule at a shape for an input type (``bla_conv_plan``)."""
+    from big_linear_algebra_tpu_torch.ops import cuda_utils
+
+    fn = cuda_utils.load_library("conv_implicit").bla_conv_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 9)()
+    if fn(int(dtype == torch.bfloat16), b, c, h, w, f, k, out) != 0:
+        fail(f"K4 has no tile for (B, C, H, W, F, k) = {(b, c, h, w, f, k)}")
+    return dict(zip(("examples", "rows", "cols", "splits", "grid_x",
+                     "grid_y", "fast", "smem", "blocks"), out))
+
+
+def phase_k4_build_info() -> None:
+    """K4's kernels, bf16 on the tensor cores (conv_tc: 16-byte or element
+    staging) and f32 on the CUDA cores (conv_f32: with or without the row
+    reuse), each for f32 and bf16 output: registers, shared memory and
+    spills from the build's ``-Xptxas -v``, blocks per SM from the
+    occupancy API at the U-Net's 32x32 (the fast forms) and 4x4 maps, and
+    the HMMA instructions in their SASS. Fails on a spill, or on a bf16
+    kernel without tensor-core instructions."""
+    stats = _kernel_stats(
+        "conv_implicit",
+        re.compile(r"conv_(tc|f32)I(f|13__nv_bfloat16)Lb([01])E"))
+    bad, parts = [], []
+    for kern, dtype in (("tc", torch.bfloat16), ("f32", torch.float32)):
+        blocks = {"1": _k4_plan(dtype, *K4_SHAPES[0])["blocks"],
+                  "0": _k4_plan(dtype, *K4_SHAPES[3])["blocks"]}
+        for out in ("13__nv_bfloat16", "f"):
+            for fast in ("1", "0"):
+                st = stats.get((kern, out, fast), {})
+                st["blocks"] = blocks[fast]
+                form = ({"1": "16-byte staging", "0": "element staging"}
+                        if kern == "tc" else
+                        {"1": "row reuse", "0": "per-tap loads"})[fast]
+                name = (f"conv_{kern}<{'f32' if out == 'f' else 'bf16'} "
+                        f"out, {form}>")
+                why = _check_stats(name, st, kern == "tc")
+                if why:
+                    bad.append(why)
+                    continue
+                parts.append(f"{name} {st['regs']} regs, {st['spill']} B "
+                             f"spill, {st['blocks']} blocks/SM"
+                             + (f", {st['mma']} HMMA" if kern == "tc" else ""))
+    if bad:
+        fail("K4 (spill, no HMMA or no block fits):\n  " + "\n  ".join(bad))
+    print("[17 K4 build] 256 threads, 64 output channels x 256 positions a "
+          "block, dynamic shared memory (-Xptxas -v, cudaOccupancy, cuobjdump "
+          "-sass): " + "; ".join(parts), flush=True)
+
+
 def phase_k4_timing() -> dict:
     """K4 (through ``conv2d_implicit``'s wrapper), the plain tap sum and
     ``F.conv2d`` (cuDNN, TF32 off for f32) as the library call, at the
     U-Net's 32x32 and 16x16 maps in bf16 and f32, in turns within this one
-    process; the lower of each pair is kept. Returns the bf16 32x32
-    numbers."""
+    process; the lower of each pair is kept; two K4 runs at each must be
+    bit-equal. Returns the bf16 32x32 numbers."""
     import torch.nn.functional as F
 
     from big_linear_algebra_tpu_torch.nn import conv_implicit as ci
@@ -2113,6 +2225,12 @@ def phase_k4_timing() -> dict:
     for b, c, h, w, f, k in K4_TIMED:
         for dtype in (torch.bfloat16, torch.float32):
             x, kr, _ = _k4_inputs(b, c, h, w, f, k, dtype, gen)
+            first, second = ci._kernel_implicit(x, kr), ci._kernel_implicit(x,
+                                                                          kr)
+            torch.cuda.synchronize()
+            if not torch.equal(first, second):
+                fail(f"two {str(dtype)[6:]} K4 runs at (B, C, H, W, F, k) = "
+                     f"{(b, c, h, w, f, k)} differ")
             fns = {"K4": lambda: ci._kernel_implicit(x, kr),
                    "plain": lambda: ci._plain_conv(x, kr),
                    "F.conv2d": lambda: F.conv2d(x, kr, padding=k // 2)}
@@ -2122,12 +2240,17 @@ def phase_k4_timing() -> dict:
             ms = {name: min(d for d, _ in runs[name]) for name in names}
             bound, bound_by = k4_bound_ms(b, c, h, w, f, k, dtype)
             flops = 2 * b * f * h * w * c * k * k
+            plan = _k4_plan(dtype, b, c, h, w, f, k)
+            tile = (f"tile {plan['examples']} x {plan['rows']} x "
+                    f"{plan['cols']}, {plan['splits']} splits, grid "
+                    f"{plan['grid_x']} x {plan['grid_y']}")
             print(f"[17 K4 timing] {str(dtype)[6:]} B={b} C={c} {h}x{w} F={f} "
                   f"k={k}: device K4 {ms['K4'] * 1e3:.2f} us "
-                  f"({flops / (ms['K4'] * 1e-3) / 1e12:.2f} TFLOP/s), plain "
-                  f"{ms['plain'] * 1e3:.2f} us, F.conv2d "
-                  f"{ms['F.conv2d'] * 1e3:.2f} us; bound {bound * 1e3:.3f} us "
-                  f"({bound_by}; {flops} flops)", flush=True)
+                  f"({flops / (ms['K4'] * 1e-3) / 1e12:.2f} TFLOP/s; {tile}; "
+                  f"two runs bit-equal), plain {ms['plain'] * 1e3:.2f} us, "
+                  f"F.conv2d {ms['F.conv2d'] * 1e3:.2f} us; bound "
+                  f"{bound * 1e3:.3f} us ({bound_by}; {flops} flops)",
+                  flush=True)
             if (b, c, h, w, f, k) == K4_TIMED[0] and dtype == torch.bfloat16:
                 main = dict(ms, bound=bound, bound_by=bound_by)
     return main
@@ -2142,11 +2265,15 @@ def phase_k4_unet_sites() -> dict:
     bounded against the port's ``conv2d`` (cuDNN) evaluated in f64 on the
     same f32 operands (the f32 bound, K = C*9 for the output, F*9 for dx,
     B*H*W for dk); the f32 ``conv2d`` (TF32 off) is reported beside it.
-    Then ``conv2d_im2col`` forward and backward at the first 32x32 site
-    whose input and output channels match (128 at full width), bounded the
-    same way, with K1's launches and variants.
+    Then K4's forward at every site, f32 and bf16, timed beside
+    ``F.conv2d`` and summed over the sites (device time). Then
+    ``conv2d_im2col`` forward and backward at the first 32x32 site whose
+    input and output channels match (128 at full width), bounded the same
+    way, with K1's launches and variants.
     Returns {"K4": launches, "K1": launches}."""
     import dataclasses
+
+    import torch.nn.functional as F
 
     from big_linear_algebra_tpu_torch.models import cifar_unet as cu
     from big_linear_algebra_tpu_torch.nn import conv_implicit as ci
@@ -2221,6 +2348,17 @@ def phase_k4_unet_sites() -> dict:
         fail(f"K4 launched {launches} times over {len(sites)} conv sites, "
              f"expected {expect} (forward and dx where the gates admit)")
 
+    # K4's main path in one number: its forward summed over the sites
+    summed = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        summed[dtype] = {"K4": 0.0, "F.conv2d": 0.0}
+        for h, w in sites:
+            hx, wx = h.to(dtype), w.to(dtype)
+            for name, fn in (
+                    ("K4", lambda: ci._kernel_implicit(hx, wx)),
+                    ("F.conv2d", lambda: F.conv2d(hx, wx, padding=1))):
+                summed[dtype][name] += _time_ms(fn, iters=10, warmup=2)[0]
+
     h, w = next((h, w) for h, w in sites
                 if h.shape[1] == w.shape[0] and h.shape[-1] == 32)
     g = torch.randn(h.shape[0], w.shape[0], *h.shape[2:],
@@ -2259,7 +2397,11 @@ def phase_k4_unet_sites() -> dict:
           f"f64, worst err/bound {worst['conv2d f32']:.3e}. conv2d_im2col at "
           f"x {tuple(h.shape)}, kernels {tuple(w.shape)}: K1 launches {k1} "
           f"({', '.join(variants)}), worst err/bound vs conv2d in f64 "
-          f"{worst['im2col']:.3e} (tol 1)", flush=True)
+          f"{worst['im2col']:.3e} (tol 1). K4's forward (conv2d_implicit's "
+          f"wrapper) summed over the {len(sites)} sites, device time: "
+          + ", ".join(f"{str(dt)[6:]} {t['K4'] * 1e3:.2f} us (F.conv2d "
+                      f"{t['F.conv2d'] * 1e3:.2f} us)"
+                      for dt, t in summed.items()), flush=True)
     return {"K4": launches["implicit"] + launches["packed"], "K1": k1}
 
 
@@ -2303,14 +2445,35 @@ def _with_budget(at, budget, fn):
         at._BWD_FUSED_VMEM_BUDGET = saved
 
 
+def _plain_flash_bwd_f64_sums(at, q, k, v, o, lse, g):
+    """``_plain_flash_bwd``'s (dq, dk, dv) with its roundings (q^, p and ds
+    to the input type, delta in f32) and every sum in f64, unrounded."""
+    import math
+
+    d = q.shape[-1]
+    g, lse2, delta = at._bwd_prepare(g, o, lse, q.dtype)
+    qa, ka, va, ga = (x.double() for x in (q, k, v, g))
+    qs = (q.float() * at._qscale(d)).to(q.dtype).double()
+    p = torch.exp2(qs @ ka.transpose(-1, -2) - lse2.double()[..., None])
+    dp = ga @ va.transpose(-1, -2)
+    ds = (p * (dp - delta.double()[..., None])).to(q.dtype).double()
+    dv = p.to(q.dtype).double().transpose(-1, -2) @ ga
+    return ((ds @ ka) / math.sqrt(d), (ds.transpose(-1, -2) @ qa)
+            / math.sqrt(d), dv)
+
+
 def phase_k3_vs_plain() -> dict:
     """``flash_attention(..., stream=False)`` through autograd against
     ``_plain_flash_bwd`` on every case, on the fused route (K3a) and with
     the budget at 0 on the two-pass route (K2c/K2d standing for the TPU's
-    K3b/K3c), each call's launches checked; two K3a runs bit-equal; a bf16
-    case at |s| ~ 1e5 finite. Returns the worst abs errors ({"K3a": ..,
-    "K3bc": ..})."""
+    K3b/K3c), each call's launches checked; two K3a runs bit-equal; K3a
+    alone against the plain backward at more than one cluster of keys
+    (K3_CLUSTER_SHAPES), two runs bit-equal; a bf16 case at |s| ~ 1e5
+    finite, equal to K2c + K2d within the bf16 tolerance, and its dv
+    within it of the plain backward with f64 sums. Returns the worst abs
+    errors ({"K3a": .., "K3bc": ..})."""
     from big_linear_algebra_tpu_torch.nn import attention as at
+    from big_linear_algebra_tpu_torch.ops import cuda_utils
 
     gen = torch.Generator().manual_seed(13)
     worst_abs = {"K3a": 0.0, "K3bc": 0.0}
@@ -2370,13 +2533,53 @@ def phase_k3_vs_plain() -> dict:
                   (q * K3_LARGE_SCALE, k * K3_LARGE_SCALE, v, g))
     o, lse = at._kernel_flash(q, k, v)
     got = at._kernel_flash_bwd_fused(q, k, v, o, lse, g)
+    two_pass = at._kernel_flash_bwd(q, k, v, o, lse, g)
     want = at._plain_flash_bwd(q, k, v, o, lse, g)
+    exact = _plain_flash_bwd_f64_sums(at, q, k, v, o, lse, g)
     max_s = _score_overshoot(at, q, k, lse)[0]
+    # held: against K2c + K2d (dq, dk, dv), and dv against the f64 sums
+    vs_pair = [_k3_ratio(x, y) for x, y in zip(got, two_pass)]
+    dv_exact = ((got[2].double() - exact[2]).abs().max().item()
+                / exact[2].abs().max().item() / K2BWD_BF16_RTOL_OF_MAX)
+    for name, ratio in (*zip(("dq", "dk", "dv"), vs_pair),
+                        ("dv (f64 sums)", dv_exact)):
+        if not ratio <= 1.0:
+            bad.append(f"bf16 at max|s| {max_s:.4g}, {name}: K3a err "
+                       f"exceeds its tolerance by {ratio}x")
+    # reported: each version's err/max|ref| against the f64 sums, and the
+    # ratio against the plain f32 version
+    large_errs = []
+    for name, *xs, z in zip(("dq", "dk", "dv"), got, two_pass, want, exact):
+        scale = z.abs().max().item()
+        large_errs.append((name, *((x.double() - z).abs().max().item()
+                                   / scale for x in xs)))
     large = max(_k3_ratio(x, y) for x, y in zip(got, want))
-    if not all(bool(torch.isfinite(x).all()) for x in got) or large > 1.0:
+    if not all(bool(torch.isfinite(x).all()) for x in got):
         bad.append(f"bf16 at max|s| {max_s:.4g}: K3a finite "
-                   f"{[bool(torch.isfinite(x).all()) for x in got]}, err/tol "
-                   f"{large}")
+                   f"{[bool(torch.isfinite(x).all()) for x in got]}")
+    slots = cuda_utils.load_library(
+        "flash_attn_bwd_fused").bla_flash_bwd_fused_slots
+    slots.restype = ctypes.c_int
+    slots.argtypes = [ctypes.c_int] * 3
+    cluster_worst, cluster_slots = 0.0, set()
+    for b, n in K3_CLUSTER_SHAPES:
+        for d in (16, 32, 64, 128):
+            args = _k2bwd_inputs(b, n, d, torch.bfloat16, gen)
+            first = at._kernel_flash_bwd_fused(*args)
+            second = at._kernel_flash_bwd_fused(*args)
+            torch.cuda.synchronize()
+            want = at._plain_flash_bwd(*args)
+            case = f"bf16 B={b} N={n} d={d}"
+            cluster_slots.add(slots(1, n, d))
+            if not all(torch.equal(x, y) for x, y in zip(first, second)):
+                bad.append(f"{case}: two K3a runs differ")
+            for name, x, y in zip(("dq", "dk", "dv"), first, want):
+                ratio = _k3_ratio(x, y)
+                cluster_worst = max(cluster_worst, ratio)
+                if not ratio <= 1.0:
+                    bad.append(f"{case} {name}: K3a err exceeds its "
+                               f"tolerance by {ratio}x")
+            del args, first, second, want
     if bad:
         fail(f"{len(bad)} K3 checks failed:\n  " + "\n  ".join(bad))
     print(f"[19 K3 vs plain] {n_cases} cases pass through flash_attention("
@@ -2388,8 +2591,20 @@ def phase_k3_vs_plain() -> dict:
           f"{worst[torch.bfloat16] * K2BWD_BF16_RTOL_OF_MAX:.3e} (tol "
           f"{K2BWD_BF16_RTOL_OF_MAX}); worst abs err K3a "
           f"{worst_abs['K3a']:.3e}, two-pass {worst_abs['K3bc']:.3e}. Two "
-          f"K3a runs at {K3_MAIN} bit-equal (f32, bf16): {equal}. bf16 at "
-          f"max|s| {max_s:.4g} (log2 units): finite, err/tol {large:.3e}",
+          f"K3a runs at {K3_MAIN} bit-equal (f32, bf16): {equal}. K3a alone "
+          f"at bf16 (B, N) {K3_CLUSTER_SHAPES} x d 16, 32, 64, 128 (dq "
+          f"workspace slots {sorted(cluster_slots)}): worst err/max|ref| "
+          f"{cluster_worst * K2BWD_BF16_RTOL_OF_MAX:.3e}, two runs "
+          f"bit-equal. bf16 at max|s| {max_s:.4g} (log2 units): finite; "
+          f"err/max|ref| against K2c + K2d dq, dk, dv "
+          + ", ".join(f"{r * K2BWD_BF16_RTOL_OF_MAX:.3e}" for r in vs_pair)
+          + f", dv against the f64 sums "
+          f"{dv_exact * K2BWD_BF16_RTOL_OF_MAX:.3e} (tol "
+          f"{K2BWD_BF16_RTOL_OF_MAX}); reported, err/max|ref| against the "
+          f"f64 sums, K3a / K2c + K2d / the plain f32 version: "
+          + ", ".join(f"{n} {a:.3e} / {b:.3e} / {c:.3e}"
+                      for n, a, b, c in large_errs)
+          + f"; K3a against the plain f32 version: err/tol {large:.3e}",
           flush=True)
     return worst_abs
 
@@ -2406,16 +2621,55 @@ def k3_bound_ms(b: int, n: int, d: int, dtype, exp2_per_s: float):
     return _bound(nbytes, ops_s)
 
 
+def phase_k3_build_info() -> None:
+    """K3a's bf16 tensor-core kernels (d 16..128): registers, shared memory
+    and spills from the build's ``-Xptxas -v``, blocks per SM and the
+    cluster size limit from the occupancy API, and the HMMA instructions in
+    their SASS. Fails on a spill or on a kernel without tensor-core
+    instructions."""
+    from big_linear_algebra_tpu_torch.ops import cuda_utils
+
+    stats = _kernel_stats("flash_attn_bwd_fused",
+                          re.compile(r"flash_bwd_fused_tcILi(\d+)E"))
+    fn = cuda_utils.load_library(
+        "flash_attn_bwd_fused").bla_flash_bwd_fused_tc_blocks_per_sm
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    bad, parts = [], []
+    for d in (16, 32, 64, 128):
+        cluster = ctypes.c_int(0)
+        st = stats.get((str(d),), {})
+        st["blocks"] = fn(d, ctypes.byref(cluster))
+        why = _check_stats(f"flash_bwd_fused_tc<{d}>", st, True)
+        if why:
+            bad.append(why)
+            continue
+        parts.append(f"d={d} {st['regs']} regs, {st['spill']} B spill, "
+                     f"{st['blocks']} blocks/SM, clusters of up to "
+                     f"{cluster.value}, {st['mma']} HMMA")
+    if bad:
+        fail("tensor-core K3a (spill, no HMMA or no block fits):\n  "
+             + "\n  ".join(bad))
+    print("[20 K3a build] bf16 tensor-core kernels (128 threads, 64 keys a "
+          "block, dynamic shared memory; -Xptxas -v, cudaOccupancy, "
+          "cuobjdump -sass): " + "; ".join(parts), flush=True)
+
+
 def phase_k3_timing(exp2_per_s: float) -> dict:
     """bf16 at the train step's flash shape and at (4, 4096, 64): K3a and
     K2c + K2d on prepared operands, the plain backward and SDPA's backward,
-    in turns within this one process; the lower of each pair is kept.
-    Returns the main shape's numbers."""
+    in turns within this one process; the lower of each pair is kept; then
+    K3a beside K2c + K2d in f32 at the train step's shape. Returns the main
+    shape's numbers."""
     import torch.nn.functional as F
 
     from big_linear_algebra_tpu_torch.nn import attention as at
     from big_linear_algebra_tpu_torch.ops import cuda_utils
 
+    slots = cuda_utils.load_library(
+        "flash_attn_bwd_fused").bla_flash_bwd_fused_slots
+    slots.restype = ctypes.c_int
+    slots.argtypes = [ctypes.c_int] * 3
     gen = torch.Generator().manual_seed(14)
     names = ("K3a", "K2c+K2d", "plain", "sdpa")
     main = {}
@@ -2441,18 +2695,31 @@ def phase_k3_timing(exp2_per_s: float) -> dict:
         pair = [k2bwd_bound_ms(kern, b, n, d, torch.bfloat16, exp2_per_s)
                 for kern in ("dq", "dkv")]
         pair = (pair[0][0] + pair[1][0], max(pair)[1])
-        tiles = cuda_utils.load_library(
-            "flash_attn_bwd_fused").bla_flash_bwd_fused_tiles(n, d)
+        ws = slots(1, n, d) * b * n * d * 4
         print(f"[20 K3 timing] bf16 B={b} N={n} d={d}: device K3a "
               f"{ms['K3a'] * 1e3:.2f} us (bound {bound[0] * 1e3:.3f} us, "
-              f"{bound[1]}; dq workspace {tiles * b * n * d * 4 / 1e6:.1f} "
-              f"MB), K2c + K2d {ms['K2c+K2d'] * 1e3:.2f} us (bound "
+              f"{bound[1]}; dq workspace {ws / 1e6:.1f} MB), K2c + K2d "
+              f"{ms['K2c+K2d'] * 1e3:.2f} us (bound "
               f"{pair[0] * 1e3:.3f} us), plain backward "
               f"{ms['plain'] * 1e3:.2f} us, SDPA backward "
               f"{ms['sdpa'] * 1e3:.2f} us ({b * n * n} exp2, "
               f"{10 * b * n * n * d} flops)", flush=True)
         if (b, n, d) == K3_MAIN:
             main = dict(ms, bound=bound, pair_bound=pair)
+    ops = at._kernel_bwd_operands(*_k2bwd_inputs(*K3_MAIN, torch.float32,
+                                                 gen))
+    fns = {"K3a": lambda: at._kernel_bwd_fused(*ops),
+           "K2c+K2d": lambda: (at._kernel_bwd_dq(*ops),
+                               at._kernel_bwd_dkv(*ops))}
+    runs = {name: [] for name in fns}
+    for name in (*fns, *reversed(fns)):
+        runs[name].append(_time_ms(fns[name], iters=20, warmup=2)[0])
+    ms = {name: min(r) for name, r in runs.items()}
+    ws = slots(0, K3_MAIN[1], K3_MAIN[2]) * K3_MAIN[0] * K3_MAIN[1] * K3_MAIN[2]
+    print(f"[20 K3 timing] f32 B={K3_MAIN[0]} N={K3_MAIN[1]} d={K3_MAIN[2]}:"
+          f" device K3a {ms['K3a'] * 1e3:.2f} us (FMA kernel; dq workspace "
+          f"{ws * 4 / 1e6:.1f} MB), K2c + K2d {ms['K2c+K2d'] * 1e3:.2f} us",
+          flush=True)
     return main
 
 
@@ -2521,6 +2788,7 @@ def main() -> int:
         k2_launches = phase_unet_main_path(tmp)
         phase_unet_oracle()
         k4_err = phase_k4_vs_plain()
+        phase_k4_build_info()
         k4 = phase_k4_timing()
         k4_launches = phase_k4_unet_sites()
         k5_err = phase_k5_vs_plain()
@@ -2539,6 +2807,7 @@ def main() -> int:
         flash_sites = phase_grad_oracle()
         del os.environ["BLA_DATA_DIR"]
     k3_err = phase_k3_vs_plain()
+    phase_k3_build_info()
     k3 = phase_k3_timing(exp2_per_s)
     k3_launches = phase_k3_unet_sites(flash_sites)
     del flash_sites

@@ -197,3 +197,65 @@ def test_kernel_wrapper_rejects_cpu_tensors():
         with pytest.raises(ValueError, match="odd k"):
             wrapper(x, torch.zeros(2, 3, 2, 2))
     assert (ci.implicit_launch_count, ci.packed_launch_count) == before
+
+
+def test_kernel_operands_are_copied_unless_aligned():
+    """K4's bf16 kernel loads x in 16-byte pieces: a contiguous operand at a
+    16-byte boundary is passed as it is, and a view at an odd offset or a
+    strided one is copied into a fresh contiguous tensor with the same
+    values."""
+    buf = torch.arange(1 + 2 * 8 * 4 * 4, dtype=torch.bfloat16)
+    kernels = torch.zeros(4, 8, 3, 3, dtype=torch.bfloat16)
+    whole = buf[:-1].view(2, 8, 4, 4)
+    assert whole.data_ptr() % 16 == 0
+    assert ci._kernel_operands(whole, kernels, False)[0] is whole
+    odd = buf[1:].view(2, 8, 4, 4)
+    strided = whole.transpose(2, 3)
+    for x in (odd, strided):
+        y = ci._kernel_operands(x, kernels, False)[0]
+        assert y.is_contiguous() and y.data_ptr() % 16 == 0
+        assert y.data_ptr() != x.data_ptr() and torch.equal(y, x)
+
+
+def test_taps_are_jax_w_taps(monkeypatch):
+    """The per-tap weights K4's bf16 kernel gets, read back tap by tap in
+    f64, are the JAX package's ``w_taps`` (captured from its pallas_call,
+    forward and dx) transposed to its (k², out, in) layout, zero past the
+    input channels; for dx, read in the kernel's reverse tap order, they
+    are the taps of ``_ConvImplicit.backward``'s flipped, channel-transposed
+    kernels. The f32 kernel reads the same taps transposed (in, out)."""
+    b, c, h, w, f, k = 2, 3, 5, 5, 4, 3
+    x, kr, g = _conv_inputs((b, c, h, w, f, k))
+    captured = []
+
+    def pallas_call(body, *, out_shape, **_):
+        def run(*operands):
+            captured.append(np.asarray(operands[1]))
+            return jnp.zeros(out_shape.shape, out_shape.dtype)
+        return run
+
+    monkeypatch.setattr(jax_ci.pl, "pallas_call", pallas_call)
+    _, vjp = jax.vjp(jax_ci.conv2d_implicit, jnp.asarray(x), jnp.asarray(kr))
+    vjp(jnp.asarray(g))
+    w_fwd, w_dx = captured  # (k², C, F), and (k², F, C) for dx
+    kernels = torch.from_numpy(kr.astype(np.float64))
+    taps = ci._taps(kernels, torch.float64)
+    dx_taps = ci._taps(kernels, torch.float64, swap=True)
+    assert taps.shape == (k * k, f, 8) and dx_taps.shape == (k * k, c, 8)
+    assert not taps[..., c:].any() and not dx_taps[..., f:].any()
+    k_t = torch.flip(kernels, dims=(-2, -1)).transpose(0, 1)
+    for t in range(k * k):
+        i, j = divmod(t, k)
+        np.testing.assert_array_equal(n(taps[t, :, :c]), w_fwd[t].T)
+        read = n(dx_taps[k * k - 1 - t, :, :f])
+        np.testing.assert_array_equal(read, w_dx[t].T)
+        np.testing.assert_array_equal(read, n(k_t[:, :, i, j]))
+    for dx, want in ((False, dx_taps), (True, taps)):
+        got = ci._kernel_operands(torch.zeros(1, f if dx else c, 2, 2),
+                                  kernels.float(), dx)[1]
+        assert torch.equal(got, want.float())
+    for dx, want in ((False, taps), (True, dx_taps)):
+        got = ci._kernel_operands(torch.zeros(1, f if dx else c, 2, 2,
+                                              dtype=torch.bfloat16),
+                                  kernels.bfloat16(), dx)[1]
+        assert torch.equal(got, want.bfloat16())

@@ -17,7 +17,7 @@ from big_linear_algebra_tpu.nn import norm as jax_norm
 from big_linear_algebra_tpu.ops import activations as jax_act
 from big_linear_algebra_tpu_torch.nn import attention as at
 from big_linear_algebra_tpu_torch.nn import conv, dropout, init, norm
-from big_linear_algebra_tpu_torch.ops import activations, matmul
+from big_linear_algebra_tpu_torch.ops import activations, cuda_utils, matmul
 from tests.torch_parity import n, t
 
 # the module: the JAX package's nn/__init__ re-exports a function of the
@@ -220,10 +220,10 @@ def test_kernel_operands_are_copied_unless_aligned():
     buf = torch.arange(1 + 2 * 64 * 16, dtype=torch.bfloat16)
     whole = buf[:-1].view(2, 64, 16)
     assert whole.data_ptr() % 16 == 0
-    assert at._aligned(whole) is whole
+    assert cuda_utils.aligned(whole) is whole
     odd = buf[1:].view(2, 64, 16)
     strided = whole.transpose(1, 2)
     for x in (odd, strided):
-        y = at._aligned(x)
+        y = cuda_utils.aligned(x)
         assert y.is_contiguous() and y.data_ptr() % 16 == 0
         assert y.data_ptr() != x.data_ptr() and torch.equal(y, x)
