@@ -11,13 +11,18 @@ same), and the residual x itself or a 1×1 conv w3 of it when the channels
 change.
 
 - ``fused_resnet_block`` is a ``torch.autograd.Function``. On a CUDA tensor
-  the forward launches K5a (``csrc/fused_block.cu``, the TPU's
-  ``_fused_fwd_kernel``) and the backward K5b (the TPU's recompute backward
-  ``_fused_bwd_kernel``): its data-gradient kernel, which recomputes the
-  forward, then its weight-gradient kernel, which sums the per-example
-  products over the batch. On a CPU tensor the plain versions
-  ``_plain_fused_fwd`` and ``_plain_fused_bwd`` run. On a CUDA tensor a
-  kernel launches or the call raises: there is no fallback.
+  the forward launches K5a (the TPU's ``_fused_fwd_kernel``) on one of two
+  routes, by a fixed rule (``_fwd_route``): bf16 shapes that
+  ``_tc_plan`` admits (every full-width U-Net block) go to the tensor-core
+  kernel (``csrc/fused_block_tc.cu``); f32, and bf16 shapes it does not
+  take (the TINY blocks), to the FMA kernel (``csrc/fused_block.cu``),
+  which keeps f32 true f32. The backward launches K5b (the TPU's
+  recompute backward ``_fused_bwd_kernel``, ``csrc/fused_block.cu``): its
+  data-gradient kernel, which recomputes the forward, then its
+  weight-gradient kernel, which sums the per-example products over the
+  batch. On a CPU tensor the plain versions ``_plain_fused_fwd`` and
+  ``_plain_fused_bwd`` run. On a CUDA tensor a kernel launches or the call
+  raises: there is no fallback.
 - Only (x, td, w1, w2, w3, seed) are saved; the backward recomputes the
   rest, as the TPU kernel does.
 - Arithmetic of the JAX kernel body (``_fwd_body``, ``_fused_bwd_kernel``):
@@ -41,6 +46,7 @@ change.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -57,12 +63,14 @@ from big_linear_algebra_tpu_torch.ops.precision import accum_dtype
 _VMEM_LIMIT = 96 * 1024 * 1024
 _GOLDEN = 0x9E3779B1
 
-# Kernel launches since import (or since a caller last set them to 0): K5a,
-# K5b's data-gradient kernel and K5b's weight-gradient kernel, each counted
-# only where it is launched.
+# Kernel launches since import (or since a caller last set them to 0): K5a
+# (both routes), K5b's data-gradient kernel and K5b's weight-gradient
+# kernel, each counted only where it is launched; and K5a's launches on the
+# tensor-core route alone.
 launch_count = 0
 bwd_launch_count = 0
 wgrad_launch_count = 0
+tc_launch_count = 0
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # What csrc/fused_block.cu takes (its THREADS, MAX_OUT, IC, the shared
@@ -73,6 +81,17 @@ _MAX_OUT = 16
 _STAGE_CHANNELS = 16
 _MAX_SMEM = 232448
 _MAX_CLUSTER = 8
+# What csrc/fused_block_tc.cu takes (its constants of the same names): 256
+# threads; clusters of 16 blocks at B <= _TC_SMALL_BATCH, else 8; weight
+# chunks of 32 input channels x 9 taps staged in a three-slot ring of rows
+# of 296 bf16; partial tiles of H·W + 4 f32 a row.
+_TC_THREADS = 256
+_TC_MAX_CLUSTER = 16
+_TC_SMALL_BATCH = 4
+_TC_CHUNK = 32
+_TC_RING_ROW = 296
+_TC_RING_SLOTS = 3
+_TC_PART_PAD = 4
 
 
 def supported(x_shape, in_ch: int, out_ch: int, k: int, group_size: int,
@@ -302,6 +321,71 @@ def _plan(b, c, f, h, w, k, gsz) -> Tuple[int, int]:
     return nc, floats * 4
 
 
+@functools.lru_cache(maxsize=None)
+def _tc_plan(b, c, f, h, w, k, gsz) -> Tuple[int, int]:
+    """(cluster size, shared-memory bytes) of the tensor-core K5a
+    (``csrc/fused_block_tc.cu`` ``tc_plan``) for one example's block;
+    raises on a shape it does not take: 3x3 convs on 8×8 or 4×4 maps,
+    channels and group size powers of two (channels ≥ 32), the U-Net's
+    full-width blocks. A cluster of nc blocks (16 at B ≤ 4, else 8, at
+    most F/16) shares an example: block r owns output channels [r·mb,
+    (r+1)·mb), mb = F/nc, a whole fraction of one GN group (mb ≤ group
+    size)."""
+    def pow2(v):
+        return v > 0 and v & (v - 1) == 0
+
+    why = None
+    if k != 3:
+        why = f"3x3 convs, got {k}x{k}"
+    elif h != w or h not in (4, 8):
+        why = f"8x8 or 4x4 maps, got {h}x{w}"
+    elif not (pow2(c) and pow2(f) and min(c, f) >= _TC_CHUNK):
+        why = f"channels powers of two >= {_TC_CHUNK}, got {c} -> {f}"
+    elif not (pow2(gsz) and gsz <= min(c, f)):
+        why = f"groups of a power of two of channels, got {gsz}"
+    elif not 0 < b <= 65535:
+        why = f"1 <= B <= 65535, got {b}"
+    if why is None:
+        nc = min(f // 16, _TC_MAX_CLUSTER if b <= _TC_SMALL_BATCH else 8)
+        mb = f // nc
+        warps = _TC_THREADS // 32
+        if warps % (mb // 16) or mb > gsz:
+            why = (f"{mb} output channels a block in {warps} warps, within "
+                   f"one group of {gsz}")
+    if why is not None:
+        raise ValueError(f"fused_resnet_block: the tensor-core kernel takes "
+                         f"{why}")
+    # the conv input (or, on the same bytes, the warps' partial tiles and
+    # the summed tile), the weight ring, the GN statistics, the warps' GN 2
+    # sums and td, and an identity residual
+    hw = h * w
+    act = (h + 2) * (w + 2) * (max(c, f) + 8) * 2
+    scratch = (warps // (mb // 16) + 1) * mb * (hw + _TC_PART_PAD) * 4
+    smem = (-(-max(act, scratch) // 16) * 16
+            + _TC_RING_SLOTS * mb * _TC_RING_ROW * 2
+            + -(-(2 * (c // gsz) + 4 + 2 * warps + mb) * 4 // 16) * 16
+            + mb * hw * 2)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"fused_resnet_block: {smem} bytes of shared memory "
+                         f"exceed {_MAX_SMEM}")
+    return nc, smem
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_route(dtype, b, c, f, h, w, k, gsz) -> str:
+    """K5a's route, a fixed rule: "tc" (the tensor-core kernel) for bf16
+    shapes ``_tc_plan`` admits, else "fma" (``csrc/fused_block.cu``'s
+    kernel, which keeps f32 true f32); raises on a shape neither takes."""
+    if dtype == torch.bfloat16:
+        try:
+            _tc_plan(b, c, f, h, w, k, gsz)
+            return "tc"
+        except ValueError:
+            pass
+    _plan(b, c, f, h, w, k, gsz)
+    return "fma"
+
+
 def _check_kernel_operands(what, *tensors) -> None:
     x = tensors[0]
     if x.dtype not in _KERNEL_DTYPES or any(
@@ -326,6 +410,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SHAPE = [_I] * 9  # dtype, b, c, f, h, w, k, group size, cluster size
 _DROP = [_I, ctypes.c_uint32, ctypes.c_float, ctypes.c_float, _P]
+_TC_SHAPE = [_I] * 6  # b, c, f, h, w, group size
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -333,48 +418,77 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _kernel_operands(what, x, td, w1, w2, w3, seed, gsz, rate, train, bits,
-                     g=None):
+                     g=None, route="fma"):
     """The operands in the block's dtype, contiguous and checked, and the
     launch's leading arguments: (operands, seed tensor, shape args, dropout
-    args without the stream)."""
+    args without the stream). The shape args are those of the FMA kernels
+    (``_plan``'s cluster size last), or with ``route`` "tc" those of the
+    tensor-core K5a, whose operands are also made 16-byte aligned."""
     if bits is not None:
         raise ValueError(f"{what}: the kernels draw their own dropout bits; "
                          "caller bits are for the plain version on the CPU")
     x, td, w1, w2, w3, dt, _ = _common(x, td, w1, w2, w3)
-    ops = [a.contiguous() for a in (x, td, w1, w2)]
-    ops.append(None if w3 is None else w3.contiguous())
+    fix = cuda_utils.aligned if route == "tc" else torch.Tensor.contiguous
+    ops = [fix(a) for a in (x, td, w1, w2)]
+    ops.append(None if w3 is None else fix(w3))
     if g is not None:
         ops.append(g.to(dt).contiguous())
     _check_kernel_operands(what, *(a for a in ops if a is not None))
     b, c, h, w = x.shape
     f, _, k, _ = w1.shape
-    nc, _ = _plan(b, c, f, h, w, k, gsz)
+    if route == "tc":
+        _tc_plan(b, c, f, h, w, k, gsz)
+        args = [b, c, f, h, w, gsz]
+    else:
+        nc, _ = _plan(b, c, f, h, w, k, gsz)
+        args = [_KERNEL_DTYPES[dt], b, c, f, h, w, k, gsz, nc]
     drop = bool(train and rate > 0.0)
-    args = [_KERNEL_DTYPES[dt], b, c, f, h, w, k, gsz, nc]
     dropargs = [int(drop), _threshold(rate) if drop else 0,
                 _keep_scale(rate) if drop else 1.0]
     return ops, _seed_tensor(seed, x.device), args, dropargs
 
 
 def _kernel_fused_fwd(x, td, w1, w2, w3, seed, gsz, rate, train, eps,
-                      bits=None) -> torch.Tensor:
-    """K5a on CUDA tensors → the block's output (B, F, H, W)."""
-    global launch_count
+                      bits=None, route=None) -> torch.Tensor:
+    """K5a on CUDA tensors → the block's output (B, F, H, W), on the route
+    ``_fwd_route`` gives ("tc": ``csrc/fused_block_tc.cu``, "fma":
+    ``csrc/fused_block.cu``); ``route`` names one instead (to time both on
+    one input); a shape that route does not take raises."""
+    global launch_count, tc_launch_count
+    if route is None:
+        dt = torch.promote_types(x.dtype, w1.dtype)
+        route = _fwd_route(dt, *x.shape[:2], w1.shape[0], *x.shape[2:],
+                           w1.shape[-1], gsz)
+    if route not in ("tc", "fma"):
+        raise ValueError(f"fused_resnet_block: no K5a route {route!r}")
     (x, td, w1, w2, w3), seed, args, drop = _kernel_operands(
         "fused_resnet_block", x, td, w1, w2, w3, seed, gsz, rate, train,
-        bits)
+        bits, route=route)
+    if route == "tc" and x.dtype != torch.bfloat16:
+        raise TypeError("fused_resnet_block: the tensor-core K5a takes bf16 "
+                        f"operands, got {x.dtype}")
     b, c, h, w = x.shape
     f = w1.shape[0]
     out = torch.empty((b, f, h, w), dtype=x.dtype, device=x.device)
-    ws = torch.empty((b, f, h * w), dtype=torch.float32, device=x.device)
-    lib = cuda_utils.load_library("fused_block")
-    fn = _function(lib, "bla_fused_block_fwd",
-                   _SHAPE + [_P] * 8 + _DROP)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = fn(*args, _ptr(x), _ptr(td), _ptr(w1), _ptr(w2), _ptr(w3),
-                _ptr(seed), _ptr(out), _ptr(ws), *drop, eps, stream)
-    cuda_utils.check(lib, rc, "fused_resnet_block K5a launch")
+    if route == "tc":
+        lib = cuda_utils.load_library("fused_block_tc")
+        fn = _function(lib, "bla_fused_block_fwd_tc",
+                       _TC_SHAPE + [_P] * 7 + _DROP)
+        with torch.cuda.device(x.device):
+            rc = fn(*args, _ptr(x), _ptr(td), _ptr(w1), _ptr(w2), _ptr(w3),
+                    _ptr(seed), _ptr(out), *drop, eps, stream)
+        cuda_utils.check(lib, rc, "fused_resnet_block tensor-core K5a launch")
+        tc_launch_count += 1
+    else:
+        ws = torch.empty((b, f, h * w), dtype=torch.float32, device=x.device)
+        lib = cuda_utils.load_library("fused_block")
+        fn = _function(lib, "bla_fused_block_fwd",
+                       _SHAPE + [_P] * 8 + _DROP)
+        with torch.cuda.device(x.device):
+            rc = fn(*args, _ptr(x), _ptr(td), _ptr(w1), _ptr(w2), _ptr(w3),
+                    _ptr(seed), _ptr(out), _ptr(ws), *drop, eps, stream)
+        cuda_utils.check(lib, rc, "fused_resnet_block K5a launch")
     launch_count += 1
     return out
 

@@ -9,8 +9,9 @@ Phases, one line each (or a few), in the order 1–7, 16–18, 11–15, 8–10,
 2. build: compiles the kernels from ``big_linear_algebra_tpu_torch/csrc/``
    with nvcc, one process per source, started together: the GEMM (K1,
    ``matmul.cu``), flash attention (K2, ``flash_attn.cu``), its backward
-   (K2c and K2d, ``flash_attn_bwd.cu``), the fused resnet block (K5a,
-   K5b, ``fused_block.cu``), the fused flash backward (K3a,
+   (K2c and K2d, ``flash_attn_bwd.cu``), the fused resnet block (K5a's
+   FMA route, K5b, ``fused_block.cu``; K5a's tensor-core route,
+   ``fused_block_tc.cu``), the fused flash backward (K3a,
    ``flash_attn_bwd_fused.cu``) and the implicit-GEMM conv (K4,
    ``conv_implicit.cu``);
 3. K1 against plain, on the card: nn/nt/tn x f32/bf16 x
@@ -74,23 +75,35 @@ Phases, one line each (or a few), in the order 1–7, 16–18, 11–15, 8–10,
    weight-gradient kernels) against ``_plain_fused_fwd`` and
    ``_plain_fused_bwd`` on the same inputs, f32/bf16 x train on/off at the
    path's blocks (16, 256, 8x8), (16, 512 -> 256, 4x4), (1, 512 -> 256,
-   8x8) and a TINY-width one; the kernels' dropout bits bit-equal to the
-   plain version's;
-12. K5 timing: K5a and K5b beside the plain versions and the port's
-   unfused block (cuDNN convs, GN), at the train step's and the sampler's
-   8x8 blocks, with the bounds;
+   8x8) and a TINY-width one, with the count of K5a's cases on each route
+   (bf16 at full width: the tensor cores; f32 and the TINY block: FMA);
+   the kernels' dropout bits bit-equal to the plain version's; then the
+   tensor-core K5a alone, bf16 x train on/off at each split and map its
+   plan chooses (B = 1, 4, 5, 16; 8x8 and 4x4; C = 256 and 512 -> 256
+   with w3), its plan equal to the C side's, two runs bit-equal; its
+   registers, shared memory, spills, blocks per SM, clusters resident at
+   once and HMMA count, failing on a spill or on no HMMA;
+12. K5 timing: K5a on both routes (the FMA route forced on the same bf16
+   input) and K5b beside the plain versions and the port's unfused block
+   (cuDNN convs, GN), at the train step's and the sampler's 8x8 blocks and
+   at 15 examples, with the bounds, the tensor-core plan's split and grid,
+   and host time per call;
 13. ``cifar_unet run 1 --fused-block`` at 32x32 (full width, 1000 DDPM
-   steps) from phase 6's checkpoint, with K5a's launches read around it;
-   a non-constant 32x32 BMP;
+   steps) from phase 6's checkpoint, with K5a's launches read around it,
+   every one on the tensor-core route; a non-constant 32x32 BMP;
 14. fused oracle: one f32 full-width 32x32 forward with the fused blocks
-   against the same forward unfused (bounded) and f64 (reported); then one
-   f32 train-mode gradient at batch 16: K5b against the plain backward on
-   every fused block's operands (bounded), the gradient's leaves against
-   the one with the plain backward at those blocks (reported);
+   against the same forward unfused (bounded) and f64 (reported); one
+   bf16 forward with the fused blocks (the tensor-core K5a) against the
+   bf16 forward unfused (bounded by twice the unfused one's distance from
+   f64); then one f32 train-mode gradient at batch 16: K5b against the
+   plain backward on every fused block's operands (bounded), the
+   gradient's leaves against the one with the plain backward at those
+   blocks (reported);
 15. ``cifar_unet train 1 --fused-block --max-steps=30`` at batch 16 (9
    fused blocks: up_2 resnet_1 fails the gate) with the launches of K5a
-   and K5b read around it; finite losses, the last 10 steps' mean below
-   the first 10's; then one resumed step;
+   and K5b read around it, every K5a on the tensor-core route; finite
+   losses, the last 10 steps' mean below the first 10's; then one resumed
+   step;
 16. K4 against plain, on the card: ``conv2d_implicit`` and
    ``conv2d_packed`` (forward and dx, two launches each) against the plain
    tap sum, f32/bf16 at the U-Net's 3x3 maps at batch 16 (32x32 to 4x4) and
@@ -224,6 +237,14 @@ K5_BF16_RTOL_OF_MAX = 2e-2
 # f32 against f64 at 64x64, where phase 7 measured 6.1e-4 of max|ref|
 # (PERF.md). Fixed before the first run: 1e-3 of max|ref|, phase 7's bound.
 K5_UNET_RTOL_OF_MAX = 1e-3
+# The bf16 forward with the fused blocks against the bf16 forward unfused.
+# The random-weight net amplifies bf16 rounding (phase 7's bf16 forward is
+# O(1) of max|ref| from f64 at 64x64; PERF.md), so no fixed share of max|ref|
+# holds both; the fused block rounds less than the unfused one (h1t and GN
+# 2's input stay f32). Fixed before the first run: |fused - unfused| <=
+# K5_UNET_BF16_FACTOR * |unfused - f64| (max over elements): the triangle
+# bound when the fused forward is no farther from f64 than the unfused.
+K5_UNET_BF16_FACTOR = 2.0
 K5A_TPU_KERNEL = "big_linear_algebra_tpu/nn/fused_block.py:396"
 K5B_TPU_KERNEL = "big_linear_algebra_tpu/nn/fused_block.py:441"
 # (B, C, F, H, W, group size): the train step's 8x8 block, up_1 resnet_1 at
@@ -231,6 +252,13 @@ K5B_TPU_KERNEL = "big_linear_algebra_tpu/nn/fused_block.py:441"
 K5_SHAPES = [(16, 256, 256, 8, 8, 32), (16, 512, 256, 4, 4, 32),
              (1, 512, 256, 8, 8, 32), (2, 24, 12, 8, 8, 4)]
 K5_TIMED = [(16, 256, 256, 8, 8, 32), (1, 256, 256, 8, 8, 32)]
+# The tensor-core K5a's own bf16 cases (forward only): each split its plan
+# chooses (clusters of 16 at B <= 4, of 8 from B = 5) at 8x8 and 4x4, with
+# C = 256 and 512 -> 256 (w3); K5_SHAPES' bf16 cases take it too
+K5_TC_SHAPES = [(1, 256, 256, 8, 8, 32), (1, 256, 256, 4, 4, 32),
+                (1, 512, 256, 4, 4, 32), (4, 256, 256, 8, 8, 32),
+                (5, 512, 256, 8, 8, 32), (16, 256, 256, 4, 4, 32),
+                (16, 512, 256, 8, 8, 32)]
 # one example fewer than the train step: 15 clusters of 8 blocks
 K5_WAVE = (15, 256, 256, 8, 8, 32)
 K5_RATE = 0.1  # Config.dropout_rate
@@ -338,7 +366,7 @@ def phase_build() -> None:
     from big_linear_algebra_tpu_torch.ops import cuda_utils
 
     names = ("matmul", "flash_attn", "flash_attn_bwd", "fused_block",
-             "flash_attn_bwd_fused", "conv_implicit")
+             "flash_attn_bwd_fused", "conv_implicit", "fused_block_tc")
     t0 = time.perf_counter()
     cuda_utils.build(names)
     for name in names:
@@ -1641,6 +1669,7 @@ def phase_k5_vs_plain() -> dict:
     plain_f32 = dict.fromkeys(names, 0.0)  # the plain f32 version's
     bad = []
     n_cases = 0
+    fb.launch_count = fb.tc_launch_count = 0
     for b, c, f, h, w, gsz in K5_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             for train in (False, True):
@@ -1694,6 +1723,9 @@ def phase_k5_vs_plain() -> dict:
     if bad:
         fail(f"{len(bad)} K5a/K5b outputs disagree with the plain version:"
              "\n  " + "\n  ".join(bad))
+    routes = (fb.tc_launch_count, fb.launch_count - fb.tc_launch_count)
+    print(f"[11 K5 vs plain] K5a's {n_cases} cases by route: tensor cores "
+          f"{routes[0]}, FMA {routes[1]}", flush=True)
     print(f"[11 K5 vs plain] dropout bits of {n_bits} indices bit-equal to "
           f"_dropout_bits (kept at rate {K5_RATE}: {kept:.5f}); {n_cases} "
           f"cases pass (f32/bf16 x train on/off x (B, C, F, H, W, group) "
@@ -1709,6 +1741,125 @@ def phase_k5_vs_plain() -> dict:
           f"max|ref|); worst f32 abs err K5a {worst_abs['K5a']:.3e}, K5b "
           f"{worst_abs['K5b']:.3e}", flush=True)
     return worst_abs
+
+
+def _tc_info(b, c, f, h, w, gsz) -> dict:
+    """The C side's plan of the tensor-core K5a and its occupancy
+    (``bla_fused_block_tc_info``): cluster size, shared-memory bytes,
+    blocks per SM, most clusters resident at once."""
+    from big_linear_algebra_tpu_torch.ops import cuda_utils
+
+    fn = cuda_utils.load_library("fused_block_tc").bla_fused_block_tc_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 4)()
+    rc = fn(b, c, f, h, w, gsz, out)
+    if rc != 0:
+        fail(f"bla_fused_block_tc_info{(b, c, f, h, w, gsz)} returned {rc}")
+    return dict(zip(("nc", "smem", "blocks", "clusters"), out))
+
+
+def _tc_split(b, c, f, h, w, gsz) -> str:
+    """The tensor-core K5a's plan as a line: split, grid, occupancy."""
+    info = _tc_info(b, c, f, h, w, gsz)
+    mb = f // info["nc"]
+    per_group = max(1, gsz // mb)
+    return (f"clusters of {info['nc']} blocks, {mb} output channels a block "
+            f"({per_group} block{'s' if per_group > 1 else ''} a GN group), "
+            f"grid {info['nc']}x{b} = {info['nc'] * b} blocks of 256 "
+            f"threads, {info['smem']} B shared, {info['blocks']} blocks/SM, "
+            f"{info['clusters']} clusters resident at once")
+
+
+def phase_k5a_tc_vs_plain() -> float:
+    """The tensor-core K5a alone at K5_TC_SHAPES, bf16 x train on/off,
+    against ``_plain_fused_fwd`` (2e-2 of max|ref|), every case on that
+    route and its Python plan equal to the C side's; two runs bit-equal at
+    the train step's and the sampler's largest block. Returns the worst
+    abs error over its cases and phase 11's bf16 full-width ones."""
+    from big_linear_algebra_tpu_torch.nn import fused_block as fb
+
+    gen = torch.Generator().manual_seed(12)
+    bad, worst, worst_abs, n_cases = [], 0.0, 0.0, 0
+    fb.launch_count = fb.tc_launch_count = 0
+    shapes = K5_TC_SHAPES + [s for s in K5_SHAPES if fb._fwd_route(
+        torch.bfloat16, *s[:5], 3, s[5]) == "tc"]
+    for b, c, f, h, w, gsz in shapes:
+        plan = fb._tc_plan(b, c, f, h, w, 3, gsz)
+        info = _tc_info(b, c, f, h, w, gsz)
+        if plan != (info["nc"], info["smem"]):
+            bad.append(f"B={b} C={c} F={f} {h}x{w}: Python plan {plan}, C "
+                       f"plan {(info['nc'], info['smem'])}")
+        for train in (False, True):
+            *ops, _ = _k5_inputs(b, c, f, h, w, torch.bfloat16, gen)
+            args = (*ops, fb._seed_tensor(300 + n_cases, "cuda"), gsz,
+                    K5_RATE, train, 1e-8)
+            got = fb._kernel_fused_fwd(*args)
+            want = fb._plain_fused_fwd(*args)
+            torch.cuda.synchronize()
+            n_cases += 1
+            case = f"B={b} C={c} F={f} {h}x{w} train={train}"
+            if got.shape != want.shape or got.dtype != torch.bfloat16:
+                bad.append(f"{case}: {tuple(got.shape)} {got.dtype}")
+                continue
+            diff = (got.double() - want.double()).abs().max().item()
+            ratio = diff / want.double().abs().max().item()
+            worst, worst_abs = max(worst, ratio), max(worst_abs, diff)
+            if not ratio <= K5_BF16_RTOL_OF_MAX:
+                bad.append(f"{case}: err / max|ref| {ratio:.3e} > "
+                           f"{K5_BF16_RTOL_OF_MAX}")
+    if (fb.tc_launch_count, fb.launch_count) != (n_cases, n_cases):
+        bad.append(f"{fb.tc_launch_count} of {fb.launch_count} launches on "
+                   f"the tensor-core route, expected all {n_cases}")
+    equal = []
+    for b, c, f, h, w, gsz in (K5_SHAPES[0], K5_SHAPES[2]):
+        *ops, _ = _k5_inputs(b, c, f, h, w, torch.bfloat16, gen)
+        args = (*ops, fb._seed_tensor(5, "cuda"), gsz, K5_RATE, b > 1, 1e-8)
+        one, two = fb._kernel_fused_fwd(*args), fb._kernel_fused_fwd(*args)
+        if not torch.equal(one, two):
+            bad.append(f"B={b} C={c} F={f} {h}x{w}: two runs differ")
+        equal.append(f"B={b} C={c} {h}x{w}")
+    if bad:
+        fail("tensor-core K5a:\n  " + "\n  ".join(bad))
+    print(f"[11 K5a tensor cores] {n_cases} bf16 cases, all on the "
+          f"tensor-core route (train on/off at (B, C, F, H, W, group) "
+          f"{shapes}), worst err/max|ref| {worst:.3e} (tol "
+          f"{K5_BF16_RTOL_OF_MAX}), worst abs err {worst_abs:.3e}; Python "
+          f"plans equal the C side's; two runs bit-equal at "
+          f"{', '.join(equal)}", flush=True)
+    return worst_abs
+
+
+def phase_k5a_tc_build_info() -> None:
+    """The tensor-core K5a's kernels (H·W 64 and 16): registers, shared
+    memory and spills from the build's ``-Xptxas -v``, blocks per SM and
+    clusters resident at once from the occupancy API at each timed shape,
+    and the HMMA instructions in their SASS. Fails on a spill, on no HMMA
+    or on a plan that no SM can hold."""
+    stats = _kernel_stats("fused_block_tc",
+                          re.compile(r"fused_block_fwd_tcILi(\d+)E"))
+    bad, parts = [], []
+    for nt, shapes in (("8", K5_TIMED + [K5_WAVE, K5_SHAPES[2]]),
+                       ("2", [K5_SHAPES[1], K5_TC_SHAPES[2]])):
+        st = dict(stats.get((nt,), {}))
+        occ = [(s, _tc_info(*s)) for s in shapes]
+        st["blocks"] = min(i["blocks"] for _, i in occ)
+        why = _check_stats(f"fused_block_fwd_tc<{nt}>", st, True)
+        if why or min(i["clusters"] for _, i in occ) < 1:
+            bad.append(why or f"fused_block_fwd_tc<{nt}>: {occ}")
+            continue
+        parts.append(
+            f"H·W {int(nt) * 8}: {st['regs']} regs, {st['spill']} B spill, "
+            f"{st['mma']} HMMA; " + ", ".join(
+                f"(B={s[0]}, C={s[1]}): {i['smem']} B shared, {i['blocks']} "
+                f"blocks/SM, clusters of {i['nc']}, {i['clusters']} resident"
+                for s, i in occ))
+    if bad:
+        fail("tensor-core K5a (spill, no HMMA or no cluster fits):\n  "
+             + "\n  ".join(bad))
+    print("[11 K5a build] tensor-core kernels (256 threads, dynamic shared "
+          "memory; -Xptxas -v, cudaOccupancy, cuobjdump -sass): "
+          + "; ".join(parts), flush=True)
 
 
 def k5_bound_ms(kernel: str, b, c, f, h, w, dtype):
@@ -1747,16 +1898,18 @@ def _unfused_block(x, td, w1, w2, w3, gen, train, gsz):
 
 
 def phase_k5_timing() -> dict:
-    """bf16 at the train step's 8x8 block (B=16, train) and the sampler's
-    (B=1, eval): K5a, K5b (both of its kernels), the plain versions and the
-    port's unfused block forward and backward (autograd through its
-    hand-written VJPs), in turns within this one process; the lower of each
-    pair is kept. Returns the train shape's numbers."""
+    """bf16 at the train step's 8x8 block (B=16, train), the sampler's
+    (B=1, eval) and K5_WAVE (15 examples, train): K5a on its tensor-core
+    route and on the FMA route forced on the same input, K5b (both of its
+    kernels), the plain versions and the port's unfused block forward and
+    backward (autograd through its hand-written VJPs), in turns within this
+    one process; the lower of each pair is kept. Returns the train shape's
+    numbers."""
     from big_linear_algebra_tpu_torch.nn import fused_block as fb
 
     gen = torch.Generator().manual_seed(9)
     main = {}
-    for b, c, f, h, w, gsz in K5_TIMED:
+    for b, c, f, h, w, gsz in K5_TIMED + [K5_WAVE]:
         train = b > 1
         x, td, w1, w2, w3, g = _k5_inputs(b, c, f, h, w, torch.bfloat16, gen)
         args = (x, td, w1, w2, w3, fb._seed_tensor(5, "cuda"), gsz, K5_RATE,
@@ -1764,7 +1917,8 @@ def phase_k5_timing() -> dict:
         cgen = torch.Generator(device="cuda").manual_seed(0)
         leaves = [a.detach().requires_grad_() for a in (x, td, w1, w2)]
         out = _unfused_block(*leaves, None, cgen, train, gsz)
-        fns = {"K5a": lambda: fb._kernel_fused_fwd(*args),
+        fns = {"K5a": lambda: fb._kernel_fused_fwd(*args, route="tc"),
+               "K5a fma": lambda: fb._kernel_fused_fwd(*args, route="fma"),
                "plain fwd": lambda: fb._plain_fused_fwd(*args),
                "unfused fwd": lambda: _unfused_block(
                    x, td, w1, w2, w3, cgen, train, gsz),
@@ -1780,8 +1934,12 @@ def phase_k5_timing() -> dict:
         host = {name: min(hh for _, hh in runs[name]) for name in names}
         bounds = {k: k5_bound_ms(k, b, c, f, h, w, torch.bfloat16)
                   for k in ("fwd", "bwd")}
-        print(f"[12 K5 timing] bf16 B={b} C={c} F={f} {h}x{w} train={train}:"
-              f" device K5a {ms['K5a'] * 1e3:.2f} us (bound "
+        wave = (" (one example fewer than the train step)"
+                if (b, c, f, h, w, gsz) == K5_WAVE else "")
+        print(f"[12 K5 timing] bf16 B={b} C={c} F={f} {h}x{w} train={train}"
+              f"{wave}: device K5a tensor cores {ms['K5a'] * 1e3:.2f} us, "
+              f"FMA route (clusters of {fb._plan(b, c, f, h, w, 3, gsz)[0]}) "
+              f"{ms['K5a fma'] * 1e3:.2f} us (bound "
               f"{bounds['fwd'][0] * 1e3:.3f} us, {bounds['fwd'][1]}), plain "
               f"{ms['plain fwd'] * 1e3:.2f} us, unfused block "
               f"{ms['unfused fwd'] * 1e3:.2f} us; K5b (data + weight "
@@ -1789,22 +1947,13 @@ def phase_k5_timing() -> dict:
               f"{bounds['bwd'][0] * 1e3:.3f} us, {bounds['bwd'][1]}), plain "
               f"{ms['plain bwd'] * 1e3:.2f} us, unfused backward "
               f"{ms['unfused bwd'] * 1e3:.2f} us | host per call: K5a "
-              f"{host['K5a'] * 1e3:.2f} us, K5b {host['K5b'] * 1e3:.2f} us, "
-              f"unfused fwd {host['unfused fwd'] * 1e3:.2f} us, bwd "
-              f"{host['unfused bwd'] * 1e3:.2f} us", flush=True)
+              f"tensor cores {host['K5a'] * 1e3:.2f} us, FMA route "
+              f"{host['K5a fma'] * 1e3:.2f} us, K5b {host['K5b'] * 1e3:.2f} "
+              f"us, unfused fwd {host['unfused fwd'] * 1e3:.2f} us, bwd "
+              f"{host['unfused bwd'] * 1e3:.2f} us | tensor-core plan: "
+              f"{_tc_split(b, c, f, h, w, gsz)}", flush=True)
         if (b, c, f, h, w, gsz) == K5_TIMED[0]:
             main = dict(ms, bound=bounds)
-    b, c, f, h, w, gsz = K5_WAVE
-    x, td, w1, w2, w3, g = _k5_inputs(b, c, f, h, w, torch.bfloat16, gen)
-    args = (x, td, w1, w2, w3, fb._seed_tensor(5, "cuda"), gsz, K5_RATE,
-            True, 1e-8)
-    wave = {"K5a": _time_ms(lambda: fb._kernel_fused_fwd(*args), 50, 5)[0],
-            "K5b": _time_ms(lambda: fb._kernel_fused_bwd(*args, g), 50,
-                            5)[0]}
-    print(f"[12 K5 timing] bf16 B={b} C={c} F={f} {h}x{w} train=True (one "
-          f"cluster of {fb._plan(b, c, f, h, w, 3, gsz)[0]} blocks fewer "
-          f"than the train step): device K5a {wave['K5a'] * 1e3:.2f} us, "
-          f"K5b {wave['K5b'] * 1e3:.2f} us", flush=True)
     return main
 
 
@@ -1814,6 +1963,7 @@ def _fused_counts(fb) -> tuple:
 
 def _zero_fused_counts(fb) -> None:
     fb.launch_count = fb.bwd_launch_count = fb.wgrad_launch_count = 0
+    fb.tc_launch_count = 0
 
 
 def phase_unet_fused_run(tmp: str) -> int:
@@ -1833,13 +1983,15 @@ def phase_unet_fused_run(tmp: str) -> int:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     k5a, k5b, wgrad = _fused_counts(fb)
+    tc = fb.tc_launch_count
     if rc != 0:
         fail(f"cifar_unet run --fused-block exited {rc}:\n{out.getvalue()}")
     steps = cu.CONFIG.timesteps
-    if (k5a, k5b, wgrad) != (FUSED_PER_RUN_STEP * steps, 0, 0):
-        fail(f"run --fused-block launched K5a/K5b/weight gradients "
-             f"{(k5a, k5b, wgrad)} times, expected "
-             f"({FUSED_PER_RUN_STEP * steps}, 0, 0)")
+    if (k5a, tc, k5b, wgrad) != (FUSED_PER_RUN_STEP * steps,) * 2 + (0, 0):
+        fail(f"run --fused-block launched K5a/its tensor-core route/K5b/"
+             f"weight gradients {(k5a, tc, k5b, wgrad)} times, expected "
+             f"({FUSED_PER_RUN_STEP * steps}, {FUSED_PER_RUN_STEP * steps}, "
+             f"0, 0)")
     path = os.path.join(tmp, "cifar_unet", "samples", "sample_0.bmp")
     planes = bmp.read_bmp(path)
     if any(p.shape != (32, 32) for p in planes):
@@ -1850,19 +2002,23 @@ def phase_unet_fused_run(tmp: str) -> int:
     if lo == hi:
         fail(f"{path}: constant image (every byte {lo})")
     print(f"[13 unet fused run] run 1 --fused-block (32x32, full width, 1000 "
-          f"steps, bf16 compute) {run_s:.2f} s wall: K5a launches {k5a} "
-          f"({FUSED_PER_RUN_STEP} per step; K2 {at.launch_count}); "
+          f"steps, bf16 compute) {run_s:.2f} s wall: K5a launches {k5a}, "
+          f"all on the tensor-core route ({FUSED_PER_RUN_STEP} per step; "
+          f"K2 {at.launch_count}); "
           f"samples/sample_0.bmp 32x32, bytes {lo}..{hi}", flush=True)
     return k5a
 
 
-def phase_fused_oracle() -> None:
+def phase_fused_oracle() -> int:
     """From phase 6's checkpoint at 32x32: the f32 forward (batch 1) with
     the fused blocks against the same forward unfused (bounded) and against
-    f64 (reported); then one f32 train-mode gradient at batch 16 with the
-    fused blocks, K5b against the plain backward on each fused block's
+    f64 (reported); the bf16 forward with the fused blocks against the bf16
+    forward unfused (bounded by K5_UNET_BF16_FACTOR times the unfused one's
+    distance from f64); then one f32 train-mode gradient at batch 16 with
+    the fused blocks, K5b against the plain backward on each fused block's
     operands (bounded), and its leaves against the gradient with the plain
-    backward at those blocks, on the same dropout seeds (reported)."""
+    backward at those blocks, on the same dropout seeds (reported). Returns
+    K5a's launches on the FMA route (the f32 forward and gradient)."""
     import dataclasses
 
     import torch.nn.functional as F
@@ -1875,10 +2031,13 @@ def phase_fused_oracle() -> None:
     x = torch.randn(1, 3, 32, 32, generator=gen).cuda()
     tb = torch.tensor([500], device="cuda")
     outs = {}
+    fma_launches = 0
     with torch.inference_mode():
         for name, dt, fused in (("fused", "float32", True),
                                 ("unfused", "float32", False),
-                                ("f64", "float64", False)):
+                                ("f64", "float64", False),
+                                ("bf16 fused", "bfloat16", True),
+                                ("bf16 unfused", "bfloat16", False)):
             cfg = dataclasses.replace(cu.CONFIG, compute_dtype=dt,
                                       fused_block=fused)
             p = cu.tree_map(lambda a: a.to("cuda", getattr(torch, dt)),
@@ -1886,19 +2045,30 @@ def phase_fused_oracle() -> None:
             _zero_fused_counts(fb)
             outs[name] = cu.forward(p, x, tb, cfg).double()
             torch.cuda.synchronize()
-            if fb.launch_count != (FUSED_PER_RUN_STEP if fused else 0):
-                fail(f"the {name} forward launched K5a {fb.launch_count} "
-                     "times")
+            want = FUSED_PER_RUN_STEP if fused else 0
+            want_tc = want if dt == "bfloat16" else 0
+            if (fb.launch_count, fb.tc_launch_count) != (want, want_tc):
+                fail(f"the {name} forward launched K5a "
+                     f"{fb.launch_count} times, {fb.tc_launch_count} on the "
+                     f"tensor-core route, expected {want}, {want_tc}")
+            fma_launches += fb.launch_count - fb.tc_launch_count
     if not all(torch.isfinite(o).all() for o in outs.values()):
         fail("non-finite U-Net outputs")
     scale = outs["unfused"].abs().max().item()
     share = (outs["fused"] - outs["unfused"]).abs().max().item() / scale
     f64_scale = outs["f64"].abs().max().item()
     vs_f64 = {k: (outs[k] - outs["f64"]).abs().max().item() / f64_scale
-              for k in ("fused", "unfused")}
+              for k in ("fused", "unfused", "bf16 fused", "bf16 unfused")}
+    bf16_share = (outs["bf16 fused"] - outs["bf16 unfused"]).abs().max() \
+        .item() / f64_scale
     if not share <= K5_UNET_RTOL_OF_MAX:
         fail(f"f32 forward with the fused blocks differs from the unfused "
              f"one by {share:.3e} of max|ref| (tol {K5_UNET_RTOL_OF_MAX})")
+    if not bf16_share <= K5_UNET_BF16_FACTOR * vs_f64["bf16 unfused"]:
+        fail(f"bf16 forward with the fused blocks differs from the unfused "
+             f"one by {bf16_share:.3e} of max|f64 ref|, more than "
+             f"{K5_UNET_BF16_FACTOR} x the unfused one's distance from f64 "
+             f"({vs_f64['bf16 unfused']:.3e})")
 
     # the gradient: batch 16, train mode (dropout on), f32
     cfg = dataclasses.replace(cu.CONFIG, compute_dtype="float32",
@@ -1930,6 +2100,7 @@ def phase_fused_oracle() -> None:
         loss_k, grads_k = grad()
         torch.cuda.synchronize()
         counts = _fused_counts(fb)
+        fma_launches += fb.launch_count - fb.tc_launch_count
         fb._kernel_fused_bwd = fb._plain_fused_bwd
         loss_p, grads_p = grad()
     finally:
@@ -1960,7 +2131,11 @@ def phase_fused_oracle() -> None:
           f"10 fused blocks vs unfused err/max|ref| {share:.3e} (tol "
           f"{K5_UNET_RTOL_OF_MAX}); reported, no bound: fused vs f64 "
           f"{vs_f64['fused']:.3e}, unfused vs f64 {vs_f64['unfused']:.3e} "
-          f"of max|ref| {f64_scale:.3f}. f32 train-mode gradient at batch "
+          f"of max|ref| {f64_scale:.3f}. bf16 forward with the 10 fused "
+          f"blocks (tensor-core K5a) vs unfused {bf16_share:.3e} of max|f64 "
+          f"ref| (tol {K5_UNET_BF16_FACTOR} x unfused vs f64 "
+          f"{vs_f64['bf16 unfused']:.3e}); fused vs f64 "
+          f"{vs_f64['bf16 fused']:.3e}. f32 train-mode gradient at batch "
           f"16, {per} fused blocks: K5b vs plain on each block's operands, "
           f"worst err/(atol {K5_GRAD_ATOL} + rtol {K5_GRAD_RTOL}*|ref|) "
           f"{worst_site:.3e} (tol 1); reported, no bound: the gradient "
@@ -1968,6 +2143,7 @@ def phase_fused_oracle() -> None:
           f"worst leaf {leaves[0]:.3e} of its max|ref|, {leaves[1]:.3e} of "
           f"the largest max|ref|, median leaf {leaves[2]:.3e}; losses "
           f"{loss_k:.6f}, {loss_p:.6f}", flush=True)
+    return fma_launches
 
 
 def phase_unet_fused_train() -> dict:
@@ -1996,6 +2172,7 @@ def phase_unet_fused_train() -> dict:
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         k5a, k5b, wgrad = _fused_counts(fb)
+        tc = fb.tc_launch_count
         second = io.StringIO()
         with contextlib.redirect_stdout(second):
             rc_resume = cu.main(["train", "1", "--fused-block",
@@ -2012,10 +2189,11 @@ def phase_unet_fused_train() -> dict:
     if not torch.isfinite(vals).all():
         fail(f"non-finite step losses: {vals.tolist()}")
     want = FUSED_PER_TRAIN_STEP * FUSED_TRAIN_STEPS
-    if (k5a, k5b, wgrad) != (want, want, want):
-        fail(f"train --fused-block launched K5a/K5b/weight gradients "
-             f"{(k5a, k5b, wgrad)} times in {FUSED_TRAIN_STEPS} steps, "
-             f"expected {want} each ({FUSED_PER_TRAIN_STEP} per step)")
+    if (k5a, tc, k5b, wgrad) != (want,) * 4:
+        fail(f"train --fused-block launched K5a/its tensor-core route/K5b/"
+             f"weight gradients {(k5a, tc, k5b, wgrad)} times in "
+             f"{FUSED_TRAIN_STEPS} steps, expected {want} each "
+             f"({FUSED_PER_TRAIN_STEP} per step)")
     head = vals[:10].mean().item()
     tail = vals[FUSED_TRAIN_STEPS - 10:FUSED_TRAIN_STEPS].mean().item()
     if not tail < head:
@@ -2029,7 +2207,8 @@ def phase_unet_fused_train() -> dict:
           f"{FUSED_TRAIN_STEPS} (32x32, full width, batch 16, bf16 compute, "
           f"f32 masters, Adam) {train_s:.2f} s wall with the CIFAR "
           f"synthesis, epoch {ep0['epoch_seconds']} s "
-          f"({ep0['images_per_sec']} images/s): launches K5a {k5a}, K5b "
+          f"({ep0['images_per_sec']} images/s): launches K5a {k5a} (all on "
+          f"the tensor-core route), K5b "
           f"{k5b}, K5b weight gradients {wgrad}; loss mean of steps 1-10 "
           f"{head:.5f}, of steps {FUSED_TRAIN_STEPS - 9}-{FUSED_TRAIN_STEPS} "
           f"{tail:.5f}; then '{resumed}', step loss "
@@ -2792,9 +2971,11 @@ def main() -> int:
         k4 = phase_k4_timing()
         k4_launches = phase_k4_unet_sites()
         k5_err = phase_k5_vs_plain()
+        k5_err["K5a tc"] = phase_k5a_tc_vs_plain()
+        phase_k5a_tc_build_info()
         k5 = phase_k5_timing()
         k5a_launches = phase_unet_fused_run(tmp)
-        phase_fused_oracle()
+        k5a_fma_launches = phase_fused_oracle()
         fused_train = phase_unet_fused_train()
         del os.environ["BLA_DATA_DIR"]
     bwd_err = phase_k2bwd_vs_plain()
@@ -2873,10 +3054,10 @@ def main() -> int:
     k5_rows = [{
         "name": name,
         "route": "cuda",
-        "source": "big_linear_algebra_tpu_torch/csrc/fused_block.cu",
+        "source": f"big_linear_algebra_tpu_torch/csrc/{src}.cu",
         "replaces": tpu,
         "launches": launches,
-        "max_abs_err": k5_err[kern],
+        "max_abs_err": k5_err[err],
         "ms": k5[kern],
         "plain_ms": k5[f"plain {way}"],
         "bound_ms": k5["bound"][way][0],
@@ -2884,11 +3065,17 @@ def main() -> int:
         # no single PyTorch call computes the block; phase 12 prints the
         # port's unfused block beside it
         "library_ms": None,
-    } for name, kern, way, tpu, launches in (
-        ("K5a fused resnet block forward", "K5a", "fwd", K5A_TPU_KERNEL,
-         k5a_launches),
+    } for name, src, kern, err, way, tpu, launches in (
+        ("K5a fused resnet block forward, tensor-core route (bf16 at the "
+         "U-Net's widths; launches: run 1 --fused-block)", "fused_block_tc",
+         "K5a", "K5a tc", "fwd", K5A_TPU_KERNEL, k5a_launches),
+        ("K5a fused resnet block forward, FMA route (f32, and bf16 shapes "
+         "the tensor cores do not take; launches: phase 14's f32 forward "
+         "and gradient; time: bf16 forced onto it)", "fused_block",
+         "K5a fma", "K5a", "fwd", K5A_TPU_KERNEL, k5a_fma_launches),
         ("K5b fused resnet block recompute backward (data and weight "
-         "gradients)", "K5b", "bwd", K5B_TPU_KERNEL, fused_train["K5b"]))]
+         "gradients)", "fused_block", "K5b", "K5b", "bwd", K5B_TPU_KERNEL,
+         fused_train["K5b"]))]
     print(json.dumps({"kernels": [{
         "name": "K1 matmul (nn/nt/tn, bias+ReLU epilogue)",
         "route": "cuda",

@@ -14,6 +14,8 @@ one jitted computation, made once per module."""
 
 import dataclasses
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -254,6 +256,104 @@ def test_kernel_wrappers_check_their_operands():
                          ((2, 8, 8, 4, 4, 3, 3), "whole groups")):
         with pytest.raises(ValueError, match=match):
             fb._plan(*shape)
+
+
+def _unet_fused_blocks(cfg, batch, dtype="bfloat16"):
+    """The fused blocks of ``cfg``'s U-Net forward with fused_block=True at
+    ``batch``, as (B, C, F, H, W, k, group size) in forward order: the
+    model's own wiring and gate, with every conv, attention site and fused
+    block replaced by zeros of its output's shape, so that nothing is
+    computed at full width."""
+    cfg = dataclasses.replace(cfg, fused_block=True, compute_dtype=dtype)
+    blocks = []
+
+    def block(x, td, w1, w2, w3, seed, gsz, rate, train, eps=1e-8,
+              bits=None):
+        blocks.append((*x.shape[:2], w1.shape[0], *x.shape[2:],
+                       w1.shape[-1], gsz))
+        return x.new_zeros(x.shape[0], w1.shape[0], *x.shape[2:])
+
+    def conv(x, k, stride=1):
+        return x.new_zeros(x.shape[0], k.shape[0], -(-x.shape[2] // stride),
+                           -(-x.shape[3] // stride))
+
+    params = cu.init_params(torch.Generator().manual_seed(0), cfg)
+    x = torch.zeros(batch, cfg.in_channels, cfg.image_size, cfg.image_size)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cu, "conv2d", conv)
+        mp.setattr(cu, "self_attention_block", lambda h, p: h)
+        mp.setattr(fb, "fused_resnet_block", block)
+        with torch.inference_mode():
+            cu.forward(params, x, torch.zeros(batch, dtype=torch.int64), cfg)
+    return blocks
+
+
+@pytest.mark.parametrize("batch,count,cluster", [(1, 10, 16), (16, 9, 8)])
+def test_k5a_route_takes_every_full_width_block(batch, count, cluster):
+    """K5a's route rule on the full-width U-Net's fused blocks at 32×32
+    (listed from ``cu.CONFIG``): all ten at batch 1 and the gate's nine at
+    batch 16 go to the tensor-core kernel in bf16, in clusters of 16 and 8
+    blocks, and to the FMA kernel (``csrc/fused_block.cu``) in f32."""
+    blocks = _unet_fused_blocks(cu.CONFIG, batch)
+    assert len(blocks) == count
+    assert {(c, f, h) for _, c, f, h, *_ in blocks} == (
+        {(256, 256, 8), (256, 256, 4), (512, 256, 4), (512, 256, 8)}
+        if batch == 1 else
+        {(256, 256, 8), (256, 256, 4), (512, 256, 4)})
+    for shape in blocks:
+        assert fb._fwd_route(torch.bfloat16, *shape) == "tc", shape
+        nc, smem = fb._tc_plan(*shape)
+        assert nc == cluster and smem <= fb._MAX_SMEM
+        assert fb._fwd_route(torch.float32, *shape) == "fma", shape
+
+
+def test_k5a_route_rule_edges():
+    """The TINY U-Net's blocks (12 and 24 channels, not multiples of 32)
+    go to the FMA kernel in bf16 and f32; clusters of 16 up to B = 4, of
+    8 from B = 5; a shape neither kernel takes raises, and so does an
+    unknown route."""
+    tiny = _unet_fused_blocks(cu.TINY, 2)
+    assert len(tiny) == 10
+    for shape in tiny:
+        for dt in (torch.bfloat16, torch.float32):
+            assert fb._fwd_route(dt, *shape) == "fma", shape
+        with pytest.raises(ValueError, match="powers of two"):
+            fb._tc_plan(*shape)
+    assert fb._tc_plan(4, 256, 256, 8, 8, 3, 32)[0] == 16
+    assert fb._tc_plan(5, 256, 256, 8, 8, 3, 32)[0] == 8
+    with pytest.raises(ValueError, match="8x8 or 4x4"):
+        fb._tc_plan(16, 256, 256, 2, 8, 3, 32)
+    for shape, match in (((2, 32, 32, 6, 6, 3, 8), "16, 32 or 64"),
+                         ((2, 32, 32, 4, 4, 5, 8), "3x3")):
+        with pytest.raises(ValueError, match=match):
+            fb._fwd_route(torch.bfloat16, *shape)
+    args = _port_args(_inputs())
+    with pytest.raises(ValueError, match="no K5a route"):
+        fb._kernel_fused_fwd(*args, fb._seed_tensor(1, "cpu"), GSZ, 0.0,
+                             False, 1e-8, route="wmma")
+
+
+def _cuda_constants(name):
+    """{NAME: value} of the ``constexpr int``/``size_t`` constants of
+    ``csrc/<name>.cu``."""
+    src = (Path(fb.__file__).parents[1] / "csrc" / f"{name}.cu").read_text()
+    return {k: int(v) for k, v in re.findall(
+        r"constexpr (?:int|size_t) (\w+) = (\d+);", src)}
+
+
+def test_kernel_constants_match_the_sources():
+    """The wrapper's mirrors of the kernels' constants equal the values in
+    the CUDA sources, so that the plans cannot drift apart."""
+    fma = _cuda_constants("fused_block")
+    assert (fb._THREADS, fb._MAX_OUT, fb._STAGE_CHANNELS, fb._MAX_SMEM,
+            fb._MAX_CLUSTER) == (fma["THREADS"], fma["MAX_OUT"], fma["IC"],
+                                 fma["MAX_SMEM"], fma["MAX_CLUSTER"])
+    tc = _cuda_constants("fused_block_tc")
+    assert (fb._TC_THREADS, fb._TC_MAX_CLUSTER, fb._TC_SMALL_BATCH,
+            fb._TC_CHUNK, fb._TC_RING_ROW, fb._TC_RING_SLOTS,
+            fb._TC_PART_PAD, fb._MAX_SMEM) == (
+        tc["THREADS"], tc["MAX_CLUSTER"], tc["SMALL_BATCH"], tc["CHUNK"],
+        tc["RING_ROW"], tc["RING_SLOTS"], tc["PART_PAD"], tc["MAX_SMEM"])
 
 
 # ---------------------------------------------------------------------------
