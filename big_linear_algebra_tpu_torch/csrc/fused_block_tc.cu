@@ -1,9 +1,12 @@
-// K5a on the tensor cores: the bf16 forward of the U-Net's fused resnet
-// block, for NVIDIA Hopper (sm_90a).
+// K5a and K5b on the tensor cores: the bf16 forward and recompute backward
+// of the U-Net's fused resnet block, for NVIDIA Hopper (sm_90a).
 //
-// Replaces, for bf16 operands, the TPU kernel of
+// Replaces, for bf16 operands, the TPU kernels of
 // big_linear_algebra_tpu/nn/fused_block.py:
 //   _fused_fwd_kernel (K5a, launched at :396 by _frb_fwd) -> fused_block_fwd_tc
+//   _fused_bwd_kernel (K5b, launched at :441 by _frb_bwd) ->
+//     fused_block_bwd_tc (data gradients), then fused_block_wgrad_tc
+//     (weight gradients); see "K5b" below
 // The block, per example, on x (C, HW), td (F), w1 (F, C, 3, 3),
 // w2 (F, F, 3, 3) and w3 (F, C, 1, 1) or none (C == F):
 //   a1  = bf16(relu(gn(x)))             gn: one-pass f32 statistics per group
@@ -77,10 +80,61 @@
 // chunks and TMA multicast of the weights across the cluster are the next
 // steps.
 //
-// C interface (bound with ctypes): bla_fused_block_fwd_tc returns
-// cudaGetLastError() (or the launch's error) after its launch, on the given
-// stream, and never synchronises; bla_fused_block_tc_info reports the plan
-// and the occupancy.
+// K5b's data gradients (fused_block_bwd_tc), per example, at the rounding
+// points of _plain_fused_bwd, from x, td, g, w1 and the flipped, transposed
+// copies w2^T (F, F, 3, 3), w1^T (C, F, 3, 3) and w3^T (C, F) that the
+// wrapper makes (as the JAX wrapper's _taps_t), so that conv_2's and conv_1's
+// transposes are forward convs on K5a's ring and fragments:
+//   a1 = bf16(relu(gn(x)))  (the block's C slice to ws_a1)
+//   h1t = conv(a1, w1) + td; d = bf16(dropout(relu(gn(h1t))))  (to ws_d)
+//   dd = conv(g, w2^T), through the dropout mask and ReLU 2's, then GN 2's
+//     backward: dh1t; d_td = its sum over the tokens, unrounded; dh1t
+//     rounded to bf16 (to ws_dh)
+//   da1 = conv(dh1t, w1^T), through ReLU 1's mask and GN 1's backward, plus
+//     g or w3^T . g: dx
+// It leaves a1, d and dh1t of every example in bf16 workspaces for the
+// weight gradients (fused_block_wgrad_tc):
+//   dw1[f][c][tap] = sum over b, t of dh1t[b][f][t] * a1[b][c][t + shift(tap)]
+//   dw2 likewise of g and d, dw3 of g and x (one tap)
+// f32 operands, and bf16 shapes the plan does not take, go to
+// fused_block.cu's FMA kernels by the wrapper's rule (_bwd_route).
+// Design of the data gradients, as K5a's where not said:
+// - Clusters of BWD_CLUSTER = 8 blocks per example at every B (no sampling
+//   step runs a backward). Block r owns F / 8 channels of h1t, dd and dh1t
+//   (mb) and C / 8 of da1 and dx (cb), each whole GN groups, so every GN
+//   statistic and every GN-backward sum stays in one block.
+// - One weight stream through the ring: w3^T's chunks (with w3), w1's, w2^T's
+//   and w1^T's, slots of max(mb, cb) rows. The conv input holds x, then g,
+//   then dh1t; dh1t reaches every rank through distributed shared memory, as
+//   K5a's d (no global workspace, no __threadfence).
+// - The epilogues keep their values in registers: thread tid holds token
+//   tid % HW of channels tid / HW + i * TPI, so a pass of the block's threads
+//   lies in one GN group; GN 2's x-hat and the dropout's kept bits stay in
+//   registers through conv_2^T. w3^T . g is formed first and parked in f32
+//   in ws_res, read back by the thread that wrote it.
+// - At the train step's blocks: two blocks an SM (110,160 B at C = F = 256,
+//   8x8; the 512 -> 256 4x4 block takes 151,648 B, one block an SM, for its
+//   64-row slots of w1^T).
+// - Fixed sum orders and no atomics: two runs are bit-equal.
+// What bounds it: 2 * B * HW * 9 * (2 * C * F + F * F) flops, 3.7 us at the
+// bf16 peak at (16, 256, 256, 8x8); as K5a, the chain of short phases and the
+// chunk loop's barriers set its pace.
+// The weight gradients: each tap is a GEMM, dW_tap = A . shift(X)^T with M =
+// F, N = C_in and K = B * HW. A block owns a 32 x 32 tile of (f, c) at every
+// tap; each example's rows of A and its channels of X (channel-last with a
+// zero halo, so that a tap is a fixed row offset) are staged in shared
+// memory while the next example's loads are in flight in registers, and
+// the products are mma.sync with A from ldmatrix.x4 and X from
+// ldmatrix.x2.trans, summed over the examples in order (no atomics). Bound:
+// 2 * B * HW * 9 * (C * F + F * F) flops, 2.4 us at the bf16 peak at the
+// train step's 8x8 block; 128-192 blocks fill the card once.
+//
+// C interface (bound with ctypes): bla_fused_block_fwd_tc,
+// bla_fused_block_bwd_tc and bla_fused_block_wgrad_tc return
+// cudaGetLastError() (or the launch's error) after their launch, on the
+// given stream, and never synchronise; bla_fused_block_tc_info,
+// bla_fused_block_bwd_tc_info and bla_fused_block_wgrad_tc_info report the
+// plan and the occupancy.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -729,6 +783,468 @@ __global__ void __launch_bounds__(THREADS, 2)
   STAMP(11);
 }
 
+// ---------------------------------------------------------------------------
+// K5b's data gradients on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int BWD_CLUSTER = 8;  // blocks per example
+constexpr int BWD_MAX_EF = 8;   // GN 2's x-hat a thread holds (mb * HW)
+constexpr int BWD_MAX_EC = 16;  // values of the C slice a thread holds
+
+struct BwdParams {
+  TcParams t;  // the shape (b, c, f, h, w, hw, gsz, nc, ldc), x, td, w1,
+               // seed, the dropout and eps
+  int mb, cb, rows, ck3;  // F slice, C slice, ring rows, w3^T chunk
+  int off_ring, off_stats;
+  const bf16 *g, *w2t, *w1t, *w3t;  // w3t may be null
+  bf16* dx;
+  float* dtd;
+  bf16 *ws_a1, *ws_d, *ws_dh;  // for fused_block_wgrad_tc
+  float* ws_res;               // with w3t only
+};
+
+// The chunks of the backward's weight stream, in order: w3^T's F / ck3 (with
+// w3: rows of the block's C slice), conv_1's C / CHUNK (w1, rows of the F
+// slice), conv_2^T's F / CHUNK (w2^T, F slice), conv_1^T's F / CHUNK (w1^T, C
+// slice). As issue_chunk: each call commits exactly one group.
+__device__ __forceinline__ void issue_chunk_bwd(const BwdParams& p, int q,
+                                                uint32_t ring, int rank) {
+  const TcParams& t = p.t;
+  const int n0 = p.w3t != nullptr ? t.f / p.ck3 : 0;
+  const int n1 = t.c / CHUNK;
+  const int n2 = t.f / CHUNK;
+  const uint32_t slot = ring + (q % RING_SLOTS) * (p.rows * RING_ROW * 2);
+  if (q < n0) {
+    const int lp = ilog2(p.ck3 / 8);
+    const bf16* src = p.w3t + (rank * p.cb * t.f + q * p.ck3);
+    for (int e = threadIdx.x; e < (p.cb << lp); e += THREADS) {
+      const int m = e >> lp;
+      const int pc = e & ((1 << lp) - 1);
+      tc::cp_async16(slot + m * (RING_ROW * 2) + pc * 16,
+                     src + (m * t.f + pc * 8), true);
+    }
+  } else if (q < n0 + n1 + 2 * n2) {
+    constexpr int PIECES = CHUNK * 9 / 8;
+    int j = q - n0;
+    const bf16* w = t.w1;
+    int stride = t.c * 9;
+    int rows = p.mb;
+    if (j >= n1 + n2) {
+      j -= n1 + n2;
+      w = p.w1t;
+      stride = t.f * 9;
+      rows = p.cb;
+    } else if (j >= n1) {
+      j -= n1;
+      w = p.w2t;
+      stride = t.f * 9;
+    }
+    const bf16* src = w + (rank * rows * stride + j * (CHUNK * 9));
+    for (int e = threadIdx.x; e < rows * PIECES; e += THREADS) {
+      const int m = e / PIECES;
+      const int pc = e - m * PIECES;
+      tc::cp_async16(slot + m * (RING_ROW * 2) + pc * 16,
+                     src + (m * stride + pc * 8), true);
+    }
+  }
+  tc::cp_async_commit();
+}
+
+// run_chunks over the backward's stream (slots of p.rows rows).
+template <int NT, int KK>
+__device__ __forceinline__ void run_chunks_bwd(
+    float (&acc)[NT][4], const BwdParams& p, int& q, int q_end, int ck,
+    uint32_t ring, const unsigned short* ring_ptr, uint32_t act,
+    const uint32_t (&brow)[NT / 2], int rank, int wm, int wk, int nwk) {
+  const int lane = threadIdx.x % 32;
+  const int lane_off = (wm * 16 + lane / 4) * RING_ROW + 2 * (lane % 4) * KK;
+  for (int ch = 0; q < q_end; ++q, ch += ck) {
+    cp_async_wait_ring();
+    __syncthreads();
+    issue_chunk_bwd(p, q + RING_SLOTS - 1, ring, rank);
+    chunk_mma<NT, KK>(
+        acc, ring_ptr + (q % RING_SLOTS) * p.rows * RING_ROW + lane_off,
+        act + ch * 2, brow, ck, p.t.ldc * 2, wk, nwk);
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero_acc(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+}
+
+// Per GN group of a block's slice, this warp's sums of a[i] and a[i] * b[i]
+// over the thread's values i < ne (pass i of the block's threads lies in
+// group i >> lipg), summed over the warp by shuffles, into
+// wsum[(group * WARPS + warp) * 2 + {0, 1}].
+template <int MAXE>
+__device__ __forceinline__ void group_sums(const float (&a)[MAXE],
+                                           const float (&b)[MAXE], int ne,
+                                           int lipg, float* wsum) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int gr = 0; (gr << lipg) < ne; ++gr) {
+    float s = 0.f;
+    float sx = 0.f;
+#pragma unroll
+    for (int i = 0; i < MAXE; ++i) {
+      if (i < ne && (i >> lipg) == gr) {
+        s += a[i];
+        sx = fmaf(a[i], b[i], sx);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s += __shfl_xor_sync(FULL_MASK, s, off);
+      sx += __shfl_xor_sync(FULL_MASK, sx, off);
+    }
+    if (lane == 0) {
+      wsum[(gr * WARPS + warp) * 2] = s;
+      wsum[(gr * WARPS + warp) * 2 + 1] = sx;
+    }
+  }
+}
+
+// The block's totals of group_sums, the warps' in warp order: thread gr <
+// groups writes gsum[2 * gr], gsum[2 * gr + 1].
+__device__ __forceinline__ void group_totals(const float* wsum, int groups,
+                                             float* gsum) {
+  const int gr = threadIdx.x;
+  if (gr < groups) {
+    float s = 0.f;
+    float sx = 0.f;
+    for (int k = 0; k < WARPS; ++k) {
+      s += wsum[(gr * WARPS + k) * 2];
+      sx += wsum[(gr * WARPS + k) * 2 + 1];
+    }
+    gsum[2 * gr] = s;
+    gsum[2 * gr + 1] = sx;
+  }
+}
+
+// K5b's data gradients: one cluster of BWD_CLUSTER blocks per example
+// (blockIdx.y); NT = HW / 8. Block r owns channels [r*mb, (r+1)*mb) of h1t,
+// dd and dh1t and [r*cb, (r+1)*cb) of da1 and dx, whole GN groups. In the
+// epilogues thread tid holds token tid % HW of channels tid / HW + i * TPI.
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 2)
+    fused_block_bwd_tc(const BwdParams p) {
+  using M = Map<NT>;
+  constexpr int HW = M::HW;
+  constexpr int LDP = M::LDP;
+  constexpr int TPI = THREADS / HW;      // channels of one pass of threads
+  constexpr int L = HW < 32 ? HW : 32;   // lanes holding a channel's tokens
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const TcParams& s = p.t;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.y;
+  const int f0 = rank * p.mb;
+  const int c0 = rank * p.cb;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int tn = threadIdx.x % HW;
+  const int tm = threadIdx.x / HW;
+  // the warps' tiles of the F slice's convs and of the C slice's
+  const int nwmf = p.mb / 16;
+  const int nwkf = WARPS / nwmf;
+  const int wmf = warp % nwmf;
+  const int wkf = warp / nwmf;
+  const int nwmc = p.cb / 16;
+  const int nwkc = WARPS / nwmc;
+  const int wmc = warp % nwmc;
+  const int wkc = warp / nwmc;
+  const int tilef = p.mb * LDP;
+  const int tilec = p.cb * LDP;
+  const int ef = p.mb / TPI;
+  const int ec = p.cb / TPI;
+  const int lipg = ilog2(s.gsz / TPI);  // passes per GN group
+  const float ngrp = static_cast<float>(s.gsz * HW);
+
+  const uint32_t act = tc::smem(smem);
+  const uint32_t ring = act + p.off_ring;
+  const unsigned short* ring_ptr =
+      reinterpret_cast<const unsigned short*>(smem + p.off_ring);
+  const int gmax = p.rows / s.gsz;
+  float* mean1 = reinterpret_cast<float*>(smem + p.off_stats);
+  float* rstd1 = mean1 + s.c / s.gsz;
+  float* mean2 = rstd1 + s.c / s.gsz;
+  float* rstd2 = mean2 + p.mb / s.gsz;
+  float* wsum = rstd2 + p.mb / s.gsz;     // [gmax][WARPS][2]
+  float* gsum = wsum + 2 * WARPS * gmax;  // [gmax][2]
+  float* tds = gsum + 2 * gmax;           // [mb]: td of the F slice
+  float* tdp = tds + p.mb;                // [mb * HW / L]: d_td's runs
+  float* part = reinterpret_cast<float*>(smem);  // partial tiles, on act
+  const int sld = p.mb + 8;
+  unsigned char* stage = reinterpret_cast<unsigned char*>(
+      part + nwkf * tilef);  // [HW][sld] bf16: dh1t, channel-last
+
+  const size_t xo = static_cast<size_t>(b) * s.c * HW;
+  const size_t fo = static_cast<size_t>(b) * s.f * HW;
+  const bf16* x = s.x + xo;
+  const bf16* g = p.g + fo;
+
+  if (threadIdx.x == 0) {
+    prefetch_l2(s.w1 + static_cast<size_t>(f0) * s.c * 9, p.mb * s.c * 18);
+    prefetch_l2(p.w2t + static_cast<size_t>(f0) * s.f * 9, p.mb * s.f * 18);
+    prefetch_l2(p.w1t + static_cast<size_t>(c0) * s.f * 9, p.cb * s.f * 18);
+    if (p.w3t != nullptr)
+      prefetch_l2(p.w3t + static_cast<size_t>(c0) * s.f, p.cb * s.f * 2);
+  }
+  for (int q0 = 0; q0 < RING_SLOTS - 1; ++q0)
+    issue_chunk_bwd(p, q0, ring, rank);
+  uint32_t brow[NT / 2];
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np)
+    brow[np] = M::row(np * 16 + lane % 8 + (lane / 16) * 8) * s.ldc * 2 +
+               ((lane / 8) % 2) * 16;
+  float acc[NT][4];
+  int q = 0;
+
+  // 0. with w3: the residual w3^T . g of the C slice, in f32, into ws_res
+  // (read back at the end by the thread that wrote it)
+  if (p.w3t != nullptr) {
+    XLoader<NT> gl(s.f);
+    gl.load(smem, s.ldc, g);
+    zero_acc<NT>(acc);
+    run_chunks_bwd<NT, 1>(acc, p, q, q + s.f / p.ck3, p.ck3, ring, ring_ptr,
+                          act, brow, rank, wmc, wkc, nwkc);
+    __syncthreads();
+    store_partial<NT>(acc, part + wkc * tilec, wmc);
+    __syncthreads();
+    float* res = p.ws_res + xo + static_cast<size_t>(c0) * HW;
+#pragma unroll
+    for (int i = 0; i < BWD_MAX_EC; ++i) {
+      if (i < ec) {
+        const int m = tm + i * TPI;
+        res[m * HW + tn] = sum_partials(part, m * LDP + tn, tilec, nwkc);
+      }
+    }
+    __syncthreads();
+  }
+
+  // 1. a1 = bf16(relu(gn(x))) of the whole example in the conv input; its C
+  // slice to ws_a1
+  {
+    XLoader<NT> xl(s.c);
+    xl.load(smem, s.ldc, x);
+  }
+  zero_halo<NT>(smem, s.ldc, s.c);
+  if (threadIdx.x < p.mb)
+    tds[threadIdx.x] = __bfloat162float(
+        s.td[static_cast<size_t>(b) * s.f + f0 + threadIdx.x]);
+  __syncthreads();
+  gn1_stats<NT>(smem, s, mean1, rstd1);
+  __syncthreads();
+  gn1_apply<NT>(smem, s, mean1, rstd1);
+  __syncthreads();
+  {
+    bf16* a1 = p.ws_a1 + xo + static_cast<size_t>(c0) * HW;
+#pragma unroll
+    for (int i = 0; i < BWD_MAX_EC; ++i) {
+      if (i < ec) {
+        const int m = tm + i * TPI;
+        a1[m * HW + tn] = *reinterpret_cast<const bf16*>(
+            smem + (M::row(tn) * s.ldc + c0 + m) * 2);
+      }
+    }
+  }
+
+  // 2. h1t = conv_1(a1) + td of the F slice, GN 2's statistics, and d =
+  // bf16(dropout(relu(x-hat))) to ws_d; x-hat and the kept bits stay in
+  // registers
+  zero_acc<NT>(acc);
+  run_chunks_bwd<NT, 9>(acc, p, q, q + s.c / CHUNK, CHUNK, ring, ring_ptr,
+                        act, brow, rank, wmf, wkf, nwkf);
+  __syncthreads();  // every warp done with a1: its rows take the partials
+  store_partial<NT>(acc, part + wkf * tilef, wmf);
+  __syncthreads();
+  float xh2[BWD_MAX_EF];
+#pragma unroll
+  for (int i = 0; i < BWD_MAX_EF; ++i) {
+    xh2[i] = 0.f;
+    if (i < ef) {
+      const int m = tm + i * TPI;
+      xh2[i] = sum_partials(part, m * LDP + tn, tilef, nwkf) + tds[m];
+    }
+  }
+  group_sums<BWD_MAX_EF>(xh2, xh2, ef, lipg, wsum);
+  __syncthreads();
+  group_totals(wsum, p.mb / s.gsz, gsum);
+  __syncthreads();
+  if (threadIdx.x < p.mb / s.gsz) {
+    const float m = gsum[2 * threadIdx.x] / ngrp;
+    mean2[threadIdx.x] = m;
+    rstd2[threadIdx.x] =
+        rsqrtf(fmaxf(gsum[2 * threadIdx.x + 1] / ngrp - m * m, 0.f) + s.eps);
+  }
+  __syncthreads();
+  const uint32_t key = s.drop ? fmix32(static_cast<uint32_t>(*s.seed)) : 0u;
+  uint32_t keep = 0u;
+  {
+    bf16* wd = p.ws_d + fo + static_cast<size_t>(f0) * HW;
+#pragma unroll
+    for (int i = 0; i < BWD_MAX_EF; ++i) {
+      if (i < ef) {
+        const int m = tm + i * TPI;
+        const int gr = i >> lipg;
+        const float xh = (xh2[i] - mean2[gr]) * rstd2[gr];
+        xh2[i] = xh;
+        float a = fmaxf(xh, 0.f);
+        if (s.drop) {
+          const uint32_t idx =
+              static_cast<uint32_t>(f0 + m) * static_cast<uint32_t>(s.b * HW) +
+              static_cast<uint32_t>(b * HW + tn);
+          if (fmix32((idx * 0x9E3779B1u) ^ key) >= s.thresh) {
+            keep |= 1u << i;
+            a *= s.scale;
+          } else {
+            a = 0.f;
+          }
+        }
+        wd[m * HW + tn] = __float2bfloat16(a);
+      }
+    }
+  }
+
+  // 3. dd = conv_2^T(g) of the F slice, through dropout, ReLU 2 and GN 2's
+  // backward: dh1t; d_td its sum over the tokens, unrounded
+  {
+    XLoader<NT> gl(s.f);
+    gl.load(smem, s.ldc, g);
+  }
+  zero_halo<NT>(smem, s.ldc, s.f);
+  zero_acc<NT>(acc);
+  run_chunks_bwd<NT, 9>(acc, p, q, q + s.f / CHUNK, CHUNK, ring, ring_ptr,
+                        act, brow, rank, wmf, wkf, nwkf);
+  __syncthreads();
+  store_partial<NT>(acc, part + wkf * tilef, wmf);
+  __syncthreads();
+  float v[BWD_MAX_EF];
+#pragma unroll
+  for (int i = 0; i < BWD_MAX_EF; ++i) {
+    v[i] = 0.f;
+    if (i < ef) {
+      const int m = tm + i * TPI;
+      float dd = sum_partials(part, m * LDP + tn, tilef, nwkf);
+      if (s.drop) dd = (keep >> i) & 1u ? dd * s.scale : 0.f;
+      v[i] = xh2[i] > 0.f ? dd : 0.f;
+    }
+  }
+  group_sums<BWD_MAX_EF>(v, xh2, ef, lipg, wsum);
+  __syncthreads();
+  group_totals(wsum, p.mb / s.gsz, gsum);
+  __syncthreads();
+  {
+    bf16* wdh = p.ws_dh + fo + static_cast<size_t>(f0) * HW;
+#pragma unroll
+    for (int i = 0; i < BWD_MAX_EF; ++i) {
+      if (i < ef) {
+        const int m = tm + i * TPI;
+        const int gr = i >> lipg;
+        const float dh = (v[i] - gsum[2 * gr] / ngrp -
+                          xh2[i] * (gsum[2 * gr + 1] / ngrp)) *
+                         rstd2[gr];
+        float t = dh;
+#pragma unroll
+        for (int off = L / 2; off > 0; off >>= 1)
+          t += __shfl_xor_sync(FULL_MASK, t, off);
+        if (lane % L == 0) tdp[(i * THREADS + threadIdx.x) / L] = t;
+        const bf16 r = __float2bfloat16(dh);
+        wdh[m * HW + tn] = r;
+        *reinterpret_cast<bf16*>(stage + (tn * sld + m) * 2) = r;
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < p.mb) {
+    float sum = 0.f;
+    for (int r = 0; r < HW / L; ++r) sum += tdp[threadIdx.x * (HW / L) + r];
+    p.dtd[static_cast<size_t>(b) * s.f + f0 + threadIdx.x] = sum;
+  }
+
+  // 4. conv_1^T's input: this block's slice of dh1t stored into every rank's
+  // conv input through distributed shared memory (16-byte pieces of 8
+  // channels of one token, as K5a's d); the halo zeroed again
+  const int pieces = HW * (p.mb / 8);
+  int reps = pieces < THREADS ? THREADS / pieces : 1;
+  reps = reps < BWD_CLUSTER ? reps : BWD_CLUSTER;
+  const int ranks = BWD_CLUSTER / reps;
+  const int r_lo = threadIdx.x / pieces * ranks;
+  const bool pusher = threadIdx.x < pieces * reps;
+  constexpr int MAXP = HW / 16;
+  uint4 dv[MAXP];
+#pragma unroll
+  for (int i = 0; i < MAXP; ++i) {
+    const int e = (reps > 1 ? threadIdx.x % pieces : threadIdx.x) +
+                  i * THREADS;
+    dv[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (pusher && e < pieces)
+      dv[i] = ld16(stage + ((e % HW) * sld + e / HW * 8) * 2);
+  }
+  cluster.sync();  // every block done with its conv input (g) and staging
+#pragma unroll
+  for (int i = 0; i < MAXP; ++i) {
+    const int e = (reps > 1 ? threadIdx.x % pieces : threadIdx.x) +
+                  i * THREADS;
+    if (pusher && e < pieces) {
+      unsigned char* at =
+          smem + (M::row(e % HW) * s.ldc + f0 + e / HW * 8) * 2;
+      for (int r = r_lo; r < r_lo + ranks; ++r)
+        *reinterpret_cast<uint4*>(cluster.map_shared_rank(at, r)) = dv[i];
+    }
+  }
+  zero_halo<NT>(smem, s.ldc, s.f);
+  cluster.sync();  // every slice of dh1t in place
+
+  // 5. da1 = conv_1^T(dh1t) of the C slice, through ReLU 1 and GN 1's
+  // backward, plus the residual: dx
+  zero_acc<NT>(acc);
+  run_chunks_bwd<NT, 9>(acc, p, q, q + s.f / CHUNK, CHUNK, ring, ring_ptr,
+                        act, brow, rank, wmc, wkc, nwkc);
+  __syncthreads();
+  store_partial<NT>(acc, part + wkc * tilec, wmc);
+  __syncthreads();
+  float u[BWD_MAX_EC];
+  float xh1[BWD_MAX_EC];
+  const int g1 = c0 / s.gsz;  // the block's first GN 1 group
+#pragma unroll
+  for (int i = 0; i < BWD_MAX_EC; ++i) {
+    u[i] = xh1[i] = 0.f;
+    if (i < ec) {
+      const int m = tm + i * TPI;
+      const int gr = g1 + (i >> lipg);
+      const float xh =
+          (__bfloat162float(x[(c0 + m) * HW + tn]) - mean1[gr]) * rstd1[gr];
+      xh1[i] = xh;
+      const float da = sum_partials(part, m * LDP + tn, tilec, nwkc);
+      u[i] = xh > 0.f ? da : 0.f;
+    }
+  }
+  group_sums<BWD_MAX_EC>(u, xh1, ec, lipg, wsum);
+  __syncthreads();
+  group_totals(wsum, p.cb / s.gsz, gsum);
+  __syncthreads();
+  bf16* dx = p.dx + xo + static_cast<size_t>(c0) * HW;
+#pragma unroll
+  for (int i = 0; i < BWD_MAX_EC; ++i) {
+    if (i < ec) {
+      const int m = tm + i * TPI;
+      const int gr = i >> lipg;
+      const float val = (u[i] - gsum[2 * gr] / ngrp -
+                         xh1[i] * (gsum[2 * gr + 1] / ngrp)) *
+                        rstd1[g1 + gr];
+      const float res =
+          p.w3t != nullptr
+              ? p.ws_res[xo + static_cast<size_t>(c0 + m) * HW + tn]
+              : __bfloat162float(g[(c0 + m) * HW + tn]);
+      dx[m * HW + tn] = __float2bfloat16(val + res);
+    }
+  }
+}
+
 int cluster_size(int b, int f) {
   const int target = b <= SMALL_BATCH ? MAX_CLUSTER : 8;
   return f / 16 < target ? f / 16 : target;
@@ -839,6 +1355,211 @@ TcParams shape_params(int b, int c, int f, int h, int w, int gsz) {
   return p;
 }
 
+// ---------------------------------------------------------------------------
+// K5b's weight gradients on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int WG_TILE = 32;      // output rows (f) and columns (c) a block
+constexpr int WG_LDB = WG_TILE + 8;  // the staged map's row (bf16)
+
+// One product of the weight gradients:
+//   dw[(f * cin + c) * taps + tap] = sum over b, t of
+//       a[b][f][t] * x[b][c][t + shift(tap)]   (0 where the tap leaves the map)
+// a (B, F, HW) and x (B, cin, HW) bf16; taps 9 (3x3) or 1.
+struct WgradTcJob {
+  const bf16* a;
+  const bf16* x;
+  float* dw;
+  int cin, taps;
+};
+
+struct WgradTcParams {
+  WgradTcJob job[3];  // dw1 (dh1t, a1), dw2 (g, d), dw3 (g, x)
+  int b, f;
+};
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr)
+      : "memory");
+}
+
+// The warp's products of one staged example: rows [wm*16, wm*16 + 16) of a
+// (sa, [32][HW + 8]) against channels [wn*8, wn*8 + 8) of x at each of the
+// TAPS taps (sb, [(H+2)(W+2)][WG_LDB], a zero halo), K = the example's HW
+// tokens in k16 steps. A: ldmatrix.x4 of a's rows; B: ldmatrix.x2.trans of
+// 16 tokens' rows of the map at the tap's row offset.
+template <int NT, int TAPS>
+__device__ __forceinline__ void wgrad_example(float (&acc)[9][4], uint32_t sa,
+                                              uint32_t sb, int wm, int wn) {
+  using M = Map<NT>;
+  constexpr int LDA = M::HW + 8;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int ks = 0; ks < M::HW / 16; ++ks) {
+    uint32_t a[4];
+    tc::ldsm(a, sa + ((wm * 16 + lane % 16) * LDA + ks * 16 +
+                      (lane / 16) * 8) * 2);
+    const uint32_t brow =
+        sb + (M::row(ks * 16 + lane % 16) * WG_LDB + wn * 8) * 2;
+#pragma unroll
+    for (int tap = 0; tap < TAPS; ++tap) {
+      const int shift =
+          TAPS == 9 ? (tap / 3 - 1) * M::WS + tap % 3 - 1 : 0;
+      uint32_t bf[2];
+      ldsm_x2_trans(bf, brow + shift * (WG_LDB * 2));
+      tc::mma(acc[tap], a, bf[0], bf[1]);
+    }
+  }
+}
+
+// K5b's weight gradients: blockIdx.z picks the product, the block a tile of
+// WG_TILE f x WG_TILE c; warp (wm, wn) of the 8 owns 16 f x 8 c at every
+// tap. The examples are summed in order inside the block (no atomics): each
+// is staged into shared memory (a's rows, and x's channels channel-last with
+// a zero halo) while the next one's loads are in flight in registers.
+template <int NT>
+__global__ void __launch_bounds__(THREADS)
+    fused_block_wgrad_tc(const WgradTcParams p) {
+  using M = Map<NT>;
+  constexpr int HW = M::HW;
+  constexpr int LDA = HW + 8;
+  constexpr int ROWS = (M::H + 2) * M::WS;
+  constexpr int APIECES = WG_TILE * HW / 8;  // 16-byte pieces of a's tile
+  __shared__ __align__(16) unsigned char sa_buf[WG_TILE * LDA * 2];
+  __shared__ __align__(16) unsigned char sb_buf[ROWS * WG_LDB * 2];
+  const WgradTcJob jb = p.job[blockIdx.z];
+  const int f0 = blockIdx.x * WG_TILE;
+  const int c0 = blockIdx.y * WG_TILE;
+  if (c0 >= jb.cin) return;  // the whole block
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wm = warp % 2;
+  const int wn = warp / 2;
+  zero_halo<NT>(sb_buf, WG_LDB, WG_TILE);
+  float acc[9][4];
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap)
+    acc[tap][0] = acc[tap][1] = acc[tap][2] = acc[tap][3] = 0.f;
+
+  const size_t astride = static_cast<size_t>(p.f) * HW;
+  const size_t xstride = static_cast<size_t>(jb.cin) * HW;
+  const bf16* a = jb.a + static_cast<size_t>(f0) * HW;
+  const bf16* x = jb.x + static_cast<size_t>(c0) * HW;
+  XLoader<NT> xl(WG_TILE);
+  uint4 av = make_uint4(0u, 0u, 0u, 0u);
+  const int ar = threadIdx.x / (HW / 8);        // a's row of this piece
+  const int ap = threadIdx.x % (HW / 8) * 8;    // and its first token
+  const bool aload = threadIdx.x < APIECES;
+  if (aload) av = __ldg(reinterpret_cast<const uint4*>(a + ar * HW + ap));
+  xl.fetch(x, threadIdx.x);
+  for (int bb = 0; bb < p.b; ++bb) {
+    __syncthreads();  // every warp done with the last example
+    if (aload) st16(sa_buf + (ar * LDA + ap) * 2, av);
+    xl.put(sb_buf, WG_LDB, threadIdx.x);
+    __syncthreads();
+    if (bb + 1 < p.b) {
+      if (aload)
+        av = __ldg(reinterpret_cast<const uint4*>(
+            a + (bb + 1) * astride + ar * HW + ap));
+      xl.fetch(x + (bb + 1) * xstride, threadIdx.x);
+    }
+    if (jb.taps == 9)
+      wgrad_example<NT, 9>(acc, tc::smem(sa_buf), tc::smem(sb_buf), wm, wn);
+    else
+      wgrad_example<NT, 1>(acc, tc::smem(sa_buf), tc::smem(sb_buf), wm, wn);
+  }
+  // rows f (g, g + 8), columns c (2t, 2t + 1) of each tap's tile
+  const int f = f0 + wm * 16 + lane / 4;
+  const int c = c0 + wn * 8 + 2 * (lane % 4);
+  const size_t down = static_cast<size_t>(8) * jb.cin * jb.taps;  // f + 8
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    if (tap < jb.taps) {
+      float* d =
+          jb.dw + (static_cast<size_t>(f) * jb.cin + c) * jb.taps + tap;
+      d[0] = acc[tap][0];
+      d[jb.taps] = acc[tap][1];
+      d[down] = acc[tap][2];
+      d[down + jb.taps] = acc[tap][3];
+    }
+  }
+}
+
+// K5b's tensor-core plan (nn/fused_block.py _bwd_tc_plan mirrors it): fills
+// the slices, the ring and the layout and returns the shared-memory bytes, 0
+// if the kernel does not take the shape.
+size_t bwd_tc_plan(BwdParams& p) {
+  TcParams& t = p.t;
+  const auto pow2 = [](int v) { return v > 0 && (v & (v - 1)) == 0; };
+  t.hw = t.h * t.w;
+  if (t.h != t.w || (t.h != 8 && t.h != 4) || !pow2(t.c) || !pow2(t.f) ||
+      t.c < 16 * BWD_CLUSTER || t.f < 16 * BWD_CLUSTER ||
+      t.c > 128 * BWD_CLUSTER || t.f > 128 * BWD_CLUSTER || !pow2(t.gsz) ||
+      t.b <= 0 || t.b > 65535)
+    return 0;
+  t.nc = BWD_CLUSTER;
+  p.mb = t.f / BWD_CLUSTER;
+  p.cb = t.c / BWD_CLUSTER;
+  if (t.gsz > p.mb || t.gsz > p.cb || t.gsz * t.hw < THREADS || t.gsz < 8 ||
+      p.mb * t.hw > BWD_MAX_EF * THREADS || p.cb * t.hw > BWD_MAX_EC * THREADS)
+    return 0;
+  p.rows = p.mb > p.cb ? p.mb : p.cb;
+  p.ck3 = t.f < 256 ? t.f : 256;
+  t.ldc = (t.c > t.f ? t.c : t.f) + 8;
+  const size_t ldp = static_cast<size_t>(t.hw + PART_PAD);
+  const size_t act = static_cast<size_t>(t.h + 2) * (t.w + 2) * t.ldc * 2;
+  const size_t sf =
+      static_cast<size_t>(WARPS / (p.mb / 16) + 1) * p.mb * ldp * 4;
+  const size_t sc = static_cast<size_t>(WARPS / (p.cb / 16)) * p.cb * ldp * 4;
+  size_t region = act > sf ? act : sf;
+  region = ((region > sc ? region : sc) + 15) / 16 * 16;
+  const size_t ring = static_cast<size_t>(RING_SLOTS) * p.rows * RING_ROW * 2;
+  const int groups = p.rows / t.gsz;
+  const int runs = p.mb * t.hw / (t.hw < 32 ? t.hw : 32);
+  const size_t stats =
+      (static_cast<size_t>(2 * (t.c / t.gsz) + 2 * (p.mb / t.gsz) +
+                           2 * WARPS * groups + 2 * groups + p.mb + runs) *
+           4 +
+       15) / 16 * 16;
+  p.off_ring = static_cast<int>(region);
+  p.off_stats = static_cast<int>(region + ring);
+  const size_t bytes = region + ring + stats;
+  return bytes <= MAX_SMEM ? bytes : 0;
+}
+
+bool bwd_prepared[2][64];
+
+template <int NT>
+cudaError_t launch_bwd(const BwdParams& p, size_t smem, cudaStream_t stream) {
+  cudaError_t err = prepare(fused_block_bwd_tc<NT>, bwd_prepared[NT == 8]);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  launch_config(cfg, attr, p.t, smem, stream);
+  err = cudaLaunchKernelEx(&cfg, fused_block_bwd_tc<NT>, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t occupancy_bwd(const BwdParams& p, size_t smem, int* blocks,
+                          int* clusters) {
+  cudaError_t err = prepare(fused_block_bwd_tc<NT>, bwd_prepared[NT == 8]);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, fused_block_bwd_tc<NT>, THREADS, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  launch_config(cfg, attr, p.t, smem, nullptr);
+  return cudaOccupancyMaxActiveClusters(clusters, fused_block_bwd_tc<NT>,
+                                        &cfg);
+}
+
 }  // namespace
 
 extern "C" int bla_fused_block_fwd_tc(int b, int c, int f, int h, int w,
@@ -880,6 +1601,101 @@ extern "C" int bla_fused_block_tc_info(int b, int c, int f, int h, int w,
   out[1] = static_cast<int>(smem);
   return p.hw == 64 ? occupancy<8>(p, smem, out + 2, out + 3)
                     : occupancy<2>(p, smem, out + 2, out + 3);
+}
+
+extern "C" int bla_fused_block_bwd_tc(
+    int b, int c, int f, int h, int w, int gsz, const void* x, const void* td,
+    const void* w1, const void* w2t, const void* w1t, const void* w3t,
+    const void* seed, const void* g, void* dx, void* dtd, void* ws_a1,
+    void* ws_d, void* ws_dh, void* ws_res, int drop, uint32_t thresh,
+    float scale, float eps, void* stream) {
+  BwdParams p = {};
+  p.t = shape_params(b, c, f, h, w, gsz);
+  const size_t smem = bwd_tc_plan(p);
+  if (smem == 0 || (w3t != nullptr && ws_res == nullptr))
+    return cudaErrorInvalidValue;
+  const void* ptrs[6] = {x, w1, w2t, w1t, w3t, g};
+  for (const void* q : ptrs)
+    if (reinterpret_cast<uintptr_t>(q) % 16) return cudaErrorMisalignedAddress;
+  p.t.x = static_cast<const bf16*>(x);
+  p.t.td = static_cast<const bf16*>(td);
+  p.t.w1 = static_cast<const bf16*>(w1);
+  p.t.seed = static_cast<const int*>(seed);
+  p.t.drop = drop;
+  p.t.thresh = thresh;
+  p.t.scale = scale;
+  p.t.eps = eps;
+  p.g = static_cast<const bf16*>(g);
+  p.w2t = static_cast<const bf16*>(w2t);
+  p.w1t = static_cast<const bf16*>(w1t);
+  p.w3t = static_cast<const bf16*>(w3t);
+  p.dx = static_cast<bf16*>(dx);
+  p.dtd = static_cast<float*>(dtd);
+  p.ws_a1 = static_cast<bf16*>(ws_a1);
+  p.ws_d = static_cast<bf16*>(ws_d);
+  p.ws_dh = static_cast<bf16*>(ws_dh);
+  p.ws_res = static_cast<float*>(ws_res);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return p.t.hw == 64 ? launch_bwd<8>(p, smem, st)
+                      : launch_bwd<2>(p, smem, st);
+}
+
+// K5b's tensor-core weight gradients from the data-gradient kernel's bf16
+// workspaces (a1, d, dh1t; B x channels x H*W), g and x: dw1 (F, C, 3, 3),
+// dw2 (F, F, 3, 3) and, where dw3 is not null, dw3 (F, C) in f32. Takes C
+// and F multiples of WG_TILE on 8x8 and 4x4 maps; every operand 16-byte
+// aligned.
+extern "C" int bla_fused_block_wgrad_tc(int b, int c, int f, int h, int w,
+                                        const void* ws_a1, const void* ws_d,
+                                        const void* ws_dh, const void* g,
+                                        const void* x, void* dw1, void* dw2,
+                                        void* dw3, void* stream) {
+  if (h != w || (h != 8 && h != 4) || b <= 0 || b > 65535 || c <= 0 ||
+      f <= 0 || c % WG_TILE || f % WG_TILE)
+    return cudaErrorInvalidValue;
+  const void* ptrs[5] = {ws_a1, ws_d, ws_dh, g, x};
+  for (const void* q : ptrs)
+    if (reinterpret_cast<uintptr_t>(q) % 16) return cudaErrorMisalignedAddress;
+  WgradTcParams p = {};
+  p.b = b;
+  p.f = f;
+  p.job[0] = {static_cast<const bf16*>(ws_dh), static_cast<const bf16*>(ws_a1),
+              static_cast<float*>(dw1), c, 9};
+  p.job[1] = {static_cast<const bf16*>(g), static_cast<const bf16*>(ws_d),
+              static_cast<float*>(dw2), f, 9};
+  p.job[2] = {static_cast<const bf16*>(g), static_cast<const bf16*>(x),
+              static_cast<float*>(dw3), c, 1};
+  const dim3 grid(f / WG_TILE, (c > f ? c : f) / WG_TILE,
+                  dw3 != nullptr ? 3 : 2);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (h == 8)
+    fused_block_wgrad_tc<8><<<grid, THREADS, 0, st>>>(p);
+  else
+    fused_block_wgrad_tc<2><<<grid, THREADS, 0, st>>>(p);
+  return cudaGetLastError();
+}
+
+// Blocks per SM of the tensor-core weight-gradient kernel for an h x h map
+// (out[0]); returns 0, -1 for a map it does not take, else a CUDA error.
+extern "C" int bla_fused_block_wgrad_tc_info(int h, int* out) {
+  if (h != 8 && h != 4) return -1;
+  return h == 8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      out, fused_block_wgrad_tc<8>, THREADS, 0)
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      out, fused_block_wgrad_tc<2>, THREADS, 0);
+}
+
+// K5b's tensor-core plan and occupancy, as bla_fused_block_tc_info.
+extern "C" int bla_fused_block_bwd_tc_info(int b, int c, int f, int h, int w,
+                                           int gsz, int* out) {
+  BwdParams p = {};
+  p.t = shape_params(b, c, f, h, w, gsz);
+  const size_t smem = bwd_tc_plan(p);
+  if (smem == 0) return -1;
+  out[0] = p.t.nc;
+  out[1] = static_cast<int>(smem);
+  return p.t.hw == 64 ? occupancy_bwd<8>(p, smem, out + 2, out + 3)
+                      : occupancy_bwd<2>(p, smem, out + 2, out + 3);
 }
 
 #ifdef BLA_K5A_STAMPS

@@ -919,7 +919,8 @@ def run(num_predictions: int = 1, flags=None) -> None:
         print(f"wrote {path}")
 
 
-_PARALLEL = "the parallel modes are not ported yet (ROADMAP Queue 1 item 11)"
+_PARALLEL = ("the parallel modes are not ported yet (ROADMAP Queue 1, the "
+             "parallel-modes item)")
 _DISPATCH = ("an XLA dispatch mode; the port runs one eager step per batch "
              "(a CUDA graph over a step is later work)")
 

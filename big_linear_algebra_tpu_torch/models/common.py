@@ -91,10 +91,8 @@ def parse_flags(argv: List[str]):
 _BASE_FLAGS = frozenset({"profile", "device"})
 
 # JAX-package flags with no port yet: rejected with the reason.
-_NOT_PORTED = {
-    "debug-nans": "not ported yet (ROADMAP Queue 1 item 10: utils/debug.py)",
-    "disable-jit": "not ported yet (ROADMAP Queue 1 item 10: utils/debug.py)",
-}
+_DEBUG = "not ported yet (ROADMAP Queue 1, the debug item: utils/debug.py)"
+_NOT_PORTED = {"debug-nans": _DEBUG, "disable-jit": _DEBUG}
 
 
 def positive_int_flag(flags, name: str) -> int:

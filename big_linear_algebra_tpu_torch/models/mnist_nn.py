@@ -223,8 +223,8 @@ def main(argv=None) -> int:
     return common.run_cli(
         "mnist_nn", init, train, run, argv=argv,
         unsupported_flags={
-            "dp": "data parallelism is not ported yet (ROADMAP Queue 1 "
-                  "item 11)",
+            "dp": "data parallelism is not ported yet (ROADMAP Queue 1, "
+                  "the parallel-modes item)",
             "per-batch": "train is not ported yet",
             "batch": "train is not ported yet",
             "scan-unroll": "train is not ported yet",

@@ -17,10 +17,16 @@ change.
   kernel (``csrc/fused_block_tc.cu``); f32, and bf16 shapes it does not
   take (the TINY blocks), to the FMA kernel (``csrc/fused_block.cu``),
   which keeps f32 true f32. The backward launches K5b (the TPU's
-  recompute backward ``_fused_bwd_kernel``, ``csrc/fused_block.cu``): its
-  data-gradient kernel, which recomputes the forward, then its
-  weight-gradient kernel, which sums the per-example products over the
-  batch. On a CPU tensor the plain versions ``_plain_fused_fwd`` and
+  recompute backward ``_fused_bwd_kernel``) as two kernels on one of two
+  routes, by a fixed rule (``_bwd_route``): bf16 shapes that
+  ``_bwd_tc_plan`` admits (every block of the full-width train step) go to
+  the tensor-core kernels of ``csrc/fused_block_tc.cu``; f32, and the TINY
+  blocks, to the FMA kernels of ``csrc/fused_block.cu``. First its
+  data-gradient kernel, which recomputes the forward and leaves the
+  rounded a1, d and dh1t of every example in workspaces (bf16 on the
+  tensor-core route, f32 on the FMA route), then its weight-gradient
+  kernel, which sums the per-example products over the batch. On a CPU
+  tensor the plain versions ``_plain_fused_fwd`` and
   ``_plain_fused_bwd`` run. On a CUDA tensor a kernel launches or the call
   raises: there is no fallback.
 - Only (x, td, w1, w2, w3, seed) are saved; the backward recomputes the
@@ -63,14 +69,16 @@ from big_linear_algebra_tpu_torch.ops.precision import accum_dtype
 _VMEM_LIMIT = 96 * 1024 * 1024
 _GOLDEN = 0x9E3779B1
 
-# Kernel launches since import (or since a caller last set them to 0): K5a
-# (both routes), K5b's data-gradient kernel and K5b's weight-gradient
-# kernel, each counted only where it is launched; and K5a's launches on the
-# tensor-core route alone.
+# Kernel launches since import (or since a caller last set them to 0): K5a,
+# K5b's data-gradient kernel and K5b's weight-gradient kernel (each on both
+# routes), each counted only where it is launched; and the launches of each
+# on the tensor-core route alone.
 launch_count = 0
 bwd_launch_count = 0
 wgrad_launch_count = 0
 tc_launch_count = 0
+bwd_tc_launch_count = 0
+wgrad_tc_launch_count = 0
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # What csrc/fused_block.cu takes (its THREADS, MAX_OUT, IC, the shared
@@ -92,6 +100,12 @@ _TC_CHUNK = 32
 _TC_RING_ROW = 296
 _TC_RING_SLOTS = 3
 _TC_PART_PAD = 4
+# What the tensor-core data-gradient kernel of K5b takes (the constants of
+# csrc/fused_block_tc.cu of the same names, BWD_*): clusters of 8 blocks;
+# each thread holds at most 8 values of GN 2's x̂ and 16 of the C slice.
+_BWD_TC_CLUSTER = 8
+_BWD_TC_MAX_EF = 8
+_BWD_TC_MAX_EC = 16
 
 
 def supported(x_shape, in_ch: int, out_ch: int, k: int, group_size: int,
@@ -386,6 +400,85 @@ def _fwd_route(dtype, b, c, f, h, w, k, gsz) -> str:
     return "fma"
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_tc_plan(b, c, f, h, w, k, gsz) -> Tuple[int, int]:
+    """(cluster size, shared-memory bytes) of K5b's tensor-core
+    data-gradient kernel (``csrc/fused_block_tc.cu`` ``bwd_tc_plan``) for
+    one example's block; raises on a shape it does not take: 3x3 convs on
+    8×8 or 4×4 maps, channels and group size powers of two. A cluster of 8
+    blocks shares an example: block r owns output channels [r·mb, (r+1)·mb)
+    of h1t, dd and dh1t (mb = F/8) and input channels [r·cb, (r+1)·cb) of
+    da1 and dx (cb = C/8), each 16 to 128 channels and a whole number of GN
+    groups, so that every GN sum stays in one block; a pass of the block's
+    256 threads over a slice lies in one group (group size · H·W ≥ 256); a
+    thread holds at most 8 of GN 2's x̂ (mb·H·W ≤ 2048) and 16 values of the
+    C slice (cb·H·W ≤ 4096)."""
+    def pow2(v):
+        return v > 0 and v & (v - 1) == 0
+
+    hw = h * w
+    nc = _BWD_TC_CLUSTER
+    mb, cb = f // nc, c // nc
+    warps = _TC_THREADS // 32
+    why = None
+    if k != 3:
+        why = f"3x3 convs, got {k}x{k}"
+    elif h != w or h not in (4, 8):
+        why = f"8x8 or 4x4 maps, got {h}x{w}"
+    elif not (pow2(c) and pow2(f) and 16 * nc <= min(c, f)
+              and max(c, f) <= 128 * nc):
+        why = (f"channels powers of two from {16 * nc} to {128 * nc}, got "
+               f"{c} -> {f}")
+    elif not (pow2(gsz) and gsz <= min(mb, cb)
+              and gsz * hw >= _TC_THREADS and gsz >= 8):
+        why = (f"groups of a power of two of channels within a block's "
+               f"{min(mb, cb)} and of at least {max(8, _TC_THREADS // hw)}, "
+               f"got {gsz}")
+    elif (mb * hw > _BWD_TC_MAX_EF * _TC_THREADS
+          or cb * hw > _BWD_TC_MAX_EC * _TC_THREADS):
+        why = (f"at most {_BWD_TC_MAX_EF * _TC_THREADS} of F's and "
+               f"{_BWD_TC_MAX_EC * _TC_THREADS} of C's values a block, got "
+               f"{mb * hw} and {cb * hw}")
+    elif not 0 < b <= 65535:
+        why = f"1 <= B <= 65535, got {b}"
+    if why is not None:
+        raise ValueError(f"fused_resnet_block: the tensor-core backward "
+                         f"takes {why}")
+    # the conv input (or, on the same bytes, the warps' partial tiles and
+    # the staged dh1t), the weight ring of max(mb, cb) rows, then the GN
+    # statistics, the warps' group sums, td and d_td's partial sums
+    ldp = hw + _TC_PART_PAD
+    act = (h + 2) * (w + 2) * (max(c, f) + 8) * 2
+    scratch = max((warps // (mb // 16) + 1) * mb * ldp * 4,
+                  warps // (cb // 16) * cb * ldp * 4)
+    groups = max(mb, cb) // gsz
+    stats = (2 * (c // gsz) + 2 * (mb // gsz) + 2 * warps * groups
+             + 2 * groups + mb + mb * hw // min(hw, 32))
+    smem = (-(-max(act, scratch) // 16) * 16
+            + _TC_RING_SLOTS * max(mb, cb) * _TC_RING_ROW * 2
+            + -(-stats * 4 // 16) * 16)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"fused_resnet_block: {smem} bytes of shared memory "
+                         f"exceed {_MAX_SMEM}")
+    return nc, smem
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_route(dtype, b, c, f, h, w, k, gsz) -> str:
+    """K5b's route, a fixed rule: "tc" (the tensor-core kernels) for bf16
+    shapes ``_bwd_tc_plan`` admits, else "fma" (``csrc/fused_block.cu``'s
+    kernels, which keep f32 true f32); raises on a shape neither takes. The
+    weight gradients follow the data gradients' route."""
+    if dtype == torch.bfloat16:
+        try:
+            _bwd_tc_plan(b, c, f, h, w, k, gsz)
+            return "tc"
+        except ValueError:
+            pass
+    _plan(b, c, f, h, w, k, gsz)
+    return "fma"
+
+
 def _check_kernel_operands(what, *tensors) -> None:
     x = tensors[0]
     if x.dtype not in _KERNEL_DTYPES or any(
@@ -423,7 +516,8 @@ def _kernel_operands(what, x, td, w1, w2, w3, seed, gsz, rate, train, bits,
     launch's leading arguments: (operands, seed tensor, shape args, dropout
     args without the stream). The shape args are those of the FMA kernels
     (``_plan``'s cluster size last), or with ``route`` "tc" those of the
-    tensor-core K5a, whose operands are also made 16-byte aligned."""
+    tensor-core kernels (b, c, f, h, w, group size; the caller checks its
+    plan), whose operands are also made 16-byte aligned."""
     if bits is not None:
         raise ValueError(f"{what}: the kernels draw their own dropout bits; "
                          "caller bits are for the plain version on the CPU")
@@ -432,12 +526,11 @@ def _kernel_operands(what, x, td, w1, w2, w3, seed, gsz, rate, train, bits,
     ops = [fix(a) for a in (x, td, w1, w2)]
     ops.append(None if w3 is None else fix(w3))
     if g is not None:
-        ops.append(g.to(dt).contiguous())
+        ops.append(fix(g.to(dt)))
     _check_kernel_operands(what, *(a for a in ops if a is not None))
     b, c, h, w = x.shape
     f, _, k, _ = w1.shape
     if route == "tc":
-        _tc_plan(b, c, f, h, w, k, gsz)
         args = [b, c, f, h, w, gsz]
     else:
         nc, _ = _plan(b, c, f, h, w, k, gsz)
@@ -464,11 +557,13 @@ def _kernel_fused_fwd(x, td, w1, w2, w3, seed, gsz, rate, train, eps,
     (x, td, w1, w2, w3), seed, args, drop = _kernel_operands(
         "fused_resnet_block", x, td, w1, w2, w3, seed, gsz, rate, train,
         bits, route=route)
-    if route == "tc" and x.dtype != torch.bfloat16:
-        raise TypeError("fused_resnet_block: the tensor-core K5a takes bf16 "
-                        f"operands, got {x.dtype}")
     b, c, h, w = x.shape
     f = w1.shape[0]
+    if route == "tc":
+        if x.dtype != torch.bfloat16:
+            raise TypeError("fused_resnet_block: the tensor-core K5a takes "
+                            f"bf16 operands, got {x.dtype}")
+        _tc_plan(b, c, f, h, w, w1.shape[-1], gsz)
     out = torch.empty((b, f, h, w), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if route == "tc":
@@ -493,46 +588,123 @@ def _kernel_fused_fwd(x, td, w1, w2, w3, seed, gsz, rate, train, eps,
     return out
 
 
+def _flipped_t(w: torch.Tensor) -> torch.Tensor:
+    """(O, I, k, k) → (I, O, k, k), the taps flipped: a stride-1 "same"
+    conv with them is the transposed conv with ``w`` (the JAX wrapper's
+    ``_taps_t``), contiguous."""
+    return w.flip(2, 3).transpose(0, 1).contiguous()
+
+
+def _kernel_bwd_data(x, td, w1, w2, w3, seed, gsz, rate, train, eps, g,
+                     bits=None, route=None):
+    """K5b's data-gradient kernel on CUDA tensors, on the route
+    ``_bwd_route`` gives ("tc": ``csrc/fused_block_tc.cu``, from w1 and the
+    flipped, transposed copies of w2, w1 and w3; "fma":
+    ``csrc/fused_block.cu``), or the one ``route`` names (to time both on
+    one input) → (dx in the block's dtype, d_td in f32, work), where work
+    holds what the weight-gradient kernel reads: (x, g, and the rounded a1,
+    d and dh1t of every example in workspaces, bf16 on the tensor-core
+    route and f32 on the FMA route)."""
+    global bwd_launch_count, bwd_tc_launch_count
+    b, c, h, w = x.shape
+    f, _, k, _ = w1.shape
+    if route is None:
+        route = _bwd_route(torch.promote_types(x.dtype, w1.dtype), b, c, f,
+                           h, w, k, gsz)
+    if route not in ("tc", "fma"):
+        raise ValueError(f"fused_resnet_block: no K5b route {route!r}")
+    (x, td, w1, w2, w3, g), seed, args, drop = _kernel_operands(
+        "fused_resnet_block backward", x, td, w1, w2, w3, seed, gsz, rate,
+        train, bits, g, route=route)
+    dev = x.device
+    f32 = torch.float32
+    dx = torch.empty_like(x)
+    dtd = torch.empty((b, f), dtype=f32, device=dev)
+    ws = [torch.empty((b, n, h * w), device=dev,
+                      dtype=torch.bfloat16 if route == "tc" else f32)
+          for n in (c, f, f)]  # a1, d, dh1t
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "tc":
+        if x.dtype != torch.bfloat16:
+            raise TypeError("fused_resnet_block backward: the tensor-core "
+                            f"kernel takes bf16 operands, got {x.dtype}")
+        _bwd_tc_plan(b, c, f, h, w, k, gsz)
+        w1t, w2t = _flipped_t(w1), _flipped_t(w2)
+        w3t = None if w3 is None else _flipped_t(w3)
+        # w3ᵀ·g of the examples, f32, read back by the thread that wrote it
+        res = None if w3 is None else torch.empty((b, c, h * w), dtype=f32,
+                                                  device=dev)
+        lib = cuda_utils.load_library("fused_block_tc")
+        fn = _function(lib, "bla_fused_block_bwd_tc",
+                       _TC_SHAPE + [_P] * 14 + _DROP)
+        with torch.cuda.device(dev):
+            rc = fn(*args, _ptr(x), _ptr(td), _ptr(w1), _ptr(w2t),
+                    _ptr(w1t), _ptr(w3t), _ptr(seed), _ptr(g), _ptr(dx),
+                    _ptr(dtd), *(_ptr(a) for a in ws), _ptr(res), *drop, eps,
+                    stream)
+        cuda_utils.check(lib, rc, "fused_resnet_block tensor-core K5b launch")
+        bwd_tc_launch_count += 1
+    else:
+        lib = cuda_utils.load_library("fused_block")
+        fn = _function(lib, "bla_fused_block_bwd", _SHAPE + [_P] * 12 + _DROP)
+        with torch.cuda.device(dev):
+            rc = fn(*args, _ptr(x), _ptr(td), _ptr(w1), _ptr(w2), _ptr(w3),
+                    _ptr(seed), _ptr(g), _ptr(dx), _ptr(dtd),
+                    *(_ptr(a) for a in ws), *drop, eps, stream)
+        cuda_utils.check(lib, rc, "fused_resnet_block K5b launch")
+    bwd_launch_count += 1
+    return dx, dtd, (x, g, *ws)
+
+
+def _kernel_bwd_wgrad(work, k: int, has_w3: bool):
+    """K5b's weight-gradient kernel on what the data-gradient kernel left
+    (``work``), on that kernel's route: bf16 workspaces (the tensor-core
+    route) go to ``csrc/fused_block_tc.cu``'s tensor-core kernel, f32 ones
+    to ``csrc/fused_block.cu``'s FMA kernel → (dw1, dw2, dw3 or None) in
+    f32, summed over the batch in a fixed order."""
+    global wgrad_launch_count, wgrad_tc_launch_count
+    x, g, ws_a1, ws_d, ws_dh = work
+    b, c, h, w = x.shape
+    f = ws_d.shape[1]
+    dev = x.device
+    dw1 = torch.empty((f, c, k, k), dtype=torch.float32, device=dev)
+    dw2 = torch.empty((f, f, k, k), dtype=torch.float32, device=dev)
+    dw3 = (torch.empty((f, c, 1, 1), dtype=torch.float32, device=dev)
+           if has_w3 else None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if ws_d.dtype == torch.bfloat16:
+        lib = cuda_utils.load_library("fused_block_tc")
+        fn = _function(lib, "bla_fused_block_wgrad_tc", [_I] * 5 + [_P] * 9)
+        with torch.cuda.device(dev):
+            rc = fn(b, c, f, h, w, _ptr(ws_a1), _ptr(ws_d), _ptr(ws_dh),
+                    _ptr(g), _ptr(x), _ptr(dw1), _ptr(dw2), _ptr(dw3),
+                    stream)
+        cuda_utils.check(lib, rc, "fused_resnet_block tensor-core K5b "
+                                  "weight-gradient launch")
+        wgrad_tc_launch_count += 1
+    else:
+        lib = cuda_utils.load_library("fused_block")
+        fn = _function(lib, "bla_fused_block_wgrad", [_I] * 7 + [_P] * 9)
+        with torch.cuda.device(dev):
+            rc = fn(_KERNEL_DTYPES[x.dtype], b, c, f, h, w, k, _ptr(x),
+                    _ptr(g), _ptr(ws_a1), _ptr(ws_d), _ptr(ws_dh), _ptr(dw1),
+                    _ptr(dw2), _ptr(dw3), stream)
+        cuda_utils.check(lib, rc, "fused_resnet_block K5b weight-gradient "
+                                  "launch")
+    wgrad_launch_count += 1
+    return dw1, dw2, dw3
+
+
 def _kernel_fused_bwd(x, td, w1, w2, w3, seed, gsz, rate, train, eps, g,
                       bits=None):
     """K5b on CUDA tensors: its data-gradient kernel (dx, d_td, and the
     rounded a1, d and dh1t of every example into workspaces), then its
     weight-gradient kernel (dw1, dw2, dw3 summed over the batch in a fixed
     order) → (dx, d_td, dw1, dw2, dw3 or None) in the inputs' dtypes."""
-    global bwd_launch_count, wgrad_launch_count
     dtypes = [a if a is None else a.dtype for a in (x, td, w1, w2, w3)]
-    (x, td, w1, w2, w3, g), seed, args, drop = _kernel_operands(
-        "fused_resnet_block backward", x, td, w1, w2, w3, seed, gsz, rate,
-        train, bits, g)
-    b, c, h, w = x.shape
-    f, _, k, _ = w1.shape
-    dev = x.device
-    f32 = torch.float32
-    dx = torch.empty_like(x)
-    dtd = torch.empty((b, f), dtype=f32, device=dev)
-    ws_a1 = torch.empty((b, c, h * w), dtype=f32, device=dev)
-    ws_d = torch.empty((b, f, h * w), dtype=f32, device=dev)
-    ws_dh = torch.empty((b, f, h * w), dtype=f32, device=dev)
-    dw1 = torch.empty((f, c, k, k), dtype=f32, device=dev)
-    dw2 = torch.empty((f, f, k, k), dtype=f32, device=dev)
-    dw3 = None if w3 is None else torch.empty((f, c, 1, 1), dtype=f32,
-                                              device=dev)
-    lib = cuda_utils.load_library("fused_block")
-    bwd = _function(lib, "bla_fused_block_bwd", _SHAPE + [_P] * 12 + _DROP)
-    wgrad = _function(lib, "bla_fused_block_wgrad",
-                      [_I] * 7 + [_P] * 9)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = bwd(*args, _ptr(x), _ptr(td), _ptr(w1), _ptr(w2), _ptr(w3),
-                 _ptr(seed), _ptr(g), _ptr(dx), _ptr(dtd), _ptr(ws_a1),
-                 _ptr(ws_d), _ptr(ws_dh), *drop, eps, stream)
-        cuda_utils.check(lib, rc, "fused_resnet_block K5b launch")
-        bwd_launch_count += 1
-        rc = wgrad(*args[:7], _ptr(x), _ptr(g), _ptr(ws_a1), _ptr(ws_d),
-                   _ptr(ws_dh), _ptr(dw1), _ptr(dw2), _ptr(dw3), stream)
-    cuda_utils.check(lib, rc, "fused_resnet_block K5b weight-gradient "
-                              "launch")
-    wgrad_launch_count += 1
+    dx, dtd, work = _kernel_bwd_data(x, td, w1, w2, w3, seed, gsz, rate,
+                                     train, eps, g, bits)
+    dw1, dw2, dw3 = _kernel_bwd_wgrad(work, w1.shape[-1], w3 is not None)
     return (dx.to(dtypes[0]), dtd.to(dtypes[1]), dw1.to(dtypes[2]),
             dw2.to(dtypes[3]), None if dw3 is None else dw3.to(dtypes[4]))
 

@@ -82,12 +82,21 @@ Phases, one line each (or a few), in the order 1–7, 16–18, 11–15, 8–10,
    plan chooses (B = 1, 4, 5, 16; 8x8 and 4x4; C = 256 and 512 -> 256
    with w3), its plan equal to the C side's, two runs bit-equal; its
    registers, shared memory, spills, blocks per SM, clusters resident at
-   once and HMMA count, failing on a spill or on no HMMA;
+   once and HMMA count, failing on a spill or on no HMMA; then K5b with its
+   data gradients on the tensor-core route, bf16 x train on/off at (16,
+   256, 8x8), (16, 512 -> 256, 4x4), (1, 512 -> 256, 8x8), (16, 256, 4x4),
+   (5, 512 -> 256, 8x8) and (1, 256, 8x8), every output within 2e-2 of
+   max|ref| of ``_plain_fused_bwd``, every case on that route, its plan
+   equal to the C side's, two runs bit-equal, and the same build record;
 12. K5 timing: K5a on both routes (the FMA route forced on the same bf16
    input) and K5b beside the plain versions and the port's unfused block
    (cuDNN convs, GN), at the train step's and the sampler's 8x8 blocks and
    at 15 examples, with the bounds, the tensor-core plan's split and grid,
-   and host time per call;
+   and host time per call; then K5b's two kernels apart at the train
+   step's three blocks (bf16, train): its data-gradient kernel on the
+   tensor cores and on the FMA route forced on the same input, its
+   weight-gradient kernel beside ``torch.nn.grad.conv2d_weight``, with
+   each kernel's bound and host time per call;
 13. ``cifar_unet run 1 --fused-block`` at 32x32 (full width, 1000 DDPM
    steps) from phase 6's checkpoint, with K5a's launches read around it,
    every one on the tensor-core route; a non-constant 32x32 BMP;
@@ -95,15 +104,21 @@ Phases, one line each (or a few), in the order 1–7, 16–18, 11–15, 8–10,
    against the same forward unfused (bounded) and f64 (reported); one
    bf16 forward with the fused blocks (the tensor-core K5a) against the
    bf16 forward unfused (bounded by twice the unfused one's distance from
-   f64); then one f32 train-mode gradient at batch 16: K5b against the
-   plain backward on every fused block's operands (bounded), the
-   gradient's leaves against the one with the plain backward at those
-   blocks (reported);
+   f64); then one f32 train-mode gradient at batch 16 (K5b's data
+   gradients on the FMA route): K5b against the plain backward on every
+   fused block's operands (bounded), the gradient's leaves against the one
+   with the plain backward at those blocks (reported); then one bf16
+   train-mode gradient at batch 16, K5b (its data gradients on the
+   tensor-core route) within 2e-2 of max|ref| of the plain backward on
+   every fused block's operands;
 15. ``cifar_unet train 1 --fused-block --max-steps=30`` at batch 16 (9
    fused blocks: up_2 resnet_1 fails the gate) with the launches of K5a
-   and K5b read around it, every K5a on the tensor-core route; finite
-   losses, the last 10 steps' mean below the first 10's; then one resumed
-   step;
+   and K5b read around it, every K5a and every K5b data-gradient launch on
+   the tensor-core route; finite losses, the last 10 steps' mean below the
+   first 10's; then one resumed step; then one bf16 train step at that
+   configuration profiled (``torch.profiler``, ``trace_summary.py``): the
+   card's busy share and K5b's share of the device time, with the data
+   gradients on their route and on the FMA route forced, in turns;
 16. K4 against plain, on the card: ``conv2d_implicit`` and
    ``conv2d_packed`` (forward and dx, two launches each) against the plain
    tap sum, f32/bf16 at the U-Net's 3x3 maps at batch 16 (32x32 to 4x4) and
@@ -145,6 +160,7 @@ import contextlib
 import ctypes
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -261,6 +277,16 @@ K5_TC_SHAPES = [(1, 256, 256, 8, 8, 32), (1, 256, 256, 4, 4, 32),
                 (16, 512, 256, 8, 8, 32)]
 # one example fewer than the train step: 15 clusters of 8 blocks
 K5_WAVE = (15, 256, 256, 8, 8, 32)
+# K5b's tensor-core data-gradient kernel's own bf16 cases (train on/off):
+# K5_SHAPES' bf16 full-width cases, the train step's 4x4 block, up_2
+# resnet_1 at 5 examples and the 8x8 block at one
+K5B_TC_SHAPES = [(16, 256, 256, 8, 8, 32), (16, 512, 256, 4, 4, 32),
+                 (1, 512, 256, 8, 8, 32), (16, 256, 256, 4, 4, 32),
+                 (5, 512, 256, 8, 8, 32), (1, 256, 256, 8, 8, 32)]
+# K5b's two kernels timed apart, bf16 train: the train step's blocks (8x8,
+# 4x4, and up_1 resnet_1's 512 -> 256 at 4x4 with w3)
+K5B_TIMED = [(16, 256, 256, 8, 8, 32), (16, 256, 256, 4, 4, 32),
+             (16, 512, 256, 4, 4, 32)]
 K5_RATE = 0.1  # Config.dropout_rate
 FUSED_TRAIN_STEPS = 30
 # fused blocks per forward at 32x32: all ten at batch 1; at batch 16 up_2
@@ -1013,10 +1039,11 @@ def phase_unet_oracle() -> None:
 
 
 def _host_and_trace(fn, n_traced: int, warmup: int = 3, timed: int = 10):
-    """(host ms per call, device busy ms per call, trace summary) of
-    ``fn``: host wall time per call over ``timed`` calls ending in a
-    synchronise, without the profiler; then a ``torch.profiler`` trace of
-    ``n_traced`` calls reduced by ``trace_summary.py``."""
+    """(host ms per call, device busy ms per call, trace summary, {device
+    entry name: µs per call}) of ``fn``: host wall time per call over
+    ``timed`` calls ending in a synchronise, without the profiler; then a
+    ``torch.profiler`` trace of ``n_traced`` calls reduced by
+    ``trace_summary.py``."""
     import trace_summary
 
     for _ in range(warmup):
@@ -1037,10 +1064,13 @@ def _host_and_trace(fn, n_traced: int, warmup: int = 3, timed: int = 10):
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            summary = trace_summary.summarize(json.load(f), top=8)
+            trace = json.load(f)
+    summary = trace_summary.summarize(trace, top=8)
     busy_ms = float(re.search(r"device busy ([0-9.]+) ms",
                               summary).group(1)) / n_traced
-    return host_ms, busy_ms, summary
+    per_name = {name: us / n_traced for name, us in
+                trace_summary.device_by_name(trace).items()}
+    return host_ms, busy_ms, summary, per_name
 
 
 def phase_unet_step(cu, cfg, params, x, n_fwd=5) -> None:
@@ -1051,7 +1081,7 @@ def phase_unet_step(cu, cfg, params, x, n_fwd=5) -> None:
     p = cu.tree_map(lambda a: a.to("cuda", torch.bfloat16), params)
     tb = torch.tensor([500], dtype=torch.int32, device="cuda")
     with torch.inference_mode():
-        host_ms, busy_ms, summary = _host_and_trace(
+        host_ms, busy_ms, summary, _ = _host_and_trace(
             lambda: cu.forward(p, x, tb, cfg), n_fwd)
     print(f"[7 unet step] one bf16 full-width 64x64 forward (a sampling "
           f"step's network): host wall {host_ms:.3f} ms per forward "
@@ -1614,7 +1644,7 @@ def phase_train_step_time(cu, params, n_steps=3) -> None:
         state["p"], state["opt"], _ = cu.train_step(
             state["p"], state["opt"], x, gen, cfg)
 
-    host_ms, busy_ms, summary = _host_and_trace(step, n_steps)
+    host_ms, busy_ms, summary, _ = _host_and_trace(step, n_steps)
     print(f"[10 train step] one bf16 train step, batch 16, 64x64, full "
           f"width: host wall {host_ms:.3f} ms per step (synchronised, no "
           f"profiler); device busy {busy_ms:.3f} ms per step = "
@@ -1662,14 +1692,14 @@ def phase_k5_vs_plain() -> dict:
              f"{int((got != want).sum())} of {n_bits} indices")
     kept = (want >= fb._threshold(K5_RATE)).float().mean().item()
     gen = torch.Generator().manual_seed(8)
-    worst_abs = {"K5a": 0.0, "K5b": 0.0}
+    worst_abs = {"K5a": 0.0, "K5b data": 0.0, "K5b wgrad": 0.0}
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     names = ("out", "dx", "d_td", "dw1", "dw2", "dw3")
     worst_f32 = dict.fromkeys(names, 0.0)  # per output, err/tol
     plain_f32 = dict.fromkeys(names, 0.0)  # the plain f32 version's
     bad = []
     n_cases = 0
-    fb.launch_count = fb.tc_launch_count = 0
+    _zero_fused_counts(fb)
     for b, c, f, h, w, gsz in K5_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             for train in (False, True):
@@ -1704,7 +1734,8 @@ def phase_k5_vs_plain() -> dict:
                         continue
                     diff = (x.double() - y.double()).abs().max().item()
                     if dtype == torch.float32:
-                        kern = "K5a" if name == "out" else "K5b"
+                        kern = ("K5a" if name == "out" else "K5b data"
+                                if name in ("dx", "d_td") else "K5b wgrad")
                         worst_abs[kern] = max(worst_abs[kern], diff)
                         ratio = _k5_ratio(name, x, y)
                         worst_f32[name] = max(worst_f32[name], ratio)
@@ -1723,9 +1754,12 @@ def phase_k5_vs_plain() -> dict:
     if bad:
         fail(f"{len(bad)} K5a/K5b outputs disagree with the plain version:"
              "\n  " + "\n  ".join(bad))
-    routes = (fb.tc_launch_count, fb.launch_count - fb.tc_launch_count)
+    routes = (fb.tc_launch_count, fb.launch_count - fb.tc_launch_count,
+              fb.bwd_tc_launch_count,
+              fb.bwd_launch_count - fb.bwd_tc_launch_count)
     print(f"[11 K5 vs plain] K5a's {n_cases} cases by route: tensor cores "
-          f"{routes[0]}, FMA {routes[1]}", flush=True)
+          f"{routes[0]}, FMA {routes[1]}; K5b's data gradients: tensor "
+          f"cores {routes[2]}, FMA {routes[3]}", flush=True)
     print(f"[11 K5 vs plain] dropout bits of {n_bits} indices bit-equal to "
           f"_dropout_bits (kept at rate {K5_RATE}: {kept:.5f}); {n_cases} "
           f"cases pass (f32/bf16 x train on/off x (B, C, F, H, W, group) "
@@ -1739,7 +1773,8 @@ def phase_k5_vs_plain() -> dict:
           f"{K5_GRAD_RTOL}*|ref|), worst bf16 err/tol "
           f"{worst[torch.bfloat16]:.3f} (tol {K5_BF16_RTOL_OF_MAX} of "
           f"max|ref|); worst f32 abs err K5a {worst_abs['K5a']:.3e}, K5b "
-          f"{worst_abs['K5b']:.3e}", flush=True)
+          f"data gradients {worst_abs['K5b data']:.3e}, weight gradients "
+          f"{worst_abs['K5b wgrad']:.3e}", flush=True)
     return worst_abs
 
 
@@ -1768,6 +1803,34 @@ def _tc_split(b, c, f, h, w, gsz) -> str:
             f"({per_group} block{'s' if per_group > 1 else ''} a GN group), "
             f"grid {info['nc']}x{b} = {info['nc'] * b} blocks of 256 "
             f"threads, {info['smem']} B shared, {info['blocks']} blocks/SM, "
+            f"{info['clusters']} clusters resident at once")
+
+
+def _bwd_tc_info(b, c, f, h, w, gsz) -> dict:
+    """The C side's plan of K5b's tensor-core data-gradient kernel and its
+    occupancy (``bla_fused_block_bwd_tc_info``): cluster size,
+    shared-memory bytes, blocks per SM, most clusters resident at once."""
+    from big_linear_algebra_tpu_torch.ops import cuda_utils
+
+    fn = cuda_utils.load_library(
+        "fused_block_tc").bla_fused_block_bwd_tc_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 4)()
+    rc = fn(b, c, f, h, w, gsz, out)
+    if rc != 0:
+        fail(f"bla_fused_block_bwd_tc_info{(b, c, f, h, w, gsz)} returned "
+             f"{rc}")
+    return dict(zip(("nc", "smem", "blocks", "clusters"), out))
+
+
+def _bwd_tc_split(b, c, f, h, w, gsz) -> str:
+    """K5b's tensor-core data-gradient plan as a line."""
+    info = _bwd_tc_info(b, c, f, h, w, gsz)
+    nc = info["nc"]
+    return (f"clusters of {nc} blocks, {f // nc} channels of F and {c // nc} "
+            f"of C a block, grid {nc}x{b} = {nc * b} blocks of 256 threads, "
+            f"{info['smem']} B shared, {info['blocks']} blocks/SM, "
             f"{info['clusters']} clusters resident at once")
 
 
@@ -1862,6 +1925,129 @@ def phase_k5a_tc_build_info() -> None:
           + "; ".join(parts), flush=True)
 
 
+def phase_k5b_tc_vs_plain() -> dict:
+    """K5b on the tensor-core route (both kernels), alone at K5B_TC_SHAPES,
+    bf16 x train on/off, against ``_plain_fused_bwd`` (every output within
+    2e-2 of its max|ref|), every case on that route and its Python plan
+    equal to the C side's; two runs bit-equal at the train
+    step's 8x8 block and the 512 -> 256 4x4 one. Returns the worst abs
+    error over its cases of each kernel's outputs ({"K5b tc": dx and d_td,
+    "K5b tc wgrad": dw1, dw2, dw3})."""
+    from big_linear_algebra_tpu_torch.nn import fused_block as fb
+
+    gen = torch.Generator().manual_seed(14)
+    names = ("dx", "d_td", "dw1", "dw2", "dw3")
+    bad, n_cases = [], 0
+    worst_abs = {"K5b tc": 0.0, "K5b tc wgrad": 0.0}
+    worst = dict.fromkeys(names, 0.0)
+    _zero_fused_counts(fb)
+    for b, c, f, h, w, gsz in K5B_TC_SHAPES:
+        plan = fb._bwd_tc_plan(b, c, f, h, w, 3, gsz)
+        info = _bwd_tc_info(b, c, f, h, w, gsz)
+        if plan != (info["nc"], info["smem"]):
+            bad.append(f"B={b} C={c} F={f} {h}x{w}: Python plan {plan}, C "
+                       f"plan {(info['nc'], info['smem'])}")
+        for train in (False, True):
+            *ops, g = _k5_inputs(b, c, f, h, w, torch.bfloat16, gen)
+            args = (*ops, fb._seed_tensor(400 + n_cases, "cuda"), gsz,
+                    K5_RATE, train, 1e-8)
+            got = fb._kernel_fused_bwd(*args, g)
+            want = fb._plain_fused_bwd(*args, g)
+            torch.cuda.synchronize()
+            n_cases += 1
+            case = f"B={b} C={c} F={f} {h}x{w} train={train}"
+            for name, x, y in zip(names, got, want):
+                if x is None and y is None:
+                    continue
+                if x.shape != y.shape or x.dtype != torch.bfloat16:
+                    bad.append(f"{case} {name}: {tuple(x.shape)} {x.dtype}")
+                    continue
+                diff = (x.double() - y.double()).abs().max().item()
+                ratio = diff / y.double().abs().max().item()
+                worst[name] = max(worst[name], ratio)
+                kern = "K5b tc" if name in ("dx", "d_td") else "K5b tc wgrad"
+                worst_abs[kern] = max(worst_abs[kern], diff)
+                if not ratio <= K5_BF16_RTOL_OF_MAX:
+                    bad.append(f"{case} {name}: err / max|ref| {ratio:.3e} "
+                               f"> {K5_BF16_RTOL_OF_MAX}")
+    counts = (fb.bwd_tc_launch_count, fb.bwd_launch_count,
+              fb.wgrad_tc_launch_count, fb.wgrad_launch_count)
+    if counts != (n_cases,) * 4:
+        bad.append(f"{counts[0]} of {counts[1]} data-gradient and {counts[2]} "
+                   f"of {counts[3]} weight-gradient launches on the "
+                   f"tensor-core route, expected all {n_cases}")
+    equal = []
+    for b, c, f, h, w, gsz in (K5B_TC_SHAPES[0], K5B_TC_SHAPES[1]):
+        *ops, g = _k5_inputs(b, c, f, h, w, torch.bfloat16, gen)
+        args = (*ops, fb._seed_tensor(6, "cuda"), gsz, K5_RATE, True, 1e-8)
+        one, two = fb._kernel_fused_bwd(*args, g), fb._kernel_fused_bwd(
+            *args, g)
+        if not all(x is None or torch.equal(x, y) for x, y in zip(one, two)):
+            bad.append(f"B={b} C={c} F={f} {h}x{w}: two runs differ")
+        equal.append(f"B={b} C={c} {h}x{w}")
+    if bad:
+        fail("tensor-core K5b:\n  " + "\n  ".join(bad))
+    print(f"[11 K5b tensor cores] {n_cases} bf16 cases, every data-gradient "
+          f"and weight-gradient launch on the tensor-core route (train "
+          f"on/off at (B, C, F, H, "
+          f"W, group) {K5B_TC_SHAPES}), worst err/max|ref| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (tol {K5_BF16_RTOL_OF_MAX}), worst abs err of dx and d_td "
+          f"{worst_abs['K5b tc']:.3e}, of the weight gradients "
+          f"{worst_abs['K5b tc wgrad']:.3e}; Python plans equal the C "
+          f"side's; two runs bit-equal at {', '.join(equal)}", flush=True)
+    return worst_abs
+
+
+def phase_k5b_tc_build_info() -> None:
+    """K5b's tensor-core kernels (H·W 64 and 16): registers, shared memory
+    and spills from the build's ``-Xptxas -v``, blocks per SM (and, for the
+    data-gradient kernel, clusters resident at once at each of
+    K5B_TC_SHAPES), and the HMMA instructions in their SASS. Fails on a
+    spill, on no HMMA or on a plan that no SM can hold."""
+    stats = _kernel_stats("fused_block_tc",
+                          re.compile(r"fused_block_bwd_tcILi(\d+)E"))
+    bad, parts = [], []
+    for nt, hw in (("8", 8), ("2", 4)):
+        st = dict(stats.get((nt,), {}))
+        occ = [(s, _bwd_tc_info(*s)) for s in K5B_TC_SHAPES if s[3] == hw]
+        st["blocks"] = min(i["blocks"] for _, i in occ)
+        why = _check_stats(f"fused_block_bwd_tc<{nt}>", st, True)
+        if why or min(i["clusters"] for _, i in occ) < 1:
+            bad.append(why or f"fused_block_bwd_tc<{nt}>: {occ}")
+            continue
+        parts.append(
+            f"H·W {hw * hw}: {st['regs']} regs, {st['spill']} B spill, "
+            f"{st['mma']} HMMA; " + ", ".join(
+                f"(B={s[0]}, C={s[1]}): {i['smem']} B shared, {i['blocks']} "
+                f"blocks/SM, clusters of {i['nc']}, {i['clusters']} resident"
+                for s, i in occ))
+    wstats = _kernel_stats("fused_block_tc",
+                           re.compile(r"fused_block_wgrad_tcILi(\d+)E"))
+    info = _int_fn("fused_block_tc", "bla_fused_block_wgrad_tc_info", 1)
+    info.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    for nt, hw in (("8", 8), ("2", 4)):
+        st = dict(wstats.get((nt,), {}))
+        blocks = ctypes.c_int(0)
+        if info(hw, ctypes.byref(blocks)) != 0:
+            fail(f"bla_fused_block_wgrad_tc_info({hw}) failed")
+        st["blocks"] = blocks.value
+        why = _check_stats(f"fused_block_wgrad_tc<{nt}>", st, True)
+        if why:
+            bad.append(why)
+            continue
+        parts.append(f"weight gradients H·W {hw * hw}: {st['regs']} regs, "
+                     f"{st['smem']} B static shared, {st['spill']} B spill, "
+                     f"{st['mma']} HMMA, {st['blocks']} blocks/SM")
+    if bad:
+        fail("tensor-core K5b (spill, no HMMA or no cluster fits):\n  "
+             + "\n  ".join(bad))
+    print("[11 K5b build] tensor-core data-gradient kernels (256 threads, "
+          "dynamic shared memory) and weight-gradient kernels (256 threads; "
+          "-Xptxas -v, cudaOccupancy, cuobjdump -sass): " + "; ".join(parts),
+          flush=True)
+
+
 def k5_bound_ms(kernel: str, b, c, f, h, w, dtype):
     """K5a ("fwd") or K5b ("bwd") at a block with no 1x1 residual: every
     input read once and every output written once, in the dtype, and the
@@ -1880,6 +2066,31 @@ def k5_bound_ms(kernel: str, b, c, f, h, w, dtype):
         # x, td, w1, w2 and g in; dx, d_td, dw1 and dw2 out
         nbytes = item * (2 * (b * c * hw + b * f + conv1 + conv2)
                          + b * f * hw)
+    return _bound(nbytes, flops / PEAK_FLOPS[dtype])
+
+
+def k5b_bound_ms(kernel: str, b, c, f, h, w, dtype, w3: bool,
+                 ws_item: int):
+    """One of K5b's two kernels: "data" (conv_1 recomputed, conv_2's and
+    conv_1's dx, and w3ᵀ·g where the block has w3: 2·B·HW·9·(2·C·F + F·F)
+    flops, + 2·B·HW·C·F) reading x, td, w1, w2 (w3) and g once and writing
+    dx, d_td (f32) and the workspaces a1, d and dh1t (``ws_item`` bytes an
+    element: 2 on the tensor-core route, 4 on the FMA route) once; or
+    "wgrad" (dw1, dw2 and dw3: 2·B·HW·9·(C·F + F·F) flops, + 2·B·HW·C·F)
+    reading the workspaces, x and g once and writing the f32 weight
+    gradients. The two add up to ``k5_bound_ms("bwd", ...)``'s
+    operations."""
+    item = torch.finfo(dtype).bits // 8
+    hw = h * w
+    conv1, conv2, one = 9 * c * f, 9 * f * f, (c * f if w3 else 0)
+    ws = ws_item * b * hw * (c + 2 * f)
+    if kernel == "data":
+        flops = 2 * b * hw * (2 * conv1 + conv2 + one)
+        nbytes = (item * (b * c * hw + b * f + conv1 + conv2 + one
+                          + b * f * hw + b * c * hw) + 4 * b * f + ws)
+    else:
+        flops = 2 * b * hw * (conv1 + conv2 + one)
+        nbytes = item * b * hw * (c + f) + ws + 4 * (conv1 + conv2 + one)
     return _bound(nbytes, flops / PEAK_FLOPS[dtype])
 
 
@@ -1957,13 +2168,101 @@ def phase_k5_timing() -> dict:
     return main
 
 
+def _conv_weight_grads(work, w1, w2, w3):
+    """dw1, dw2 (and dw3) by ``torch.nn.grad.conv2d_weight`` on the bf16
+    rounded a1, dh1t, d, g and x that K5b's weight-gradient kernel reads
+    (``work``), the library yardstick of that kernel (the port never calls
+    it)."""
+    x, g, a1, d, dh = work
+    b, c, h, w = x.shape
+    f = g.shape[1]
+    a1, d, dh = (t.to(x.dtype).reshape(b, -1, h, w) for t in (a1, d, dh))
+    grad = torch.nn.grad.conv2d_weight
+    out = [grad(a1, w1.shape, dh, padding=1), grad(d, w2.shape, g, padding=1)]
+    if w3 is not None:
+        out.append(grad(x, (f, c, 1, 1), g))
+    return out
+
+
+def phase_k5b_timing() -> dict:
+    """K5b's two kernels apart, bf16 train at K5B_TIMED: each on its
+    tensor-core route and on the FMA route forced on the same input (the
+    weight gradients on the workspaces of the data-gradient kernel of their
+    route), the whole K5b (the Function's backward), the plain backward and
+    ``conv2d_weight`` (the weight gradients' library yardstick) in turns
+    within this one process, the lower of each pair kept; with the split
+    bounds and host time per call (the tensor-core route's flipped weight
+    copies included). Returns the train step's 8x8 block's numbers."""
+    from big_linear_algebra_tpu_torch.nn import fused_block as fb
+
+    gen = torch.Generator().manual_seed(13)
+    main = {}
+    for b, c, f, h, w, gsz in K5B_TIMED:
+        x, td, w1, w2, w3, g = _k5_inputs(b, c, f, h, w, torch.bfloat16, gen)
+        args = (x, td, w1, w2, w3, fb._seed_tensor(5, "cuda"), gsz, K5_RATE,
+                True, 1e-8)
+        tc = fb._bwd_route(torch.bfloat16, b, c, f, h, w, 3, gsz) == "tc"
+        work = {r: fb._kernel_bwd_data(*args, g, route=r)[2]
+                for r in (("tc", "fma") if tc else ("fma",))}
+        fns = {"data tc": lambda: fb._kernel_bwd_data(*args, g, route="tc"),
+               "data fma": lambda: fb._kernel_bwd_data(*args, g,
+                                                       route="fma"),
+               "wgrad tc": lambda: fb._kernel_bwd_wgrad(
+                   work["tc"], 3, w3 is not None),
+               "wgrad fma": lambda: fb._kernel_bwd_wgrad(
+                   work["fma"], 3, w3 is not None),
+               "K5b": lambda: fb._kernel_fused_bwd(*args, g),
+               "plain bwd": lambda: fb._plain_fused_bwd(*args, g),
+               "conv2d_weight": lambda: _conv_weight_grads(
+                   work["fma"], w1, w2, w3)}
+        if not tc:
+            del fns["data tc"], fns["wgrad tc"]
+        names = tuple(fns)
+        runs = {name: [] for name in names}
+        for name in names + names[::-1]:
+            runs[name].append(_time_ms(fns[name], iters=50, warmup=5))
+        ms = {name: min(d for d, _ in runs[name]) for name in names}
+        host = {name: min(hh for _, hh in runs[name]) for name in names}
+        bounds = {f"{k} {r}": k5b_bound_ms(k, b, c, f, h, w, torch.bfloat16,
+                                          w3 is not None, item)
+                  for k in ("data", "wgrad")
+                  for r, item in (("tc", 2), ("fma", 4))}
+
+        def us(name, table=ms):
+            return (f"{table[name] * 1e3:.2f} us" if name in table else
+                    "not taken")
+
+        def bound(name):
+            return (f"{bounds[name][0] * 1e3:.3f} us, {bounds[name][1]}")
+
+        print(f"[12 K5b timing] bf16 B={b} C={c} F={f} {h}x{w} train=True"
+              f"{' (w3)' if w3 is not None else ''}: device data gradients "
+              f"tensor cores {us('data tc')} (bound {bound('data tc')}), "
+              f"FMA route {us('data fma')} (bound {bound('data fma')}); "
+              f"weight gradients tensor cores {us('wgrad tc')} (bound "
+              f"{bound('wgrad tc')}), FMA route {us('wgrad fma')} (bound "
+              f"{bound('wgrad fma')}), conv2d_weight "
+              f"{us('conv2d_weight')}; K5b (both kernels, the route's) "
+              f"{us('K5b')}, plain {us('plain bwd')} | host per call: data "
+              f"tensor cores {us('data tc', host)} (with the weight copies), "
+              f"FMA {us('data fma', host)}, weight gradients tensor cores "
+              f"{us('wgrad tc', host)}, FMA {us('wgrad fma', host)}, K5b "
+              f"{us('K5b', host)}"
+              + (f" | plan: {_bwd_tc_split(b, c, f, h, w, gsz)}" if tc
+                 else ""), flush=True)
+        if (b, c, f, h, w, gsz) == K5B_TIMED[0]:
+            main = dict(ms, bound=bounds)
+    return main
+
+
 def _fused_counts(fb) -> tuple:
     return fb.launch_count, fb.bwd_launch_count, fb.wgrad_launch_count
 
 
 def _zero_fused_counts(fb) -> None:
     fb.launch_count = fb.bwd_launch_count = fb.wgrad_launch_count = 0
-    fb.tc_launch_count = 0
+    fb.tc_launch_count = fb.bwd_tc_launch_count = 0
+    fb.wgrad_tc_launch_count = 0
 
 
 def phase_unet_fused_run(tmp: str) -> int:
@@ -2017,8 +2316,12 @@ def phase_fused_oracle() -> int:
     distance from f64); then one f32 train-mode gradient at batch 16 with
     the fused blocks, K5b against the plain backward on each fused block's
     operands (bounded), and its leaves against the gradient with the plain
-    backward at those blocks, on the same dropout seeds (reported). Returns
-    K5a's launches on the FMA route (the f32 forward and gradient)."""
+    backward at those blocks, on the same dropout seeds (reported); then
+    one bf16 train-mode gradient at batch 16, K5b (its data gradients on
+    the tensor-core route) against the plain backward on each fused block's
+    operands (2e-2 of max|ref|). Returns the FMA routes' launches (the f32
+    forward and gradient): K5a's, and K5b's (its data-gradient kernel's,
+    its weight-gradient kernel's)."""
     import dataclasses
 
     import torch.nn.functional as F
@@ -2099,17 +2402,21 @@ def phase_fused_oracle() -> int:
         _zero_fused_counts(fb)
         loss_k, grads_k = grad()
         torch.cuda.synchronize()
-        counts = _fused_counts(fb)
+        counts = (*_fused_counts(fb), fb.bwd_tc_launch_count,
+                  fb.wgrad_tc_launch_count)
         fma_launches += fb.launch_count - fb.tc_launch_count
+        fma_bwd_launches = (fb.bwd_launch_count - fb.bwd_tc_launch_count,
+                            fb.wgrad_launch_count - fb.wgrad_tc_launch_count)
         fb._kernel_fused_bwd = fb._plain_fused_bwd
         loss_p, grads_p = grad()
     finally:
         fb._kernel_fused_bwd = kernel
     per = FUSED_PER_TRAIN_STEP
-    if counts != (per, per, per) or len(sites) != per:
-        fail(f"the f32 train-mode gradient launched K5a/K5b/weight "
-             f"gradients {counts} times over {len(sites)} fused blocks, "
-             f"expected {per} each")
+    if counts != (per, per, per, 0, 0) or len(sites) != per:
+        fail(f"the f32 train-mode gradient launched K5a/K5b's data "
+             f"gradients/its weight gradients/each of those two on the "
+             f"tensor cores {counts} times over {len(sites)} fused blocks, "
+             f"expected {per}, {per}, {per}, 0, 0")
     if not all(torch.isfinite(gr).all() for gr in grads_k + grads_p):
         fail("non-finite gradient leaves")
     worst_site = 0.0
@@ -2127,6 +2434,42 @@ def phase_fused_oracle() -> int:
                      f"exceeds atol {K5_GRAD_ATOL} + rtol {K5_GRAD_RTOL}"
                      f"*|ref| by {ratio}x")
     leaves = _leaf_errors(grads_k, grads_p)
+
+    # the bf16 gradient (the train step's compute dtype): K5b's data
+    # gradients on the tensor-core route, each fused block's against the
+    # plain backward on its operands
+    del sites[:]
+    cfg = dataclasses.replace(cu.CONFIG, compute_dtype="bfloat16",
+                              fused_block=True)
+    fb._kernel_fused_bwd = capture
+    try:
+        _zero_fused_counts(fb)
+        loss_b = grad()[0]
+        torch.cuda.synchronize()
+        counts = (*_fused_counts(fb), fb.bwd_tc_launch_count,
+                  fb.wgrad_tc_launch_count)
+    finally:
+        fb._kernel_fused_bwd = kernel
+    if counts != (per,) * 5 or len(sites) != per or not math.isfinite(
+            loss_b):
+        fail(f"the bf16 train-mode gradient launched K5a/K5b's data "
+             f"gradients/its weight gradients/each of those two on the "
+             f"tensor cores {counts} times over {len(sites)} fused blocks, "
+             f"expected {per} each; loss {loss_b}")
+    worst_bf16 = dict.fromkeys(("dx", "d_td", "dw1", "dw2", "dw3"), 0.0)
+    for i, args in enumerate(sites):
+        got = kernel(*args)
+        want = fb._plain_fused_bwd(*args)
+        for name, a, b in zip(worst_bf16, got, want):
+            if a is None:
+                continue
+            ratio = ((a.double() - b.double()).abs().max()
+                     / b.double().abs().max()).item()
+            worst_bf16[name] = max(worst_bf16[name], ratio)
+            if not ratio <= K5_BF16_RTOL_OF_MAX:
+                fail(f"fused block {i} of the bf16 gradient, {name}: K5b "
+                     f"err / max|ref| {ratio:.3e} > {K5_BF16_RTOL_OF_MAX}")
+    del sites[:]
     print(f"[14 fused oracle] full-width 32x32 f32 forward, t=500: with the "
           f"10 fused blocks vs unfused err/max|ref| {share:.3e} (tol "
           f"{K5_UNET_RTOL_OF_MAX}); reported, no bound: fused vs f64 "
@@ -2142,8 +2485,14 @@ def phase_fused_oracle() -> int:
           f"through K5b vs with the plain backward at the fused blocks, "
           f"worst leaf {leaves[0]:.3e} of its max|ref|, {leaves[1]:.3e} of "
           f"the largest max|ref|, median leaf {leaves[2]:.3e}; losses "
-          f"{loss_k:.6f}, {loss_p:.6f}", flush=True)
-    return fma_launches
+          f"{loss_k:.6f}, {loss_p:.6f}. bf16 train-mode gradient at batch "
+          f"16 (loss {loss_b:.6f}), {per} fused blocks, every data-gradient "
+          f"launch on the tensor-core route: K5b vs plain on each block's "
+          f"operands, worst err/max|ref| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst_bf16.items())
+          + f" (tol {K5_BF16_RTOL_OF_MAX}; every K5b launch on the "
+          f"tensor-core route)", flush=True)
+    return fma_launches, fma_bwd_launches
 
 
 def phase_unet_fused_train() -> dict:
@@ -2172,7 +2521,8 @@ def phase_unet_fused_train() -> dict:
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         k5a, k5b, wgrad = _fused_counts(fb)
-        tc = fb.tc_launch_count
+        tc, bwd_tc = fb.tc_launch_count, fb.bwd_tc_launch_count
+        wgrad_tc = fb.wgrad_tc_launch_count
         second = io.StringIO()
         with contextlib.redirect_stdout(second):
             rc_resume = cu.main(["train", "1", "--fused-block",
@@ -2189,9 +2539,11 @@ def phase_unet_fused_train() -> dict:
     if not torch.isfinite(vals).all():
         fail(f"non-finite step losses: {vals.tolist()}")
     want = FUSED_PER_TRAIN_STEP * FUSED_TRAIN_STEPS
-    if (k5a, tc, k5b, wgrad) != (want,) * 4:
-        fail(f"train --fused-block launched K5a/its tensor-core route/K5b/"
-             f"weight gradients {(k5a, tc, k5b, wgrad)} times in "
+    got = (k5a, tc, k5b, bwd_tc, wgrad, wgrad_tc)
+    if got != (want,) * 6:
+        fail(f"train --fused-block launched K5a/its tensor-core route/K5b's "
+             f"data gradients/their tensor-core route/K5b's weight "
+             f"gradients/their tensor-core route {got} times in "
              f"{FUSED_TRAIN_STEPS} steps, expected {want} each "
              f"({FUSED_PER_TRAIN_STEP} per step)")
     head = vals[:10].mean().item()
@@ -2208,12 +2560,72 @@ def phase_unet_fused_train() -> dict:
           f"f32 masters, Adam) {train_s:.2f} s wall with the CIFAR "
           f"synthesis, epoch {ep0['epoch_seconds']} s "
           f"({ep0['images_per_sec']} images/s): launches K5a {k5a} (all on "
-          f"the tensor-core route), K5b "
-          f"{k5b}, K5b weight gradients {wgrad}; loss mean of steps 1-10 "
+          f"the tensor-core route), K5b's data gradients {k5b} (all on the "
+          f"tensor-core route), K5b's weight gradients {wgrad} (all on "
+          f"the tensor-core route); loss mean "
+          f"of steps 1-10 "
           f"{head:.5f}, of steps {FUSED_TRAIN_STEPS - 9}-{FUSED_TRAIN_STEPS} "
           f"{tail:.5f}; then '{resumed}', step loss "
           f"{vals[-1].item():.5f}", flush=True)
-    return {"K5a": k5a, "K5b": k5b}
+    return {"K5a": k5a, "K5b": k5b, "wgrad": wgrad}
+
+
+def phase_fused_step_profile(params, n_steps: int = 3) -> dict:
+    """One bf16 train step at batch 16, 32x32, full width, with the fused
+    blocks (phase 15's configuration, Adam, dropout on): host wall time
+    per step, and a ``torch.profiler`` trace of ``n_steps`` steps: the
+    card's busy share and K5b's two kernels' share of the device time, with
+    K5b on its route and forced onto the FMA route (its data-gradient
+    kernel, which the weight gradients follow), in turns (route, FMA, FMA,
+    route; the lower host time of each kept).
+    Returns {mode: (host ms, busy ms, K5b ms)} per step."""
+    import dataclasses
+    import functools
+
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn import fused_block as fb
+
+    cfg = dataclasses.replace(cu.CONFIG, fused_block=True)
+    state = {"p": cu.tree_map(lambda a: a.to("cuda"), params)}
+    state["opt"] = cu.adam_init(state["p"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand(cfg.batch_size, 3, cfg.image_size, cfg.image_size,
+                   generator=gen, device="cuda") * 2 - 1
+
+    def step():
+        state["p"], state["opt"], _ = cu.train_step(
+            state["p"], state["opt"], x, gen, cfg)
+
+    real = fb._kernel_bwd_data
+    runs = {"route": [], "fma": []}
+    for mode in ("route", "fma", "fma", "route"):
+        if mode == "fma":
+            fb._kernel_bwd_data = functools.partial(real, route="fma")
+        try:
+            host, busy, summary, per = _host_and_trace(step, n_steps)
+        finally:
+            fb._kernel_bwd_data = real
+        k5b = sum(us for name, us in per.items()
+                  if re.search(r"fused_block_(bwd|wgrad)", name)) / 1e3
+        k5a = sum(us for name, us in per.items()
+                  if re.search(r"fused_block_fwd", name)) / 1e3
+        runs[mode].append((host, busy, k5b, k5a, summary))
+    out = {}
+    for mode, got in runs.items():
+        host, busy, k5b, k5a, summary = min(got, key=lambda r: r[0])
+        out[mode] = (host, busy, k5b)
+        what = ("on its route" if mode == "route" else
+                "forced onto the FMA route")
+        print(f"[15 fused step profile] one bf16 train step, batch 16, "
+              f"32x32, --fused-block, K5b {what}: host "
+              f"wall {host:.3f} ms per step (synchronised, no profiler; the "
+              f"lower of two turns: {got[0][0]:.3f}, {got[1][0]:.3f}); "
+              f"device busy {busy:.3f} ms per step = {busy / host:.1%} of "
+              f"it; K5b's kernels {k5b:.3f} ms = {k5b / busy:.1%} of the "
+              f"device time, K5a {k5a:.3f} ms; trace of {n_steps} steps "
+              f"(trace_summary.py):\n    "
+              + summary.replace("\n", "\n    "), flush=True)
+    return out
 
 
 def _k4_inputs(b, c, h, w, f, k, dtype, gen):
@@ -2973,10 +3385,15 @@ def main() -> int:
         k5_err = phase_k5_vs_plain()
         k5_err["K5a tc"] = phase_k5a_tc_vs_plain()
         phase_k5a_tc_build_info()
+        k5_err.update(phase_k5b_tc_vs_plain())
+        phase_k5b_tc_build_info()
         k5 = phase_k5_timing()
+        k5b = phase_k5b_timing()
         k5a_launches = phase_unet_fused_run(tmp)
-        k5a_fma_launches = phase_fused_oracle()
+        k5a_fma_launches, k5b_fma = phase_fused_oracle()
         fused_train = phase_unet_fused_train()
+        from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+        phase_fused_step_profile(cu.load_params_csv(cu.CONFIG))
         del os.environ["BLA_DATA_DIR"]
     bwd_err = phase_k2bwd_vs_plain()
     phase_k2bwd_build_info()
@@ -3058,24 +3475,47 @@ def main() -> int:
         "replaces": tpu,
         "launches": launches,
         "max_abs_err": k5_err[err],
-        "ms": k5[kern],
-        "plain_ms": k5[f"plain {way}"],
-        "bound_ms": k5["bound"][way][0],
-        "bound_by": k5["bound"][way][1],
-        # no single PyTorch call computes the block; phase 12 prints the
-        # port's unfused block beside it
-        "library_ms": None,
-    } for name, src, kern, err, way, tpu, launches in (
+        "ms": ms,
+        "plain_ms": plain,
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
+        # no single PyTorch call computes the block or its data gradients;
+        # phase 12 prints the port's unfused block beside them
+        "library_ms": library,
+    } for name, src, ms, err, plain, bound, library, tpu, launches in (
         ("K5a fused resnet block forward, tensor-core route (bf16 at the "
          "U-Net's widths; launches: run 1 --fused-block)", "fused_block_tc",
-         "K5a", "K5a tc", "fwd", K5A_TPU_KERNEL, k5a_launches),
+         k5["K5a"], "K5a tc", k5["plain fwd"], k5["bound"]["fwd"], None,
+         K5A_TPU_KERNEL, k5a_launches),
         ("K5a fused resnet block forward, FMA route (f32, and bf16 shapes "
          "the tensor cores do not take; launches: phase 14's f32 forward "
          "and gradient; time: bf16 forced onto it)", "fused_block",
-         "K5a fma", "K5a", "fwd", K5A_TPU_KERNEL, k5a_fma_launches),
-        ("K5b fused resnet block recompute backward (data and weight "
-         "gradients)", "fused_block", "K5b", "K5b", "bwd", K5B_TPU_KERNEL,
-         fused_train["K5b"]))]
+         k5["K5a fma"], "K5a", k5["plain fwd"], k5["bound"]["fwd"], None,
+         K5A_TPU_KERNEL, k5a_fma_launches),
+        ("K5b fused resnet block recompute backward, data gradients, "
+         "tensor-core route (bf16 at the U-Net's widths; launches: train 1 "
+         "--fused-block; plain: the whole backward)", "fused_block_tc",
+         k5b["data tc"], "K5b tc", k5b["plain bwd"],
+         k5b["bound"]["data tc"], None, K5B_TPU_KERNEL, fused_train["K5b"]),
+        ("K5b fused resnet block recompute backward, data gradients, FMA "
+         "route (f32, and bf16 shapes the tensor cores do not take; "
+         "launches: phase 14's f32 gradient; time: bf16 forced onto it; "
+         "plain: the whole backward)", "fused_block", k5b["data fma"],
+         "K5b data", k5b["plain bwd"], k5b["bound"]["data fma"], None,
+         K5B_TPU_KERNEL, k5b_fma[0]),
+        ("K5b fused resnet block recompute backward, weight gradients (dw1, "
+         "dw2, dw3), tensor-core route (launches: train 1 --fused-block; "
+         "plain: the whole backward; library: torch.nn.grad.conv2d_weight "
+         "for each)", "fused_block_tc", k5b["wgrad tc"], "K5b tc wgrad",
+         k5b["plain bwd"], k5b["bound"]["wgrad tc"], k5b["conv2d_weight"],
+         K5B_TPU_KERNEL, fused_train["wgrad"]),
+        ("K5b fused resnet block recompute backward, weight gradients, FMA "
+         "route (after the FMA data gradients; launches: phase 14's f32 "
+         "gradient; time: bf16 forced onto it; plain: the whole backward; "
+         "library: torch.nn.grad.conv2d_weight for each)", "fused_block",
+         k5b["wgrad fma"], "K5b wgrad", k5b["plain bwd"],
+         k5b["bound"]["wgrad fma"], k5b["conv2d_weight"], K5B_TPU_KERNEL,
+         k5b_fma[1]))]
     print(json.dumps({"kernels": [{
         "name": "K1 matmul (nn/nt/tn, bias+ReLU epilogue)",
         "route": "cuda",

@@ -333,6 +333,98 @@ def test_k5a_route_rule_edges():
                              False, 1e-8, route="wmma")
 
 
+def test_k5b_route_takes_every_block_of_the_train_step():
+    """K5b's data-gradient route rule on the full-width U-Net's nine fused
+    blocks of the batch-16 train step at 32×32 (listed from ``cu.CONFIG``):
+    the tensor-core kernel in bf16, in clusters of 8 blocks within the
+    shared memory of an H100 block, and the FMA kernel in f32."""
+    blocks = _unet_fused_blocks(cu.CONFIG, 16)
+    assert sorted({(c, f, h) for _, c, f, h, *_ in blocks}) == [
+        (256, 256, 4), (256, 256, 8), (512, 256, 4)]
+    assert len(blocks) == 9
+    for shape in blocks:
+        assert fb._bwd_route(torch.bfloat16, *shape) == "tc", shape
+        nc, smem = fb._bwd_tc_plan(*shape)
+        assert nc == 8 and smem <= fb._MAX_SMEM
+        assert fb._bwd_route(torch.float32, *shape) == "fma", shape
+
+
+def test_k5b_route_rule_edges():
+    """The TINY U-Net's blocks go to the FMA data-gradient kernel in bf16
+    and f32; the tensor-core plan's shared memory at the train step's
+    blocks (two blocks an SM at C = 256, one at 512 -> 256) and at its
+    edges; the shapes it refuses, each with its reason; and a shape neither
+    kernel takes raises, as does an unknown route."""
+    tiny = _unet_fused_blocks(cu.TINY, 2)
+    for shape in tiny:
+        for dt in (torch.bfloat16, torch.float32):
+            assert fb._bwd_route(dt, *shape) == "fma", shape
+        with pytest.raises(ValueError, match="powers of two"):
+            fb._bwd_tc_plan(*shape)
+    assert fb._bwd_tc_plan(16, 256, 256, 8, 8, 3, 32) == (8, 110160)
+    assert fb._bwd_tc_plan(1, 256, 256, 8, 8, 3, 32) == (8, 110160)
+    assert fb._bwd_tc_plan(16, 256, 256, 4, 4, 3, 32) == (8, 76240)
+    assert fb._bwd_tc_plan(16, 512, 256, 4, 4, 3, 32) == (8, 151648)
+    assert fb._bwd_tc_plan(5, 512, 256, 8, 8, 3, 32) == (8, 218336)
+    # the edges: 16 and 64 channels a block (128 exceed the shared memory),
+    # groups from 8 (8x8) or 16 (4x4) channels to a whole slice, 65535
+    # examples
+    assert fb._bwd_tc_plan(1, 128, 128, 8, 8, 3, 8)[0] == 8
+    assert fb._bwd_tc_plan(1, 128, 128, 8, 8, 3, 16)[0] == 8
+    assert fb._bwd_tc_plan(1, 512, 512, 4, 4, 3, 16)[0] == 8
+    assert fb._bwd_tc_plan(1, 512, 512, 4, 4, 3, 64)[0] == 8
+    assert fb._bwd_tc_plan(65535, 256, 256, 8, 8, 3, 32)[0] == 8
+    for shape, match in (
+            ((16, 256, 256, 8, 8, 5, 32), "3x3"),
+            ((16, 256, 256, 8, 4, 3, 32), "8x8 or 4x4"),
+            ((16, 256, 256, 16, 16, 3, 32), "8x8 or 4x4"),
+            ((16, 64, 256, 8, 8, 3, 8), "from 128 to 1024"),
+            ((16, 256, 2048, 4, 4, 3, 32), "from 128 to 1024"),
+            ((16, 256, 256, 8, 8, 3, 64), "groups"),
+            ((16, 256, 256, 4, 4, 3, 8), "groups"),
+            ((16, 256, 256, 8, 8, 3, 24), "groups"),
+            ((16, 256, 512, 8, 8, 3, 32), "2048 of F's"),
+            ((16, 1024, 256, 8, 8, 3, 32), "4096 of C's"),
+            ((0, 256, 256, 8, 8, 3, 32), "1 <= B"),
+            ((65536, 256, 256, 8, 8, 3, 32), "1 <= B"),
+            ((1, 1024, 1024, 4, 4, 3, 32), "shared memory")):
+        with pytest.raises(ValueError, match=match):
+            fb._bwd_tc_plan(*shape)
+    # bf16 shapes neither kernel takes raise on the route
+    with pytest.raises(ValueError, match="16, 32 or 64"):
+        fb._bwd_route(torch.bfloat16, 2, 32, 32, 6, 6, 3, 8)
+    args = _port_args(_inputs())
+    with pytest.raises(ValueError, match="no K5b route"):
+        fb._kernel_bwd_data(*args, fb._seed_tensor(1, "cpu"), GSZ, 0.0,
+                            False, 1e-8, t(np.zeros((4, 32, 4, 4))),
+                            route="wmma")
+
+
+@pytest.mark.parametrize("with_w3", [False, True])
+def test_k5b_flipped_weights_match_jax_taps_t(with_w3):
+    """The tensor-core data-gradient kernel's weights, ``_flipped_t`` of
+    w1, w2 (and w3): as taps, the JAX wrapper's ``_taps_t`` of the same
+    numpy weights; and a stride-1 "same" conv with them is the transposed
+    conv with the stored weights (f64, 1e-12 of max|ref|)."""
+    _, _, w1, w2, w3 = _inputs(b=2, c=24, f=16, hw=5, with_w3=with_w3,
+                               dtype=np.float64)
+    g = np.random.default_rng(3).standard_normal((2, 16, 5, 5))
+    for w in (w1, w2) + ((w3,) if with_w3 else ()):
+        flipped = fb._flipped_t(t(w))
+        assert flipped.is_contiguous()
+        o, i, k, _ = w.shape
+        taps = flipped.permute(2, 3, 1, 0).reshape(k * k, o, i)
+        np.testing.assert_array_equal(
+            n(taps), np.asarray(jax_fb._taps_t(jnp.asarray(w))))
+        src = t(g) if o == 16 else t(np.random.default_rng(4)
+                                     .standard_normal((2, o, 5, 5)))
+        want = torch.nn.functional.conv_transpose2d(src, t(w),
+                                                    padding=k // 2)
+        got = torch.nn.functional.conv2d(src, flipped, padding=k // 2)
+        err = (got - want).abs().max() / want.abs().max()
+        assert err <= 1e-12, err
+
+
 def _cuda_constants(name):
     """{NAME: value} of the ``constexpr int``/``size_t`` constants of
     ``csrc/<name>.cu``."""
@@ -354,6 +446,8 @@ def test_kernel_constants_match_the_sources():
             fb._TC_PART_PAD, fb._MAX_SMEM) == (
         tc["THREADS"], tc["MAX_CLUSTER"], tc["SMALL_BATCH"], tc["CHUNK"],
         tc["RING_ROW"], tc["RING_SLOTS"], tc["PART_PAD"], tc["MAX_SMEM"])
+    assert (fb._BWD_TC_CLUSTER, fb._BWD_TC_MAX_EF, fb._BWD_TC_MAX_EC) == (
+        tc["BWD_CLUSTER"], tc["BWD_MAX_EF"], tc["BWD_MAX_EC"])
 
 
 # ---------------------------------------------------------------------------

@@ -137,7 +137,8 @@ def test_cli_flags(tmp_path, monkeypatch, capsys):
     for flag in ("--dp", "--debug-nans", "--disable-jit", "--bogus"):
         assert mnist_nn.main(["run", flag]) == 1
     out = capsys.readouterr().out
-    assert "ROADMAP Queue 1 item 10" in out and "Unrecognized flag" in out
+    assert "ROADMAP Queue 1, the debug item" in out
+    assert "Unrecognized flag" in out
     for flag in ("--jsonl=m.jsonl", "--batch=64", "--per-batch",
                  "--scan-unroll=2"):
         assert mnist_nn.main(["run", flag]) == 1

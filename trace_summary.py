@@ -24,6 +24,15 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "python_function", "user_annotation")
 
 
+def device_by_name(trace: dict) -> dict:
+    """{name: summed µs} of the trace's device events (``DEVICE_CATS``)."""
+    out = collections.defaultdict(float)
+    for e in trace["traceEvents"]:
+        if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS:
+            out[e["name"]] += e["dur"]
+    return dict(out)
+
+
 def summarize(trace: dict, top: int) -> str:
     ev = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
     t0 = min(e["ts"] for e in ev)
