@@ -56,6 +56,8 @@ def lib():
     handle.bla_csv_write.argtypes = [
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_float),
         ctypes.c_long, ctypes.c_long]
+    handle.bla_count_lines.restype = ctypes.c_long
+    handle.bla_count_lines.argtypes = [ctypes.c_char_p]
     handle.bla_cifar_read.restype = ctypes.c_long
     handle.bla_cifar_read.argtypes = [
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8),
@@ -100,6 +102,18 @@ def csv_write(path: str, data: np.ndarray) -> bool:
     if rc != 0:
         raise IOError(f"native CSV write failed: {path}")
     return True
+
+
+def count_lines(path: str) -> int | None:
+    """Native count of newline characters, or None if the native library is
+    unavailable."""
+    handle = lib()
+    if handle is None:
+        return None
+    n = handle.bla_count_lines(path.encode())
+    if n < 0:
+        raise FileNotFoundError(path)
+    return n
 
 
 def cifar_read(path: str, max_examples: int = 10000):

@@ -96,3 +96,11 @@ def write_csv_matrix(path: str, array: np.ndarray) -> None:
     with open(path, "w") as f:
         for row in arr:
             f.write("".join(f"{v:f}," for v in row) + "\n")
+
+
+def count_num_lines(path: str) -> int:
+    """Count newline characters. ≈ ``count_num_lines`` (lib/csv.c:72)."""
+    n = _native.count_lines(str(path))
+    if n is None:
+        n = Path(path).read_bytes().count(b"\n")
+    return n

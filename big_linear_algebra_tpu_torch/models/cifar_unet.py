@@ -919,12 +919,6 @@ def run(num_predictions: int = 1, flags=None) -> None:
         print(f"wrote {path}")
 
 
-_PARALLEL = ("the parallel modes are not ported yet (ROADMAP Queue 1, the "
-             "parallel-modes item)")
-_DISPATCH = ("an XLA dispatch mode; the port runs one eager step per batch "
-             "(a CUDA graph over a step is later work)")
-
-
 def main(argv=None) -> int:
     return common.run_cli(
         "cifar_unet", init, train, run, argv=argv,
@@ -943,10 +937,10 @@ def main(argv=None) -> int:
                      "masks come from, so recomputed masks would differ "
                      "from the forward's; it waits for a port that "
                      "handles that",
-            **{f: _DISPATCH for f in ("scan-steps", "scan-unroll",
-                                      "host-loop")},
-            **{f: _PARALLEL for f in ("dp", "tp", "pp", "pp-micro",
-                                      "pp-schedule")},
+            **{f: common.XLA_DISPATCH_MODE
+               for f in ("scan-steps", "scan-unroll", "host-loop")},
+            **{f: common.PARALLEL_NOT_PORTED
+               for f in ("dp", "tp", "pp", "pp-micro", "pp-schedule")},
         })
 
 

@@ -93,6 +93,12 @@ _BASE_FLAGS = frozenset({"profile", "device"})
 # JAX-package flags with no port yet: rejected with the reason.
 _DEBUG = "not ported yet (ROADMAP Queue 1, the debug item: utils/debug.py)"
 _NOT_PORTED = {"debug-nans": _DEBUG, "disable-jit": _DEBUG}
+# Reasons the model CLIs give for the flags of the JAX package's parallel
+# modes and XLA dispatch modes.
+PARALLEL_NOT_PORTED = ("the parallel modes are not ported yet (ROADMAP Queue "
+                       "1, the parallel-modes item)")
+XLA_DISPATCH_MODE = ("an XLA dispatch mode; the port runs one eager step per "
+                     "batch (a CUDA graph over a step is later work)")
 
 
 def positive_int_flag(flags, name: str) -> int:

@@ -1,36 +1,61 @@
 """mnist_nn: the 784→256→128→10 MLP (≈ model/mnist_nn.c), the counterpart
 of ``big_linear_algebra_tpu/models/mnist_nn.py``.
 
-Ported so far: the serving path.
-- ``init``: He-uniform weights U(±√(6/fan_in)) and zero biases
-  (model/mnist_nn.c:97-142), drawn from a ``torch.Generator`` seeded with
-  ``Config.seed``, saved in the reference CSV layout (weights_N.csv (out, in)
-  row-major, biases_N.csv one line) — the same files the JAX package reads.
-- ``run``: evaluates the test set as one batch (model/mnist_nn.c:401-490).
-  Each of the three dense layers is one launch of the GEMM kernel with the
-  bias and ReLU fused into its epilogue.
-``train`` is not ported yet; ``--dp`` and the train-only flags
-(``--batch``, ``--per-batch``, ``--scan-unroll``, ``--jsonl``) are rejected.
+- architecture, batch 64, SGD lr 0.02, He-uniform init with zero biases
+  (model/mnist_nn.c:11-12,97-142), drawn from a ``torch.Generator`` seeded
+  with ``Config.seed`` (the JAX package's values differ: its generator is
+  ``jax.random``'s);
+- loss: softmax + cross-entropy (ε=1e-15) with the gradient seed scaled by
+  1/input_size, the reference's ``scale = 1/784`` (model/mnist_nn.c:260,
+  SURVEY.md §7.10);
+- per-gradient Frobenius clip, inert at the default ∞ threshold, as the
+  reference is built (model/mnist_nn.c:13,76-81);
+- epoch metrics: average accuracy and CE loss over the examples
+  (model/mnist_nn.c:339-341), epoch seconds and images/s;
+- CSV checkpoints in the reference layout (weights_N.csv (out, in)
+  row-major, biases_N.csv one line), the same files the JAX package reads
+  and writes; ``train`` resumes from them (model/mnist_nn.c:165-170,344-376).
+
+Verbs: ``init``; ``train N``, N epochs of SGD; ``run [n]``, the test set as
+one batch (model/mnist_nn.c:401-490). Each dense layer is one GEMM with the
+bias and ReLU fused into its epilogue, and its backward the JAX package's
+hand-written rules (``nn/dense.py``, ``nn/losses.py``): two more GEMMs, nt
+and tn. ``ops/matmul.py``'s ``_dispatch`` sends each GEMM of at least 2²²
+FLOPs to the kernel K1 (at batch 64: layers 1 and 2, five launches a
+step) and the rest to the plain product. A train epoch keeps the
+dataset on the device and ships one permutation per epoch; ``--per-batch``
+builds each batch on the host instead, as the reference does. The numpy
+permutation is the JAX package's (``default_rng(Config.seed)``), so both
+packages visit the examples in the same order.
+
+Flags: ``--device=cuda|cpu`` (default ``cuda``), ``--batch=N``,
+``--per-batch``, ``--jsonl=PATH``; ``--scan-unroll`` (an XLA dispatch mode)
+and ``--dp`` are rejected with their reasons.
 
 Batch-major activations (B, 784) with (in, out) weights, as in the JAX
-package. The device comes from ``--device=cuda|cpu`` (default ``cuda``).
+package. Unlike the JAX package's functional step, ``train_step`` updates
+the model's parameters in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from pathlib import Path
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from big_linear_algebra_tpu_torch.ckpt import csv_layouts
+from big_linear_algebra_tpu_torch.ckpt.csv_layouts import layout_exists
 from big_linear_algebra_tpu_torch.data import synth
 from big_linear_algebra_tpu_torch.data.mnist import MnistDataset
 from big_linear_algebra_tpu_torch.models import common
 from big_linear_algebra_tpu_torch.nn import Dense, he_uniform, softmax_cross_entropy
+from big_linear_algebra_tpu_torch.ops.matrix import frobenius_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +64,9 @@ class Config:
     layer_1: int = 256             # LAYER_1_SIZE
     layer_2: int = 128             # LAYER_2_SIZE
     layer_3: int = 10              # LAYER_3_SIZE
+    batch_size: int = 64           # SGD_BATCH_SIZE, :11
+    learn_rate: float = 0.02       # SGD_LEARN_RATE_MULTIPLIER, :12
+    grad_clip: float = float("inf")  # SGD_GRADIENT_CLIP, :13
     seed: int = 42                 # srand(42), :513
 
     @property
@@ -144,6 +172,14 @@ class MnistNN(nn.Module):
                 layer.bias.copy_(params[f"b{i}"])
         return model
 
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The parameters under the JAX package's keys (the tensors
+        themselves: ``train_step`` updates them in place)."""
+        out = {}
+        for i, layer in enumerate(self.layers, start=1):
+            out[f"w{i}"], out[f"b{i}"] = layer.weight, layer.bias
+        return out
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, 784) scaled to [0, 1] by the caller (matrix_scale 1/255,
         model/mnist_nn.c:218) → logits (B, 10)."""
@@ -162,6 +198,74 @@ def loss_and_metrics(model: MnistNN, x, onehot, mask, cfg: Config = CONFIG):
     # unscaled CE sum for the reference's epoch-avg-loss metric
     ce_sum = loss * cfg.input_size
     return loss, (correct, ce_sum)
+
+
+def _clip(g: torch.Tensor, threshold: float) -> torch.Tensor:
+    """Per-gradient Frobenius clip (≈ clip_gradient, model/mnist_nn.c:76-81).
+    Inert at the default ∞ threshold, as the reference is built."""
+    if threshold == float("inf"):
+        return g
+    norm = frobenius_norm(g)
+    return torch.where(norm > threshold, g * (threshold / norm), g)
+
+
+def train_step(model: MnistNN, x, onehot, mask, cfg: Config = CONFIG):
+    """One SGD step on one batch, in place: the forward, ``loss.backward()``
+    through the hand-written backwards, the clip, then p − lr·g. Returns
+    (correct, ce_sum) as tensors on the model's device; reading them waits
+    for the device, so callers read them once per epoch."""
+    model.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        loss, (correct, ce_sum) = loss_and_metrics(model, x, onehot, mask,
+                                                   cfg)
+        loss.backward()
+    with torch.no_grad():
+        for p in model.parameters():
+            p -= cfg.learn_rate * _clip(p.grad, cfg.grad_clip)
+    return correct, ce_sum.detach()
+
+
+def epoch_step_resident(model: MnistNN, x_dev, y_dev, perm,
+                        cfg: Config = CONFIG):
+    """A whole epoch against a device-resident dataset: the host sends only
+    the permutation. ``x_dev``: (N, 784) raw 0-255 pixels; ``y_dev``: (N,)
+    labels; ``perm``: (n_batches·B,) indices, −1 = padding (the ragged last
+    batch's mask), all on the model's device. One eager step per batch.
+    Returns the epoch's summed (correct, ce_sum) as device tensors."""
+    b = cfg.batch_size
+    # a divisor on the device: PyTorch's CUDA division by a CPU scalar
+    # multiplies by its reciprocal, which rounds otherwise than the host's
+    # x / 255.0 in _make_batch (--per-batch)
+    scale = torch.full((), 255.0, dtype=x_dev.dtype, device=x_dev.device)
+    correct = ce_sum = 0.0
+    for batch_idx in perm.long().reshape(-1, b):
+        safe = torch.clamp(batch_idx, 0, x_dev.shape[0] - 1)
+        x = x_dev[safe] / scale
+        onehot = F.one_hot(y_dev[safe].long(), cfg.layer_3).to(torch.float32)
+        mask = (batch_idx >= 0).to(torch.float32)
+        c, ce = train_step(model, x, onehot, mask, cfg)
+        correct, ce_sum = correct + c, ce_sum + ce
+    return correct, ce_sum
+
+
+def epoch_step(model: MnistNN, xs, onehots, masks, cfg: Config = CONFIG):
+    """A whole epoch over pre-stacked batches: xs (n_batches, B, 784) scaled
+    to [0, 1], onehots (n_batches, B, 10), masks (n_batches, B). Returns the
+    summed (correct, ce_sum) as device tensors."""
+    correct = ce_sum = 0.0
+    for x, onehot, mask in zip(xs, onehots, masks):
+        c, ce = train_step(model, x, onehot, mask, cfg)
+        correct, ce_sum = correct + c, ce_sum + ce
+    return correct, ce_sum
+
+
+def epoch_permutation(rng: np.random.Generator, n: int,
+                      batch_size: int) -> np.ndarray:
+    """One epoch's order, padded with −1 to whole batches (int32), as the
+    JAX package's ``train`` draws it (one ``rng.permutation(n)``)."""
+    perm = np.full(-(-n // batch_size) * batch_size, -1, np.int32)
+    perm[:n] = rng.permutation(n).astype(np.int32)
+    return perm
 
 
 @torch.inference_mode()
@@ -194,10 +298,54 @@ def init(flags=None, cfg: Config = CONFIG) -> None:
     print(f"initialized parameters in {ckpt_dir()}")
 
 
-def train(num_epochs: int, *args, flags=None, cfg: Config = CONFIG) -> int:
-    print("mnist_nn train is not ported to PyTorch yet (it needs the GEMM's "
-          "hand-written backward); use big_linear_algebra_tpu.models.mnist_nn")
-    return 1
+def train(num_epochs: int, *args, flags=None, cfg: Config = CONFIG) -> None:
+    """Train ``num_epochs`` epochs from the CSV checkpoint (or a fresh init),
+    then write the CSVs."""
+    flags = flags or {}
+    if "batch" in flags:
+        # --batch=N: scale past the reference's 64 (model/mnist_nn.c:11)
+        cfg = dataclasses.replace(
+            cfg, batch_size=common.positive_int_flag(flags, "batch"))
+    per_batch = common.presence_flag(flags, "per-batch")
+    device = common.device_flag(flags)
+    train_csv, _ = synth.ensure_mnist(str(common.data_dir()))
+    if layout_exists(str(ckpt_dir()), _LAYOUT):
+        params = load_params_csv()  # training IS resume (mnist_nn.c:165-170)
+    else:
+        print("no checkpoint found; initializing")
+        params = init_params(torch.Generator().manual_seed(cfg.seed), cfg)
+    model = MnistNN.from_params(params, cfg, device=device)
+    data = MnistDataset.from_csv(train_csv)
+    n = data.num_examples
+    rng = np.random.default_rng(cfg.seed)
+    logger = common.MetricsLogger(flags.get("jsonl") or None)
+    try:
+        if not per_batch:  # the dataset to the device once
+            x_dev = torch.from_numpy(data.x).to(device)
+            y_dev = torch.from_numpy(data.y).to(device)
+        for epoch in range(num_epochs):
+            t0 = time.perf_counter()
+            if per_batch:  # reference-style: host batches, one at a time
+                correct_sum, loss_sum = 0.0, 0.0
+                for xb, yb in data.epoch_batches(rng, cfg.batch_size):
+                    batch = (torch.from_numpy(a).to(device) for a in
+                             _make_batch(xb, yb, cfg.batch_size, cfg.layer_3))
+                    correct, ce_sum = train_step(model, *batch, cfg)
+                    correct_sum += float(correct)
+                    loss_sum += float(ce_sum)
+            else:
+                perm = torch.from_numpy(
+                    epoch_permutation(rng, n, cfg.batch_size)).to(device)
+                correct, ce_sum = epoch_step_resident(model, x_dev, y_dev,
+                                                      perm, cfg)
+                correct_sum, loss_sum = float(correct), float(ce_sum)
+            dt = time.perf_counter() - t0
+            logger.log(epoch=epoch, avg_accuracy=correct_sum / n,
+                       avg_loss=loss_sum / n, epoch_seconds=dt,
+                       images_per_sec=n / dt)
+        save_params_csv(model.params())
+    finally:
+        logger.close()
 
 
 def run(num_predictions: int = -1, flags=None, cfg: Config = CONFIG) -> None:
@@ -222,15 +370,9 @@ def run(num_predictions: int = -1, flags=None, cfg: Config = CONFIG) -> None:
 def main(argv=None) -> int:
     return common.run_cli(
         "mnist_nn", init, train, run, argv=argv,
-        unsupported_flags={
-            "dp": "data parallelism is not ported yet (ROADMAP Queue 1, "
-                  "the parallel-modes item)",
-            "per-batch": "train is not ported yet",
-            "batch": "train is not ported yet",
-            "scan-unroll": "train is not ported yet",
-            "jsonl": "train, the only verb that logs metrics, is not ported "
-                     "yet",
-        })
+        extra_flags=("batch", "per-batch", "jsonl"),
+        unsupported_flags={"dp": common.PARALLEL_NOT_PORTED,
+                           "scan-unroll": common.XLA_DISPATCH_MODE})
 
 
 if __name__ == "__main__":

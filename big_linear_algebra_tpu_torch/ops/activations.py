@@ -1,8 +1,19 @@
-"""Activations, the counterpart of ``big_linear_algebra_tpu/ops/activations.py``.
+"""Activations, the counterpart of ``big_linear_algebra_tpu/ops/activations.py``
+(≈ reference ``lib/util.c``).
 
-Ported so far: ``relu`` (lib/util.c:7), a ``torch.autograd.Function`` whose
-backward is the JAX package's hand-written ``g * (x > 0)`` on the
-pre-activation values (model/mnist_nn.c:273-278).
+- ``relu``              ≈ ``relu``             (lib/util.c:7)
+- ``softmax``           ≈ ``softmax``          (lib/util.c:15, column-wise,
+                                                max-subtracted for stability)
+- ``softmax_row_wise``  ≈ ``softmax_row_wise`` (lib/util.c:36)
+
+Each is a ``torch.autograd.Function`` whose backward is the JAX package's
+hand-written rule:
+
+- ReLU': ``g * (x > 0)`` on the pre-activation values
+  (model/mnist_nn.c:273-278).
+- Softmax: the full Jacobian ``dx = y ⊙ (g − ⟨g, y⟩)`` per softmax vector
+  (model/cifar_unet.c:1246-1258); the max subtracted before the exp takes no
+  gradient.
 """
 
 from __future__ import annotations
@@ -25,3 +36,32 @@ class _Relu(torch.autograd.Function):
 def relu(x: torch.Tensor) -> torch.Tensor:
     """max(x, 0); NaN propagates, as with ``jnp.maximum``."""
     return _Relu.apply(x)
+
+
+class _Softmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        # the per-vector max, as the reference tracks it (lib/util.c:15-33)
+        e = torch.exp(x - torch.amax(x, dim=axis, keepdim=True))
+        y = e / torch.sum(e, dim=axis, keepdim=True)
+        ctx.axis = axis
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        inner = torch.sum(g * y, dim=ctx.axis, keepdim=True)
+        return (y * (g - inner)).to(g.dtype), None
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """Column-wise softmax (each column sums to 1) for (classes, batch)
+    layouts. ≈ ``softmax`` (lib/util.c:15)."""
+    return _Softmax.apply(x, 0)
+
+
+def softmax_row_wise(x: torch.Tensor) -> torch.Tensor:
+    """Row-wise softmax (each row sums to 1), as on attention score rows.
+    ≈ ``softmax_row_wise`` (lib/util.c:36)."""
+    return _Softmax.apply(x, -1)

@@ -17,9 +17,15 @@ CPU tensor (the CPU tests' path, as Pallas interpret mode is the JAX
 package's). On a CUDA tensor the kernel launches or the call raises: there is
 no fallback.
 
-Forward only: the hand-written backward (``_matmul_bwd`` in the JAX package)
-comes with training. Until then ``_dispatch`` raises when autograd would need
-a graph through it, because the ctypes launch would silently cut the graph.
+The three public functions go through ``_MatmulFn``, whose backward is the
+JAX package's hand-written ``_matmul_bwd``: both gradients are GEMMs of the
+other two variants, each through ``_dispatch`` (so the small/f64 rule and the
+kernel apply there too), and no transpose is materialized. ``_dispatch``
+itself records no graph and raises when autograd would need one through it:
+a ctypes launch would cut the graph silently, and on the CPU autograd would
+differentiate the plain product instead of the hand-written rule. Grad mode
+is off inside a Function's forward and backward, so its proper callers
+(``_MatmulFn``, ``nn/dense.py``, ``nn/conv_pallas.py``) never trip it.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from typing import Literal, Optional
 
 import torch
 
-from big_linear_algebra_tpu_torch.ops import cuda_utils, forward_only
+from big_linear_algebra_tpu_torch.ops import cuda_utils
 from big_linear_algebra_tpu_torch.ops.precision import accum_dtype
 
 # Below this many FLOPs the plain product is used (the JAX package's rule,
@@ -54,10 +60,11 @@ _VARIANTS = {
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches since import (or since a caller last set it to 0). Counted
-# only where the CUDA kernel is launched, so a run can show that its main
-# path went through the kernel.
+# Kernel launches since import (or since a caller last set them to 0), in
+# all and by variant. Counted only where the CUDA kernel is launched, so a
+# run can show that its main path went through the kernel.
 launch_count = 0
+variant_launch_counts = {"nn": 0, "nt": 0, "tn": 0}
 
 
 def _plain_mm(a: torch.Tensor, b: torch.Tensor, variant: Variant,
@@ -122,6 +129,7 @@ def _kernel_mm(a: torch.Tensor, b: torch.Tensor, variant: Variant,
                 m, n, k, stream)
     cuda_utils.check(lib, rc, f"matmul_{variant} kernel launch")
     launch_count += 1
+    variant_launch_counts[variant] += 1
     return out
 
 
@@ -141,7 +149,12 @@ def _dispatch(a: torch.Tensor, b: torch.Tensor, variant: Variant,
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
     if activation not in (None, "relu"):
         raise ValueError(f"unsupported fused activation {activation!r}")
-    forward_only.check(f"matmul_{variant}", a, b, bias)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, bias)):
+        raise RuntimeError(
+            f"_dispatch (matmul_{variant}) records no autograd graph; "
+            "differentiate through matmul, matmul_nt, matmul_tn, dense or "
+            "conv2d_im2col, whose backwards are the hand-written rules")
     promoted = torch.result_type(a, b)
     if out_dtype is None:
         out_dtype = promoted
@@ -159,18 +172,47 @@ def _dispatch(a: torch.Tensor, b: torch.Tensor, variant: Variant,
     raise ValueError(f"matmul_{variant}: no kernel for device {a.device}")
 
 
+# dC = g for C = f(A, B) (JAX ``_matmul_bwd``, the reference's dense backward
+# model/mnist_nn.c:267-289 without its matrix_transpose clones):
+#   nn: C = A @ B     → dA = g @ B.T  = nt(g, B);   dB = A.T @ g = tn(A, g)
+#   nt: C = A @ B.T   → dA = g @ B    = nn(g, B);   dB = g.T @ A = tn(g, A)
+#   tn: C = A.T @ B   → dA = B @ g.T  = nt(B, g);   dB = A @ g   = nn(A, g)
+class _MatmulFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, variant):
+        ctx.variant = variant
+        ctx.save_for_backward(a, b)
+        return _dispatch(a, b, variant)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(torch.result_type(a, b))
+        need_a, need_b = ctx.needs_input_grad[:2]
+        if ctx.variant == "nn":
+            da = _dispatch(g, b, "nt", a.dtype) if need_a else None
+            db = _dispatch(a, g, "tn", b.dtype) if need_b else None
+        elif ctx.variant == "nt":
+            da = _dispatch(g, b, "nn", a.dtype) if need_a else None
+            db = _dispatch(g, a, "tn", b.dtype) if need_b else None
+        else:  # tn
+            da = _dispatch(b, g, "nt", a.dtype) if need_a else None
+            db = _dispatch(a, g, "nn", b.dtype) if need_b else None
+        return da, db, None
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b``. Rebuilds ``matrix_multiply`` (lib/matrix.c:35)."""
-    return _dispatch(a, b, "nn")
+    return _MatmulFn.apply(a, b, "nn")
 
 
 def matmul_nt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b.T`` without materializing the transpose
     (model/mnist_nn.c:267-269)."""
-    return _dispatch(a, b, "nt")
+    return _MatmulFn.apply(a, b, "nt")
 
 
 def matmul_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a.T @ b`` without materializing the transpose
     (model/mnist_nn.c:273-275)."""
-    return _dispatch(a, b, "tn")
+    return _MatmulFn.apply(a, b, "tn")

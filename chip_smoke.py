@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases, one line each (or a few), in the order 1–7, 16–18, 11–15, 8–10,
-19–21; any failure exits non-zero:
+Phases, one line each (or a few), in the order 1–4, 22, 5–7, 16–18,
+11–15, 8–10, 19–21; any failure exits non-zero:
 1. environment: the card's name and power limit, torch and CUDA versions;
    fails when no CUDA device is available;
 2. build: compiles the kernels from ``big_linear_algebra_tpu_torch/csrc/``
@@ -16,18 +16,35 @@ Phases, one line each (or a few), in the order 1–7, 16–18, 11–15, 8–10,
    ``conv_implicit.cu``);
 3. K1 against plain, on the card: nn/nt/tn x f32/bf16 x
    {no epilogue, bias, bias+ReLU} at the three mnist_nn layer shapes and a
-   ragged one, against the plain PyTorch version with TF32 off; a TF32
+   ragged one, and f32 x the same epilogues at the five K1 GEMMs of an
+   mnist_nn train step at batch 64 (layers 1 and 2's forwards (nn) and
+   weight gradients (tn), layer 2's data gradient (nt)), against the plain
+   PyTorch version with TF32 off; a TF32
    product at the layer shapes must fail the f32 bound; two f32 runs
    bit-equal at each of those shapes; the kernels' registers, shared
    memory and spills (the build's ``-Xptxas -v``), blocks per SM and the
    rule's grid (block shape, K splits over a cluster) at each shape,
-   failing on a spill or on clusters that do not all fit at once; then the
-   kernel's time beside the plain version's and torch.matmul's (CUDA events,
-   after warm-up);
+   failing on a spill or on clusters that do not all fit at once (the
+   train step's shapes included); then the kernel's time beside the plain
+   version's and torch.matmul's (CUDA events, after warm-up), at the layer
+   shapes and at the train step's K1 GEMMs, with each one's bound;
 4. mnist_nn main path: ``mnist_nn init`` then ``mnist_nn run`` on the
    2048-image synthesized test set in a temporary data directory, with K1's
    launch count read around it; the eval is recomputed on the CPU in f64 by
    the plain path from the same checkpoint;
+22. mnist_nn train path (run after 4): in a fresh temporary data directory
+   ``mnist_nn init``, ``train 1`` (the 8192-image synthesized set, batch
+   64, SGD, on the card) and ``run``, with K1's launches by variant read
+   around ``train``: they must equal the epoch's steps times the train
+   step's K1 GEMMs (2 nn, 1 nt, 2 tn, derived from the widths and
+   ``_SMALL_FLOPS``); the epoch's average loss finite and below the
+   untrained loss; ``train 1 --per-batch`` from the same initial CSVs
+   bit-equal; every trained leaf within ``TRAIN_RTOL_OF_UPDATE`` of its
+   update from the same epoch in f64 on the CPU (same CSVs, same
+   permutation); ``run``'s correct count equal to the CPU f64 plain path's
+   on the trained checkpoint; then one epoch's host wall time and a
+   ``torch.profiler`` trace of one epoch (``trace_summary.py``): the card's
+   busy share and K1's share;
 5. K2 against plain, on the card: f32/bf16 x d in {16, 64} x (B, N) in
    {(1, 1024) the U-Net's shape, (2, 300) ragged, (1, 4096), (1, 16384)},
    and the other head dims the kernel takes at (2, 300); o and lse against
@@ -150,8 +167,9 @@ Phases, one line each (or a few), in the order 1–7, 16–18, 11–15, 8–10,
 21. K3 at the U-Net's sites: phase 10's four flash sites through
    ``flash_attention(..., stream=False)`` (K3a, then the two-pass route),
    with the launches read around them, against the plain backward.
-Then a JSON line of per-kernel results, the ``nvidia-smi`` name/power-limit
-line, and as the last line ``{"ok": true, "device": {...}}``.
+Then a JSON line of per-kernel results (K1's launches: phase 4's ``run``
+and phase 22's train epoch), the ``nvidia-smi`` name/power-limit line, and
+as the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -188,6 +206,18 @@ F32_ULPS = 8
 BF16_RTOL_OF_MAX = 2e-2
 # Main path: f32 kernel logits against the CPU f64 plain path.
 LOGIT_ATOL = 1e-3
+# mnist_nn train 1 on the card (f32, K1) against the same epoch on the CPU
+# in f64 (plain path) from the same CSVs and permutation, leaf by leaf:
+#     max|card - f64| <= TRAIN_RTOL_OF_UPDATE * max|f64 - initial|.
+# Fixed before the first run, from the CPU plain path's f32 epoch against its
+# f64 epoch on the same synthesized set (three permutations): 2.2e-7 to
+# 3.6e-5 of each leaf's largest update; but 6.0e-4 (b1) when one layer-1
+# pre-activation falls within f32 rounding of 0 and its ReLU mask flips for
+# one example and step. 5e-3 leaves room for several such flips and still
+# fails a gradient that is off by 0.5% of the epoch's update. (Against
+# max|ref| the weights would say little: one epoch moves them by ~3% of
+# their initial size.)
+TRAIN_RTOL_OF_UPDATE = 5e-3
 
 # K2 against its plain version on the same inputs. f32: both sides exp2 and
 # sum in f32 and differ only in the order of the sums (the kernel merges
@@ -424,6 +454,32 @@ def f32_bound(a, b, k: int) -> float:
             * 2.0 ** -24)
 
 
+def train_step_gemms(sizes, batch: int):
+    """(variant, M, K, N) of every GEMM of one mnist_nn train step at
+    ``batch``, as nn/dense.py issues them: each layer's forward (nn), its
+    data gradient (nt; none for the input layer, whose input takes no
+    gradient) and its weight gradient (tn)."""
+    gemms = []
+    for i, (fan_in, fan_out) in enumerate(zip(sizes, sizes[1:])):
+        gemms.append(("nn", batch, fan_in, fan_out))
+        if i > 0:
+            gemms.append(("nt", batch, fan_out, fan_in))
+        gemms.append(("tn", fan_in, batch, fan_out))
+    return gemms
+
+
+def k1_train_gemms():
+    """The GEMMs of an mnist_nn train step (``Config``'s widths and batch)
+    that ``_dispatch`` sends to K1 in f32: 2*M*N*K >= ``_SMALL_FLOPS``."""
+    from big_linear_algebra_tpu_torch.models import mnist_nn
+    from big_linear_algebra_tpu_torch.ops import matmul as mm
+
+    cfg = mnist_nn.CONFIG
+    return [(v, m, k, n) for v, m, k, n in
+            train_step_gemms(cfg.sizes, cfg.batch_size)
+            if 2 * m * n * k >= mm._SMALL_FLOPS]
+
+
 def phase_kernel_vs_plain() -> float:
     """Every case against the plain version; returns the worst f32 max abs
     error."""
@@ -435,45 +491,55 @@ def phase_kernel_vs_plain() -> float:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n_cases = 0
     bad = []
-    for m, k, n in MAIN_SHAPES + [RAGGED_SHAPE]:
-        for variant in ("nn", "nt", "tn"):
-            for dtype in (torch.float32, torch.bfloat16):
-                a, b, bias = _operands(variant, m, k, n, dtype, gen)
-                if dtype == torch.float32:
-                    tol = f32_bound(a, b, k)
-                for use_bias, act in ((False, None), (True, None),
-                                      (True, "relu")):
-                    bb = bias if use_bias else None
-                    got = mm._kernel_mm(a, b, variant, dtype, bb, act)
-                    want = mm._plain_mm(a, b, variant, dtype, bb, act)
-                    torch.cuda.synchronize()
-                    err = (got.float() - want.float()).abs().max().item()
-                    case = (f"{variant} {str(dtype)[6:]} M={m} K={k} N={n} "
-                            f"bias={use_bias} act={act}")
-                    if dtype == torch.float32:
-                        if not err <= tol:
-                            bad.append(f"{case}: max abs err {err} > "
-                                       f"{F32_ULPS}*K*max|a|*max|b|*2^-24 "
-                                       f"= {tol}")
-                        worst[dtype] = max(worst[dtype], err / tol)
-                        worst_abs = max(worst_abs, err)
-                    else:
-                        scale = want.float().abs().max().item()
-                        rel = err / scale
-                        if not rel <= BF16_RTOL_OF_MAX:
-                            bad.append(f"{case}: err {err} / max|ref| "
-                                       f"{scale} = {rel} > "
-                                       f"{BF16_RTOL_OF_MAX}")
-                        worst[dtype] = max(worst[dtype], rel)
-                    n_cases += 1
+    cases = [(variant, m, k, n, dtype)
+             for m, k, n in MAIN_SHAPES + [RAGGED_SHAPE]
+             for variant in ("nn", "nt", "tn")
+             for dtype in (torch.float32, torch.bfloat16)]
+    train = [(v, m, k, n, torch.float32) for v, m, k, n in k1_train_gemms()]
+    worst_train = 0.0
+    for variant, m, k, n, dtype in cases + train:
+        a, b, bias = _operands(variant, m, k, n, dtype, gen)
+        if dtype == torch.float32:
+            tol = f32_bound(a, b, k)
+        for use_bias, act in ((False, None), (True, None),
+                              (True, "relu")):
+            bb = bias if use_bias else None
+            got = mm._kernel_mm(a, b, variant, dtype, bb, act)
+            want = mm._plain_mm(a, b, variant, dtype, bb, act)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            case = (f"{variant} {str(dtype)[6:]} M={m} K={k} N={n} "
+                    f"bias={use_bias} act={act}")
+            if dtype == torch.float32:
+                if not err <= tol:
+                    bad.append(f"{case}: max abs err {err} > "
+                               f"{F32_ULPS}*K*max|a|*max|b|*2^-24 "
+                               f"= {tol}")
+                worst[dtype] = max(worst[dtype], err / tol)
+                worst_abs = max(worst_abs, err)
+                if (variant, m, k, n, dtype) in train:
+                    worst_train = max(worst_train, err / tol)
+            else:
+                scale = want.float().abs().max().item()
+                rel = err / scale
+                if not rel <= BF16_RTOL_OF_MAX:
+                    bad.append(f"{case}: err {err} / max|ref| "
+                               f"{scale} = {rel} > "
+                               f"{BF16_RTOL_OF_MAX}")
+                worst[dtype] = max(worst[dtype], rel)
+            n_cases += 1
     if bad:
         fail(f"{len(bad)} of {n_cases} kernel cases disagree with the plain "
              "version:\n  " + "\n  ".join(bad))
+    train_shapes = ", ".join(f"{v} M={m} K={k} N={n}"
+                             for v, m, k, n, _ in train)
     print(f"[3 kernel vs plain] {n_cases} cases pass: f32 max abs err "
           f"{worst_abs:.3e}, worst err / bound {worst[torch.float32]:.3f} "
           f"(bound {F32_ULPS}*K*max|a|*max|b|*2^-24); bf16 max err / "
-          f"max|ref| {worst[torch.bfloat16]:.3e} (tol {BF16_RTOL_OF_MAX})",
-          flush=True)
+          f"max|ref| {worst[torch.bfloat16]:.3e} (tol {BF16_RTOL_OF_MAX}); "
+          f"of them {3 * len(train)} f32 cases at the mnist_nn train step's "
+          f"K1 GEMMs ({train_shapes}), worst err / bound "
+          f"{worst_train:.3f}", flush=True)
     return worst_abs
 
 
@@ -583,6 +649,56 @@ def phase_timing() -> dict:
     return totals
 
 
+def phase_train_gemm_timing() -> dict:
+    """f32 K1 at each of the mnist_nn train step's K1 GEMMs, the forwards
+    with their layer's bias+ReLU epilogue: the kernel, the plain version and
+    bare torch.matmul on the same stored operands (the transposes as
+    views), in turns (kernel, plain, matmul, matmul, plain, kernel), the
+    lower of each pair kept; with each GEMM's bound. Returns the sums over
+    one step's K1 GEMMs."""
+    from big_linear_algebra_tpu_torch.ops import matmul as mm
+
+    gen = torch.Generator().manual_seed(3)
+    names = ("kernel", "plain", "torch.matmul")
+    totals = {name: 0.0 for name in names + ("bound",)}
+    parts = []
+    for variant, m, k, n in k1_train_gemms():
+        a, b, bias = _operands(variant, m, k, n, torch.float32, gen)
+        fwd = variant == "nn"  # a layer's forward: bias and ReLU fused
+        bias, act = (bias, "relu") if fwd else (None, None)
+        op_a = a.T if variant == "tn" else a
+        op_b = b.T if variant == "nt" else b
+        fns = {
+            "kernel": lambda: mm._kernel_mm(a, b, variant, torch.float32,
+                                            bias, act),
+            "plain": lambda: mm._plain_mm(a, b, variant, torch.float32,
+                                          bias, act),
+            "torch.matmul": lambda: torch.matmul(op_a, op_b),
+        }
+        runs = {name: [] for name in names}
+        for name in names + names[::-1]:
+            runs[name].append(_time_ms(fns[name]))
+        ms = {name: min(d for d, _ in runs[name]) for name in names}
+        host = min(h for _, h in runs["kernel"])
+        bound, bound_by = k1_bound_ms(m, k, n, bias=fwd)
+        for name in names:
+            totals[name] += ms[name]
+        totals["bound"] += bound
+        parts.append(f"{variant} M={m} K={k} N={n}"
+                     f"{' +bias+ReLU' if fwd else ''}: kernel "
+                     f"{ms['kernel'] * 1e3:.2f} us (host per call "
+                     f"{host * 1e3:.2f} us), plain {ms['plain'] * 1e3:.2f} "
+                     f"us, torch.matmul {ms['torch.matmul'] * 1e3:.2f} us, "
+                     f"bound {bound * 1e3:.3f} us ({bound_by})")
+    print("[3 timing train step] f32 K1 at the mnist_nn train step's K1 "
+          "GEMMs (batch 64), device: " + "; ".join(parts)
+          + f" | per step: kernel {totals['kernel'] * 1e3:.2f} us, plain "
+          f"{totals['plain'] * 1e3:.2f} us, torch.matmul "
+          f"{totals['torch.matmul'] * 1e3:.2f} us, bound "
+          f"{totals['bound'] * 1e3:.3f} us", flush=True)
+    return totals
+
+
 def phase_k1_bitequal() -> None:
     """Two runs of K1 on the same operands must be bit-equal at each
     mnist_nn layer shape and the ragged one, for nn, nt and tn in f32 with
@@ -613,7 +729,8 @@ def phase_k1_build_info() -> None:
     """K1's kernels (wide and thin block shape x nn/nt/tn x f32/bf16 in):
     registers, shared memory and spills from the build's ``-Xptxas -v``,
     blocks per SM of each (occupancy API), and the rule's grid at each
-    mnist_nn layer shape and the ragged one. Fails on a spill, a missing
+    mnist_nn layer shape, the ragged one and the train step's K1 GEMMs.
+    Fails on a spill, a missing
     record, a block that does not fit, or a grid whose clusters do not all
     fit at once for one of the kernels
     (``cudaOccupancyMaxActiveClusters``)."""
@@ -647,7 +764,8 @@ def phase_k1_build_info() -> None:
         fail("K1 kernels (spill, incomplete record or no block fits):\n  "
              + "\n  ".join(bad))
     grids = []
-    for m, k, n in MAIN_SHAPES + [RAGGED_SHAPE]:
+    train = [(m, k, n) for _, m, k, n in k1_train_gemms()]
+    for m, k, n in MAIN_SHAPES + [RAGGED_SHAPE] + train:
         out = (ctypes.c_int * 4)()
         plan(m, n, k, out)
         shape, mt, nt, sp = out
@@ -674,10 +792,11 @@ def _bound(nbytes: float, ops_s: float):
     return ops_s * 1e3, "operations"
 
 
-def k1_bound_ms(m: int, k: int, n: int):
-    """K1 nn f32 with a bias: A, B and the bias read once, C written once;
-    2·M·N·K flops at the f32 CUDA-core peak."""
-    nbytes = 4 * (m * k + k * n + n + m * n)
+def k1_bound_ms(m: int, k: int, n: int, bias: bool = True):
+    """K1 f32 (any variant), with a bias unless ``bias`` is False: A, B and
+    the bias read once, C written once; 2·M·N·K flops at the f32 CUDA-core
+    peak."""
+    nbytes = 4 * (m * k + k * n + n * bias + m * n)
     return _bound(nbytes, 2 * m * n * k / PEAK_FLOPS[torch.float32])
 
 
@@ -761,6 +880,204 @@ def phase_main_path() -> int:
           f"{cpu_correct} on the CPU f64 plain path; max logit diff "
           f"{diff:.3e} (tol {LOGIT_ATOL})", flush=True)
     return launches
+
+
+@contextlib.contextmanager
+def _saved_params(mnist_nn):
+    """Within the block, each ``mnist_nn.save_params_csv`` call also keeps a
+    CPU copy of the parameters it writes: the trained values bit for bit,
+    before the CSV's six decimals."""
+    real = mnist_nn.save_params_csv
+    saved = []
+
+    def save(params, base=None):
+        saved.append({k: v.detach().cpu().clone() for k, v in params.items()})
+        real(params, base)
+
+    mnist_nn.save_params_csv = save
+    try:
+        yield saved
+    finally:
+        mnist_nn.save_params_csv = real
+
+
+def _zero_k1_counts(mm) -> None:
+    mm.launch_count = 0
+    for variant in mm.variant_launch_counts:
+        mm.variant_launch_counts[variant] = 0
+
+
+def _mnist_eval_f64(mnist_nn, params, data):
+    """(correct, CE sum, logits) of ``params`` on ``data`` as one batch, in
+    f64 on the CPU (the plain path)."""
+    x, onehot, mask = (torch.from_numpy(v).double() for v in
+                       mnist_nn._make_batch(data.x, data.y, data.num_examples,
+                                            mnist_nn.CONFIG.layer_3))
+    model = mnist_nn.MnistNN.from_params(params, device="cpu",
+                                         dtype=torch.float64)
+    correct, ce_sum = mnist_nn.eval_batch(model, x, onehot, mask)
+    with torch.inference_mode():
+        logits = model(x)
+    return int(correct), float(ce_sum), logits
+
+
+def phase_mnist_train() -> int:
+    """mnist_nn's train path: ``init``, ``train 1`` (the synthesized
+    8192-image set, batch 64, on the card), then ``run``, in a temporary
+    data directory. Fails unless K1's launches over the epoch are, by
+    variant, the steps times the train step's K1 GEMMs
+    (``k1_train_gemms``); the epoch's losses are finite and its average
+    below the untrained loss; ``train 1 --per-batch`` from the same initial
+    CSVs gives bit-equal parameters; every trained leaf lies within
+    ``TRAIN_RTOL_OF_UPDATE`` of its update from the same epoch in f64 on the
+    CPU; and ``run``'s correct count equals the CPU f64 plain path's on the
+    trained checkpoint. Then one epoch's host wall time and a
+    ``torch.profiler`` trace of one epoch (device busy share, K1's share).
+    Returns K1's launches in the epoch."""
+    import collections
+    import shutil
+
+    import numpy as np
+    from big_linear_algebra_tpu_torch.data import synth
+    from big_linear_algebra_tpu_torch.data.mnist import MnistDataset
+    from big_linear_algebra_tpu_torch.models import mnist_nn
+    from big_linear_algebra_tpu_torch.ops import matmul as mm
+
+    cfg = mnist_nn.CONFIG
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory(prefix="bla_smoke_") as tmp:
+        main_dir = os.path.join(tmp, "main")
+        os.environ["BLA_DATA_DIR"] = main_dir
+        with contextlib.redirect_stdout(out):
+            rc_init = mnist_nn.main(["init"])
+            train_csv, test_csv = synth.ensure_mnist(main_dir)
+        if rc_init != 0:
+            fail(f"mnist_nn init exited {rc_init}:\n{out.getvalue()}")
+        initial = mnist_nn.load_params_csv()
+        per_batch_dir = os.path.join(tmp, "per_batch")
+        shutil.copytree(main_dir, per_batch_dir)
+        data = MnistDataset.from_csv(train_csv)
+        n = data.num_examples
+        steps = -(-n // cfg.batch_size)
+        per_step = collections.Counter(v for v, *_ in k1_train_gemms())
+        want = {v: steps * per_step[v] for v in ("nn", "nt", "tn")}
+        _, ce0, _ = _mnist_eval_f64(mnist_nn, initial, data)
+        untrained = ce0 / n
+
+        runs = {}
+        for mode, where in (("resident", main_dir),
+                            ("--per-batch", per_batch_dir)):
+            os.environ["BLA_DATA_DIR"] = where
+            args = ["train", "1"] + ([mode] if mode != "resident" else [])
+            out = io.StringIO()
+            _zero_k1_counts(mm)
+            with _saved_params(mnist_nn) as saved, \
+                    contextlib.redirect_stdout(out):
+                rc = mnist_nn.main(args)
+            counts = dict(mm.variant_launch_counts)
+            text = out.getvalue()
+            if rc != 0 or len(saved) != 1:
+                fail(f"mnist_nn {' '.join(args)} exited {rc}:\n{text}")
+            if counts != want or mm.launch_count != sum(want.values()):
+                fail(f"mnist_nn {' '.join(args)}: K1 launched {counts} "
+                     f"({mm.launch_count} in all), expected {want}: {steps} "
+                     f"steps x {dict(per_step)}")
+            runs[mode] = (saved[0], _epoch_line(text, 0), counts)
+        trained, line, counts = runs["resident"]
+        loss = float(line["avg_loss"])
+        if not (math.isfinite(loss) and loss < untrained):
+            fail(f"train 1: avg_loss {loss} not finite or not below the "
+                 f"untrained loss {untrained}")
+        for k, v in trained.items():
+            if not (torch.isfinite(v).all() and torch.equal(
+                    v.view(torch.int32),
+                    runs["--per-batch"][0][k].view(torch.int32))):
+                fail(f"train 1 --per-batch: {k} not bit-equal to the "
+                     "resident epoch's (or not finite)")
+
+        # the same epoch in f64 on the CPU: same CSVs, same permutation
+        model64 = mnist_nn.MnistNN.from_params(initial, device="cpu",
+                                               dtype=torch.float64)
+        perm = mnist_nn.epoch_permutation(np.random.default_rng(cfg.seed), n,
+                                          cfg.batch_size)
+        mnist_nn.epoch_step_resident(
+            model64, torch.from_numpy(data.x).double(),
+            torch.from_numpy(data.y), torch.from_numpy(perm), cfg)
+        ratios, of_max = {}, {}
+        for k, ref in model64.params().items():
+            ref = ref.detach()
+            err = (trained[k].double() - ref).abs().max().item()
+            update = (ref - initial[k].double()).abs().max().item()
+            ratios[k] = err / update
+            of_max[k] = err / ref.abs().max().item()
+        if not max(ratios.values()) <= TRAIN_RTOL_OF_UPDATE:
+            fail(f"train 1 on the card against the f64 epoch on the CPU, "
+                 f"max|err| / max|update| per leaf {ratios} > "
+                 f"{TRAIN_RTOL_OF_UPDATE}")
+
+        os.environ["BLA_DATA_DIR"] = main_dir
+        out = io.StringIO()
+        _zero_k1_counts(mm)
+        with contextlib.redirect_stdout(out):
+            rc_run = mnist_nn.main(["run"])
+        run_launches = mm.launch_count
+        got = re.search(r"Got (\d+) correct", out.getvalue())
+        if rc_run != 0 or got is None:
+            fail(f"mnist_nn run after train exited {rc_run}:\n"
+                 f"{out.getvalue()}")
+        test = MnistDataset.from_csv(test_csv)
+        checkpoint = mnist_nn.load_params_csv()
+        cpu_correct, _, logits_cpu = _mnist_eval_f64(mnist_nn, checkpoint,
+                                                     test)
+        gpu = mnist_nn.MnistNN.from_params(checkpoint, device="cuda")
+        with torch.inference_mode():
+            logits_gpu = gpu((torch.from_numpy(test.x) / 255.0).cuda())
+        diff = (logits_gpu.cpu().double() - logits_cpu).abs().max().item()
+        if int(got.group(1)) != cpu_correct or not diff <= LOGIT_ATOL:
+            fail(f"run after train: {got.group(1)} correct on the card, "
+                 f"{cpu_correct} on the CPU f64 plain path; max logit diff "
+                 f"{diff} (tol {LOGIT_ATOL})")
+
+        # one epoch timed, then one traced, on the trained parameters
+        model = mnist_nn.MnistNN.from_params(checkpoint, device="cuda")
+        x_dev = torch.from_numpy(data.x).cuda()
+        y_dev = torch.from_numpy(data.y).cuda()
+        perm_dev = torch.from_numpy(perm).cuda()
+        host, busy, summary, per_name = _host_and_trace(
+            lambda: mnist_nn.epoch_step_resident(model, x_dev, y_dev,
+                                                 perm_dev, cfg),
+            n_traced=1, warmup=1, timed=2)
+        k1_ms = sum(us for name, us in per_name.items()
+                    if "mm_kernel" in name) / 1e3
+        del os.environ["BLA_DATA_DIR"]
+    if not busy > 0:
+        fail("the trace of a train epoch shows no device time")
+    print(f"[22 mnist_nn train] init + train 1 + run, {n} synthesized "
+          f"images, batch {cfg.batch_size}, {steps} steps: K1 launches "
+          f"{counts} ({sum(counts.values())}; expected {steps} x "
+          f"{dict(per_step)} from the step's GEMMs and _SMALL_FLOPS), the "
+          f"same with --per-batch; avg_loss {loss:.5f} (untrained "
+          f"{untrained:.5f}, CPU f64), avg_accuracy {line['avg_accuracy']}, "
+          f"{float(line['images_per_sec']):.1f} images/s (epoch_seconds "
+          f"{line['epoch_seconds']}; --per-batch "
+          f"{float(runs['--per-batch'][1]['images_per_sec']):.1f} images/s);"
+          f" --per-batch bit-equal; against the CPU f64 epoch, max|err| / "
+          f"max|update| per leaf "
+          + ", ".join(f"{k} {r:.3e}" for k, r in ratios.items())
+          + f" (tol {TRAIN_RTOL_OF_UPDATE}), max|err| / max|ref| "
+          + ", ".join(f"{k} {r:.3e}" for k, r in of_max.items())
+          + f"; run: K1 launches {run_launches}, Got {got.group(1)} correct "
+          f"on the card and on the CPU f64 plain path, max logit diff "
+          f"{diff:.3e}", flush=True)
+    print(f"[22 mnist_nn train profile] one resident epoch on the card "
+          f"({steps} steps): host wall {host:.3f} ms (synchronised, no "
+          f"profiler) = {host / steps * 1e3:.2f} us per step; device busy "
+          f"{busy:.3f} ms = {busy / steps * 1e3:.2f} us per step = "
+          f"{busy / host:.1%} of the host time; K1 {k1_ms:.3f} ms = "
+          f"{k1_ms / busy:.1%} of the device time; trace of one epoch "
+          f"(trace_summary.py):\n    " + summary.replace("\n", "\n    "),
+          flush=True)
+    return sum(counts.values())
 
 
 def _k2_inputs(b, n, d, dtype, gen):
@@ -3369,7 +3686,9 @@ def main() -> int:
     phase_k1_bitequal()
     phase_k1_build_info()
     k1 = phase_timing()
+    phase_train_gemm_timing()
     k1_launches = phase_main_path()
+    k1_launches += phase_mnist_train()
     k2_err = phase_k2_vs_plain()
     phase_k2_bitequal()
     phase_k2_build_info()
@@ -3517,7 +3836,8 @@ def main() -> int:
          k5b["bound"]["wgrad fma"], k5b["conv2d_weight"], K5B_TPU_KERNEL,
          k5b_fma[1]))]
     print(json.dumps({"kernels": [{
-        "name": "K1 matmul (nn/nt/tn, bias+ReLU epilogue)",
+        "name": "K1 matmul (nn/nt/tn, bias+ReLU epilogue; launches: "
+                "mnist_nn run and train 1; time: one batch-2048 forward)",
         "route": "cuda",
         "source": "big_linear_algebra_tpu_torch/csrc/matmul.cu",
         "replaces": TPU_KERNEL,

@@ -5,6 +5,7 @@ JAX Pallas kernel in interpret mode (f32, 2e-4 as tests/test_matmul.py) and
 against the JAX dispatch in f64 (1e-10). The CUDA kernel itself runs only on
 a card, where chip_smoke.py holds it against the plain version."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ import torch
 
 from big_linear_algebra_tpu.ops.matmul import _dispatch as jax_dispatch
 from big_linear_algebra_tpu.ops.matmul import _pallas_mm
+from big_linear_algebra_tpu.ops.matmul import matmul, matmul_nt, matmul_tn
 from big_linear_algebra_tpu_torch.ops import cuda_utils
 from big_linear_algebra_tpu_torch.ops import matmul as mm
 from tests.torch_parity import as_variant, n, t
@@ -91,13 +93,101 @@ def test_public_variants_and_errors(rng):
 
 
 def test_requires_grad_raises_until_backward_is_ported(rng):
+    """The backward is ported: ``matmul`` under autograd carries the
+    hand-written gradient (g·Bᵀ, Aᵀ·g), while ``_dispatch`` itself, which
+    records no graph, still raises under autograd and runs under
+    ``torch.no_grad()``."""
     a = t(rng.standard_normal((4, 6))).requires_grad_()
-    b = t(rng.standard_normal((6, 2)))
-    with pytest.raises(RuntimeError, match="forward-only"):
-        mm.matmul(a, b)
+    b = t(rng.standard_normal((6, 2))).requires_grad_()
+    g = rng.standard_normal((4, 2))
+    out = mm.matmul(a, b)
+    assert out.requires_grad
+    out.backward(t(g))
+    np.testing.assert_allclose(n(a.grad), g @ n(b).T, rtol=1e-12)
+    np.testing.assert_allclose(n(b.grad), n(a).T @ g, rtol=1e-12)
+    with pytest.raises(RuntimeError, match="records no autograd graph"):
+        mm._dispatch(a, b, "nn")
     with torch.no_grad():
-        np.testing.assert_allclose(n(mm.matmul(a, b)), n(a) @ n(b),
-                                   rtol=1e-12)
+        np.testing.assert_allclose(n(mm._dispatch(a, b, "nn")),
+                                   n(a) @ n(b), rtol=1e-12)
+
+
+# The variants ``_dispatch`` sees in each public op's backward (JAX's
+# ``_matmul_bwd``): dA's GEMM, then dB's.
+_BACKWARD_VARIANTS = {"nn": ["nt", "tn"], "nt": ["nn", "tn"],
+                      "tn": ["nt", "nn"]}
+_PORT_OPS = {"nn": mm.matmul, "nt": mm.matmul_nt, "tn": mm.matmul_tn}
+
+
+def _vjp_both(variant, pa, pb, g):
+    """(out, dA, dB) of the port's op through autograd and of the JAX op
+    through ``jax.vjp``, on the same stored operands and cotangent."""
+    jax_fn = {"nn": matmul, "nt": matmul_nt, "tn": matmul_tn}[variant]
+    want, vjp = jax.vjp(jax_fn, jnp.asarray(pa), jnp.asarray(pb))
+    wants = (want, *vjp(jnp.asarray(g)))
+    a, b = (t(v).requires_grad_() for v in (pa, pb))
+    out = _PORT_OPS[variant](a, b)
+    out.backward(t(g))
+    return (out, a.grad, b.grad), wants
+
+
+@pytest.mark.parametrize("variant", ["nn", "nt", "tn"])
+def test_backward_f64_matches_jax_vjp(rng, monkeypatch, variant):
+    """Each op's hand-written gradients against ``jax.vjp`` of the JAX op in
+    f64 (1e-10), at a shape past ``_SMALL_FLOPS`` (the rule keys on the
+    dtype, so f64 takes the plain product); the backward's GEMMs reach
+    ``_dispatch`` as the other two variants, in dA, dB order, and a gradient
+    that is not asked for is not computed."""
+    m, k, n_ = 96, 200, 130
+    assert 2 * m * n_ * k >= mm._SMALL_FLOPS
+    pa, pb = as_variant(rng.standard_normal((m, k)),
+                        rng.standard_normal((k, n_)), variant)
+    g = rng.standard_normal((m, n_))
+    seen = []
+    real = mm._dispatch
+
+    def record(a, b, v, *rest, **kw):
+        seen.append(v)
+        return real(a, b, v, *rest, **kw)
+
+    monkeypatch.setattr(mm, "_dispatch", record)
+    got, wants = _vjp_both(variant, pa, pb, g)
+    assert seen == [variant] + _BACKWARD_VARIANTS[variant]
+    for x, w in zip(got, wants):
+        assert x.dtype == torch.float64
+        np.testing.assert_allclose(n(x), n(w), rtol=1e-10, atol=1e-10)
+    seen.clear()
+    b = t(pb).requires_grad_()
+    _PORT_OPS[variant](t(pa), b).backward(t(g))
+    assert seen == [variant, _BACKWARD_VARIANTS[variant][1]]
+
+
+# The five K1 GEMMs of an mnist_nn train step at batch 64 (stored operand
+# shapes, as ``_dispatch`` sees them): the forwards of layers 1 and 2, layer
+# 2's data gradient, and the weight gradients of layers 1 and 2.
+TRAIN_STEP_GEMMS = [("nn", (64, 784), (784, 256)),
+                    ("nn", (64, 256), (256, 128)),
+                    ("nt", (64, 128), (256, 128)),
+                    ("tn", (64, 784), (64, 256)),
+                    ("tn", (64, 256), (64, 128))]
+
+
+@pytest.mark.parametrize("variant,a_shape,b_shape", TRAIN_STEP_GEMMS)
+def test_backward_f32_train_step_shapes_match_pallas_interpret(
+        rng, variant, a_shape, b_shape):
+    """At each of the train step's K1 shapes, f32: the op and both of its
+    gradients against ``jax.vjp`` of the JAX op, whose GEMMs there reach the
+    Pallas kernel in interpret mode (2e-4, as tests/test_matmul.py); the
+    port's go to its plain K1 on these CPU tensors."""
+    a = rng.random(a_shape).astype(np.float32)
+    b = ((rng.random(b_shape) * 2 - 1) * 0.1).astype(np.float32)
+    m, n_, k = mm._VARIANTS[variant]["shapes"](a, b)
+    assert 2 * m * n_ * k >= mm._SMALL_FLOPS
+    g = (rng.standard_normal((m, n_)) * 0.01).astype(np.float32)
+    got, wants = _vjp_both(variant, a, b, g)
+    for x, w in zip(got, wants):
+        assert x.dtype == torch.float32
+        np.testing.assert_allclose(n(x), n(w), rtol=2e-4, atol=2e-4)
 
 
 def test_kernel_wrapper_rejects_cpu_tensors_and_missing_nvcc(monkeypatch):

@@ -130,25 +130,33 @@ def test_cli_across_packages(tmp_path, monkeypatch, capsys):
 
 
 def test_cli_flags(tmp_path, monkeypatch, capsys):
+    """Bad verbs and flags exit 1 with their reasons before any work;
+    ``--batch``, ``--per-batch`` and ``--jsonl`` are accepted (train is
+    ported; tests/test_torch_mnist_nn_train.py runs it)."""
     monkeypatch.setenv("BLA_DATA_DIR", str(tmp_path))
     assert mnist_nn.main([]) == 1
-    assert mnist_nn.main(["train", "1"]) == 1
-    assert "not ported" in capsys.readouterr().out
-    for flag in ("--dp", "--debug-nans", "--disable-jit", "--bogus"):
-        assert mnist_nn.main(["run", flag]) == 1
+    assert mnist_nn.main(["train"]) == 1
+    assert "number of epochs" in capsys.readouterr().out
+    for flag in ("--dp", "--debug-nans", "--disable-jit", "--bogus",
+                 "--scan-unroll=2"):
+        assert mnist_nn.main(["train", "1", flag]) == 1
     out = capsys.readouterr().out
     assert "ROADMAP Queue 1, the debug item" in out
+    assert "the parallel-modes item" in out
+    assert "dispatch mode" in out
     assert "Unrecognized flag" in out
-    for flag in ("--jsonl=m.jsonl", "--batch=64", "--per-batch",
-                 "--scan-unroll=2"):
-        assert mnist_nn.main(["run", flag]) == 1
-        assert "train" in capsys.readouterr().out
-    assert not (tmp_path / "m.jsonl").exists()
+    with pytest.raises(ValueError, match="takes no value"):
+        mnist_nn.main(["train", "1", "--per-batch=1", "--device=cpu"])
+    with pytest.raises(ValueError, match="must be positive"):
+        mnist_nn.main(["train", "1", "--batch=0", "--device=cpu"])
+    assert not (tmp_path / "mnist").exists()  # rejected before any work
     with pytest.raises(ValueError, match="cuda or cpu"):
         mnist_nn.main(["run", "--device=tpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mnist_nn.main(["run"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mnist_nn.main(["train", "1"])
 
 
 def test_port_imports_and_runs_without_jax():

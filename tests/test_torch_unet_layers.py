@@ -179,20 +179,19 @@ def test_self_attention_block_f64_matches_jax(rng):
 
 
 def test_forward_only_ops_raise_under_autograd(rng):
-    """Only K1's GEMM is still forward-only (mnist_nn training is not
-    ported); the U-Net's ops carry their hand-written backwards."""
+    """No op is forward-only any more: the U-Net's ops and K1's GEMM carry
+    their hand-written backwards."""
     x = t(rng.standard_normal((1, 4, 3, 3))).requires_grad_()
     w = t(rng.standard_normal((2, 4, 3, 3)))
     q = t(rng.standard_normal((1, 8, 4))).requires_grad_()
+    a = t(rng.standard_normal((3, 4))).requires_grad_()
     for call in (lambda: norm.group_norm(x, 2),
                  lambda: conv.conv2d(x, w, 1),
                  lambda: activations.relu(x),
                  lambda: at.attention_dense(q, q, q),
-                 lambda: at.flash_attention(q, q, q)):
+                 lambda: at.flash_attention(q, q, q),
+                 lambda: matmul.matmul(a, t(rng.standard_normal((4, 2))))):
         assert call().requires_grad
-    a = t(rng.standard_normal((3, 4))).requires_grad_()
-    with pytest.raises(RuntimeError, match="forward-only"):
-        matmul.matmul(a, t(rng.standard_normal((4, 2))))
     with torch.no_grad():
         assert matmul.matmul(a, t(rng.standard_normal((4, 2)))).shape == (3, 2)
 
