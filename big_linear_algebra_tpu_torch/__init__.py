@@ -7,11 +7,11 @@ kernel of the JAX package on a ported path is a CUDA C++ kernel written for
 ``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use
 (``ops/cuda_utils.py``) and bound through ctypes.
 
-Ported so far: the serving paths (``init`` and ``run``) of mnist_nn
-(``models/mnist_nn.py``), with the GEMM (``ops/matmul.py``, kernel
-``csrc/matmul.cu``), and of the cifar_unet DDPM sampler
-(``models/cifar_unet.py``), with flash attention (``nn/attention.py``,
-kernel ``csrc/flash_attn.cu``).
+Ported so far: the five model programs' ``init | train | run`` CLIs
+(``models/``: mnist_nn, cifar_unet, my_first_model, the legacy mnist,
+mnist_hinge) and the smoke program, with every Pallas kernel of the JAX
+package as a CUDA kernel (``csrc/``), and the debug helpers
+(``utils/debug.py``). The parallel modes are not ported yet.
 
 This package imports ``torch`` and numpy, never ``jax`` and never the JAX
 package. Importing it switches TF32 off (``ops/precision.py``).

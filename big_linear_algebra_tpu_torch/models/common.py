@@ -1,14 +1,25 @@
 """Shared model-program scaffolding, the counterpart of
 ``big_linear_algebra_tpu/models/common.py``: CLI verbs, strict flags,
-metrics logging, profiling.
+metrics logging, profiling, debugging.
 
 ≈ the reference's per-model ``main(argc, argv)`` dispatchers
 (model/mnist_nn.c:512-536: verbs ``init | train <epochs> | run [n]``).
-Flags every model understands: ``--device=cuda|cpu`` (default ``cuda``; the
-port's counterpart of the JAX package's backend choice — it never moves to
-the CPU on its own) and ``--profile[=DIR]`` (a ``torch.profiler`` trace).
-``--debug-nans`` and ``--disable-jit`` are not ported yet and are rejected,
-never ignored.
+Flags every model understands:
+
+- ``--device=cuda|cpu`` (default ``cuda``): the port's counterpart of the
+  JAX package's backend choice; it never moves to the CPU on its own;
+- ``--profile[=DIR]``: a ``torch.profiler`` trace of the verb;
+- ``--debug-nans``: the verb runs under ``utils.debug_nans``. JAX's
+  ``jax_debug_nans`` checks every primitive's output; here every ATen op's
+  floating outputs and every hand-written kernel's outputs are checked,
+  and the first NaN raises ``FloatingPointError`` naming its op;
+- ``--disable-jit``: the verb runs under ``utils.no_jit``. The port has no
+  jit; what ``jax_disable_jit`` gives, op-by-op execution so that a fault
+  surfaces at its op, is a device synchronize after every ATen op and
+  every kernel launch on a CUDA tensor.
+
+The two debug flags only read: a run under them is bit-equal to one
+without them.
 """
 
 from __future__ import annotations
@@ -23,6 +34,8 @@ from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
 import torch
+
+from big_linear_algebra_tpu_torch.utils import debug
 
 
 def data_dir() -> Path:
@@ -88,17 +101,30 @@ def parse_flags(argv: List[str]):
 # Flags every model CLI understands; per-model extras via run_cli's
 # ``extra_flags``. Unknown flags are a hard error — silently accepting a flag
 # a model ignores is worse than rejecting it.
-_BASE_FLAGS = frozenset({"profile", "device"})
+BASE_FLAGS = frozenset({"profile", "device", "debug-nans", "disable-jit"})
 
-# JAX-package flags with no port yet: rejected with the reason.
-_DEBUG = "not ported yet (ROADMAP Queue 1, the debug item: utils/debug.py)"
-_NOT_PORTED = {"debug-nans": _DEBUG, "disable-jit": _DEBUG}
 # Reasons the model CLIs give for the flags of the JAX package's parallel
 # modes and XLA dispatch modes.
 PARALLEL_NOT_PORTED = ("the parallel modes are not ported yet (ROADMAP Queue "
                        "1, the parallel-modes item)")
 XLA_DISPATCH_MODE = ("an XLA dispatch mode; the port runs one eager step per "
                      "batch (a CUDA graph over a step is later work)")
+# The JAX package accepts --jsonl on every program and ignores it where no
+# metrics are logged; the port rejects a flag it would ignore.
+NO_METRICS_LOG = ("this program logs no metrics (the JAX package accepts "
+                  "--jsonl here and ignores it)")
+
+
+def print_cost_windows(costs, window: int) -> None:
+    """The reference's rolling cost report: every ``window`` steps, the
+    window's costs and their average (model/my_first_model.c:106-116,
+    model/mnist.c:175-192). ``costs``: a 1-D numpy array."""
+    for i in range(window - 1, len(costs), window):
+        win = costs[i - window + 1:i + 1]
+        print(f"Last {window} costs:")
+        for j, c in enumerate(win):
+            print(f"\tCost[{j}]: {c:.3f}")
+        print(f"\tAvg: {win.mean():.3f}")
 
 
 def positive_int_flag(flags, name: str) -> int:
@@ -161,6 +187,18 @@ def device_flag(flags) -> torch.device:
     return torch.device(name)
 
 
+@contextlib.contextmanager
+def debug_flags(flags):
+    """``--debug-nans`` and ``--disable-jit`` around a verb (JAX's
+    ``_apply_debug_flags``); each takes no value."""
+    with contextlib.ExitStack() as stack:
+        if presence_flag(flags, "debug-nans"):
+            stack.enter_context(debug.debug_nans())
+        if presence_flag(flags, "disable-jit"):
+            stack.enter_context(debug.no_jit())
+        yield
+
+
 def run_cli(prog: str,
             init_fn: Callable[..., Optional[int]],
             train_fn: Callable[..., Optional[int]],
@@ -182,8 +220,8 @@ def run_cli(prog: str,
     if not pos:
         print(usage)
         return 1
-    allowed = _BASE_FLAGS | set(extra_flags)
-    rejected = {**_NOT_PORTED, **(unsupported_flags or {})}
+    allowed = BASE_FLAGS | set(extra_flags)
+    rejected = unsupported_flags or {}
     for k, v in flags.items():
         for spelled in (k, f"{k}={v.upper()}"):
             if spelled in rejected:
@@ -199,16 +237,19 @@ def run_cli(prog: str,
         if verb.startswith("run"):
             n = int(pos[1]) if len(pos) > 1 else -1
             extra = [int(p) for p in pos[2:]]
-            with maybe_profile("profile" in flags, flags.get("profile", "")):
+            with maybe_profile("profile" in flags, flags.get("profile", "")), \
+                    debug_flags(flags):
                 rc = run_fn(n, *extra, flags=flags)
         elif verb.startswith("train"):
             if len(pos) < 2:
                 print(f"Please supply a number of epochs, usage:\n\t{train_usage}\n")
                 return 1
-            with maybe_profile("profile" in flags, flags.get("profile", "")):
+            with maybe_profile("profile" in flags, flags.get("profile", "")), \
+                    debug_flags(flags):
                 rc = train_fn(int(pos[1]), *pos[2:], flags=flags)
         elif verb.startswith("init"):
-            rc = init_fn(flags=flags)
+            with debug_flags(flags):
+                rc = init_fn(flags=flags)
         else:
             print(f"Unrecognized argument, options:\n\t{run_usage}\n\t"
                   f"{train_usage}\n\tinit\n")

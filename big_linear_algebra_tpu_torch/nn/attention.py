@@ -251,7 +251,7 @@ def _kernel_flash(q: torch.Tensor, k: torch.Tensor,
         rc = fn(_KERNEL_DTYPES[q.dtype], b, n, d, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                 _qscale(d), stream)
-    cuda_utils.check(lib, rc, "flash_attention kernel launch")
+    cuda_utils.check(lib, rc, "flash_attention kernel launch", o, lse)
     launch_count += 1
     return o, lse
 
@@ -269,7 +269,8 @@ def _launch_bwd(entry, n_out, q, k, v, g, lse2, delta):
                 v.data_ptr(), g.data_ptr(), lse2.data_ptr(), delta.data_ptr(),
                 *(x.data_ptr() for x in outs), _qscale(d),
                 1.0 / math.sqrt(d), stream)
-    cuda_utils.check(lib, rc, f"flash_attention backward {entry} launch")
+    cuda_utils.check(lib, rc, f"flash_attention backward {entry} launch",
+                     *outs)
     return outs
 
 
@@ -336,7 +337,8 @@ def _kernel_bwd_fused(q, k, v, g, lse2, delta):
                 v.data_ptr(), g.data_ptr(), lse2.data_ptr(), delta.data_ptr(),
                 ws.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 _qscale(d), 1.0 / math.sqrt(d), stream)
-    cuda_utils.check(lib, rc, "flash_attention fused backward launch")
+    cuda_utils.check(lib, rc, "flash_attention fused backward launch", dq,
+                     dk, dv)
     bwd_fused_launch_count += 1
     return dq, dk, dv
 

@@ -159,7 +159,7 @@ def _launch(x: torch.Tensor, kernels: torch.Tensor,
         rc = fn(_KERNEL_DTYPES[promoted], _KERNEL_DTYPES[out.dtype],
                 xk.data_ptr(), wk.data_ptr(), out.data_ptr(), b, c, h, w,
                 out_ch, k, wk.shape[-1], int(dx), stream)
-    cuda_utils.check(lib, rc, "conv2d_implicit kernel launch")
+    cuda_utils.check(lib, rc, "conv2d_implicit kernel launch", out)
     return out
 
 

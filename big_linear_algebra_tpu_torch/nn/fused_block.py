@@ -573,7 +573,8 @@ def _kernel_fused_fwd(x, td, w1, w2, w3, seed, gsz, rate, train, eps,
         with torch.cuda.device(x.device):
             rc = fn(*args, _ptr(x), _ptr(td), _ptr(w1), _ptr(w2), _ptr(w3),
                     _ptr(seed), _ptr(out), *drop, eps, stream)
-        cuda_utils.check(lib, rc, "fused_resnet_block tensor-core K5a launch")
+        cuda_utils.check(lib, rc, "fused_resnet_block tensor-core K5a launch",
+                         out)
         tc_launch_count += 1
     else:
         ws = torch.empty((b, f, h * w), dtype=torch.float32, device=x.device)
@@ -583,7 +584,7 @@ def _kernel_fused_fwd(x, td, w1, w2, w3, seed, gsz, rate, train, eps,
         with torch.cuda.device(x.device):
             rc = fn(*args, _ptr(x), _ptr(td), _ptr(w1), _ptr(w2), _ptr(w3),
                     _ptr(seed), _ptr(out), _ptr(ws), *drop, eps, stream)
-        cuda_utils.check(lib, rc, "fused_resnet_block K5a launch")
+        cuda_utils.check(lib, rc, "fused_resnet_block K5a launch", out)
     launch_count += 1
     return out
 
@@ -642,7 +643,8 @@ def _kernel_bwd_data(x, td, w1, w2, w3, seed, gsz, rate, train, eps, g,
                     _ptr(w1t), _ptr(w3t), _ptr(seed), _ptr(g), _ptr(dx),
                     _ptr(dtd), *(_ptr(a) for a in ws), _ptr(res), *drop, eps,
                     stream)
-        cuda_utils.check(lib, rc, "fused_resnet_block tensor-core K5b launch")
+        cuda_utils.check(lib, rc, "fused_resnet_block tensor-core K5b launch",
+                         dx, dtd)
         bwd_tc_launch_count += 1
     else:
         lib = cuda_utils.load_library("fused_block")
@@ -651,7 +653,7 @@ def _kernel_bwd_data(x, td, w1, w2, w3, seed, gsz, rate, train, eps, g,
             rc = fn(*args, _ptr(x), _ptr(td), _ptr(w1), _ptr(w2), _ptr(w3),
                     _ptr(seed), _ptr(g), _ptr(dx), _ptr(dtd),
                     *(_ptr(a) for a in ws), *drop, eps, stream)
-        cuda_utils.check(lib, rc, "fused_resnet_block K5b launch")
+        cuda_utils.check(lib, rc, "fused_resnet_block K5b launch", dx, dtd)
     bwd_launch_count += 1
     return dx, dtd, (x, g, *ws)
 
@@ -680,7 +682,7 @@ def _kernel_bwd_wgrad(work, k: int, has_w3: bool):
                     _ptr(g), _ptr(x), _ptr(dw1), _ptr(dw2), _ptr(dw3),
                     stream)
         cuda_utils.check(lib, rc, "fused_resnet_block tensor-core K5b "
-                                  "weight-gradient launch")
+                                  "weight-gradient launch", dw1, dw2, dw3)
         wgrad_tc_launch_count += 1
     else:
         lib = cuda_utils.load_library("fused_block")
@@ -690,7 +692,7 @@ def _kernel_bwd_wgrad(work, k: int, has_w3: bool):
                     _ptr(g), _ptr(ws_a1), _ptr(ws_d), _ptr(ws_dh), _ptr(dw1),
                     _ptr(dw2), _ptr(dw3), stream)
         cuda_utils.check(lib, rc, "fused_resnet_block K5b weight-gradient "
-                                  "launch")
+                                  "launch", dw1, dw2, dw3)
     wgrad_launch_count += 1
     return dw1, dw2, dw3
 
@@ -720,7 +722,7 @@ def kernel_dropout_bits(seed, n: int, device) -> torch.Tensor:
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         rc = fn(_ptr(seed), n, _ptr(out), stream)
-    cuda_utils.check(lib, rc, "fused_resnet_block bits launch")
+    cuda_utils.check(lib, rc, "fused_resnet_block bits launch", out)
     return out.to(torch.int64) & _MASK32
 
 

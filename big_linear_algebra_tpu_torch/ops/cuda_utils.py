@@ -25,9 +25,11 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Iterable, List, Tuple
+from typing import Iterable, List, Optional, Tuple
 
 import torch
+
+from big_linear_algebra_tpu_torch.utils import debug
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -132,9 +134,14 @@ def aligned(x: torch.Tensor) -> torch.Tensor:
     return x.clone(memory_format=torch.contiguous_format)
 
 
-def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+def check(lib: ctypes.CDLL, rc: int, what: str,
+          *outputs: Optional[torch.Tensor]) -> None:
     """Raise if a C entry returned a CUDA error code (``cudaGetLastError()``
-    right after its launch)."""
+    right after its launch). Under ``utils.debug_nans`` / ``no_jit`` the
+    launch's ``outputs`` are then checked for NaN and the device
+    synchronized, as every ATen op is: no dispatch mode sees a ctypes
+    launch."""
     if rc != 0:
         msg = lib.bla_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+    debug.check_launch(what, outputs)

@@ -127,7 +127,7 @@ def _kernel_mm(a: torch.Tensor, b: torch.Tensor, variant: Variant,
                 bias_f32.data_ptr() if bias_f32 is not None else None,
                 1 if activation == "relu" else 0, out.data_ptr(),
                 m, n, k, stream)
-    cuda_utils.check(lib, rc, f"matmul_{variant} kernel launch")
+    cuda_utils.check(lib, rc, f"matmul_{variant} kernel launch", out)
     launch_count += 1
     variant_launch_counts[variant] += 1
     return out

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Phases, one line each (or a few), in the order 1–4, 22, 5–7, 16–18,
+Phases, one line each (or a few), in the order 1–4, 22, 23, 5–7, 16–18,
 11–15, 8–10, 19–21; any failure exits non-zero:
 1. environment: the card's name and power limit, torch and CUDA versions;
    fails when no CUDA device is available;
@@ -45,6 +45,25 @@ Phases, one line each (or a few), in the order 1–4, 22, 5–7, 16–18,
    on the trained checkpoint; then one epoch's host wall time and a
    ``torch.profiler`` trace of one epoch (``trace_summary.py``): the card's
    busy share and K1's share;
+23. the remaining programs and the debug flags (run after 22), each in a
+   fresh temporary data directory: ``my_first_model init``, ``train 800
+   0.1`` (leaves and costs against the same steps in f64 on the CPU) and
+   ``run`` on a same-sign and a different-sign pair (the right verdicts);
+   the legacy ``mnist init``, ``train 1000 0.05 0`` and ``run 200 0`` and
+   ``mnist_hinge init``, ``train 100 0.0005`` and ``run -1 0`` on the
+   synthesized sets, whose f32 trajectories are chaotic: the CLI's steps
+   replayed on the card bit-equal, each held teacher-forced against f64
+   from the card's own state within twice the first-order f32 rounding
+   bound; the correct count and the accuracy equal to the CPU f64 path's
+   on the trained checkpoints, the hinge convergence iteration (or its
+   absence) equal to the f64 run's; ``smoke``'s printed matrices within
+   1e-6 of f64 with no K1 launch; ``mnist_nn train 1 --debug-nans
+   --disable-jit`` from phase 22's initial CSVs with K1's launches by
+   variant as in phase 22 and the trained leaves bit-equal to its, a
+   ``train_step`` with a NaN pixel under ``debug_nans()`` raising
+   ``FloatingPointError`` at K1's launch, and a NaN made in a gradient
+   hook raising in the backward; then 100 legacy steps and one hinge
+   chunk timed and profiled (the card's busy share);
 5. K2 against plain, on the card: f32/bf16 x d in {16, 64} x (B, N) in
    {(1, 1024) the U-Net's shape, (2, 300) ragged, (1, 4096), (1, 16384)},
    and the other head dims the kernel takes at (2, 300); o and lse against
@@ -883,22 +902,34 @@ def phase_main_path() -> int:
 
 
 @contextlib.contextmanager
-def _saved_params(mnist_nn):
-    """Within the block, each ``mnist_nn.save_params_csv`` call also keeps a
-    CPU copy of the parameters it writes: the trained values bit for bit,
-    before the CSV's six decimals."""
-    real = mnist_nn.save_params_csv
+def _saved(module, name: str):
+    """Within the block, each ``module.<name>(params, ...)`` call (a CSV
+    save) also keeps a CPU copy of the parameters it writes: the trained
+    values bit for bit, before the CSV's six decimals. A dict is kept as a
+    dict, a tensor or a list of (w, b) pairs as a flat list."""
+    real = getattr(module, name)
     saved = []
 
-    def save(params, base=None):
-        saved.append({k: v.detach().cpu().clone() for k, v in params.items()})
-        real(params, base)
+    def save(params, *args, **kwargs):
+        if isinstance(params, dict):
+            saved.append({k: v.detach().cpu().clone()
+                          for k, v in params.items()})
+        else:
+            saved.append([t.detach().cpu().clone() for t in
+                          ([params] if isinstance(params, torch.Tensor)
+                           else _flat(params))])
+        return real(params, *args, **kwargs)
 
-    mnist_nn.save_params_csv = save
+    setattr(module, name, save)
     try:
         yield saved
     finally:
-        mnist_nn.save_params_csv = real
+        setattr(module, name, real)
+
+
+def _flat(params):
+    """[(w, b), ...] → [w, b, ...]"""
+    return [x for pair in params for x in pair]
 
 
 def _zero_k1_counts(mm) -> None:
@@ -933,7 +964,8 @@ def phase_mnist_train() -> int:
     CPU; and ``run``'s correct count equals the CPU f64 plain path's on the
     trained checkpoint. Then one epoch's host wall time and a
     ``torch.profiler`` trace of one epoch (device busy share, K1's share).
-    Returns K1's launches in the epoch."""
+    Returns K1's launches in the epoch, and for phase 23 the initial and
+    trained parameters and K1's launches by variant."""
     import collections
     import shutil
 
@@ -971,7 +1003,7 @@ def phase_mnist_train() -> int:
             args = ["train", "1"] + ([mode] if mode != "resident" else [])
             out = io.StringIO()
             _zero_k1_counts(mm)
-            with _saved_params(mnist_nn) as saved, \
+            with _saved(mnist_nn, "save_params_csv") as saved, \
                     contextlib.redirect_stdout(out):
                 rc = mnist_nn.main(args)
             counts = dict(mm.variant_launch_counts)
@@ -1077,7 +1109,8 @@ def phase_mnist_train() -> int:
           f"{k1_ms / busy:.1%} of the device time; trace of one epoch "
           f"(trace_summary.py):\n    " + summary.replace("\n", "\n    "),
           flush=True)
-    return sum(counts.values())
+    return sum(counts.values()), {"initial": initial, "trained": trained,
+                                  "counts": counts}
 
 
 def _k2_inputs(b, n, d, dtype, gen):
@@ -3678,6 +3711,579 @@ def phase_k3_unet_sites(sites) -> dict:
     return {"K3a": fused_counts[1], "K3bc": two_counts[2]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the remaining programs (my_first_model, legacy mnist,
+# mnist_hinge, smoke) and the debug flags. No kernel of the port is on their
+# path: the Layer graph's products are matrix-vector products and the hinge
+# ensemble's are two full-batch GEMMs, which the JAX package computes with
+# jnp.matmul outside any Pallas kernel (cuBLAS here, TF32 off); smoke's one
+# ops.matmul is a 3x3 product under _SMALL_FLOPS in both packages.
+# ---------------------------------------------------------------------------
+
+F32_UNIT = 2.0 ** -24  # f32 unit roundoff
+# The CPU's f32 plain path stands in for the card when
+# tools/legacy_programs_check.py --device=cpu runs these checks; the numbers
+# below are that script's.
+#
+# my_first_model train 800 0.1 (2->3->2 ReLU) on the card against the same
+# 800 steps in f64 on the CPU (same CSVs, same numpy stream), leaf by leaf:
+#     max|card - f64| <= MFM_RTOL_OF_UPDATE * max|f64 - initial|,
+# and each step's cost within MFM_COST_ATOL. The CPU's f32 run is 7.1e-8 to
+# 2.4e-7 of each leaf's update from f64 and its costs 1.1e-6 from f64's.
+# Fixed before the first run at about 400x those: room for a ReLU mask that
+# flips between f32 and f64 (3 hidden units, 800 steps) while a step whose
+# gradient were off by 0.1% would fail.
+MFM_RTOL_OF_UPDATE = 1e-4
+MFM_COST_ATOL = 5e-4
+# Legacy mnist (784->200->200->10, per-example SGD) and mnist_hinge are
+# chaotic: rounding differences grow step after step (the reference's init
+# saturates mnist's layers; each hinge iteration's violation set jumps), so
+# no bound on their trajectories can hold. On the CPU's plain path the same
+# 1000 mnist steps in f32 end 1.3 times the largest leaf update away from
+# f64 (0.12 from --he-init), and 100 hinge iterations 0.17. So each step or
+# iteration is held teacher-forced: the card's from the card's own state,
+# in f64 on the CPU, with the card's discrete decisions (ReLU masks,
+# violation sets), elementwise within F32_BOUND_MARGIN times the
+# first-order bound of the roundings an f32 evaluation makes
+# (``_layer_graph_step_check``, ``_hinge_iteration_check``): the bound is
+# the reckoning, and 2 covers the terms of second order.
+F32_BOUND_MARGIN = 2.0
+# f32 softmax of 10 values (exp, sum, divide) against f64's on the same
+# logits: a few units of u; 1e-5 leaves room for exp's error of a few ulp.
+SOFTMAX_ATOL = 1e-5
+LEGACY_MNIST_STEPS, LEGACY_MNIST_LR, LEGACY_MNIST_RUN = 1000, 0.05, 200
+HINGE_ITERATIONS, HINGE_LR = 100, 0.0005
+# smoke: its printed values against the f64 values from the same fixtures:
+# the print's 6 decimals round by up to 5e-7, and f32 adds ~1e-7 at values
+# near 1.
+SMOKE_ATOL = 1e-6
+
+
+def _cli(module, args, where: str, device: str):
+    """``module.main(args + --device)`` with ``BLA_DATA_DIR=where``:
+    (stdout, host seconds); fails on a non-zero exit."""
+    os.environ["BLA_DATA_DIR"] = where
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = module.main([*args, f"--device={device}"])
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"{module.__name__} {' '.join(args)} exited {rc}:\n"
+             f"{out.getvalue()}")
+    return out.getvalue(), seconds
+
+
+def _sync(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_my_first_model(tmp: str, device: str = "cuda") -> dict:
+    """``my_first_model init``, ``train 800 0.1`` and ``run`` on a same-sign
+    and a different-sign input; the trained leaves and each step's cost
+    against the same steps in f64 on the CPU (same CSVs, same stream); the
+    loop replayed on the device bit-equal to the CLI's."""
+    import numpy as np
+
+    from big_linear_algebra_tpu_torch.data.csv import write_csv_matrix
+    from big_linear_algebra_tpu_torch.models import my_first_model as mfm
+    from big_linear_algebra_tpu_torch.nn import layer_graph as lg
+
+    steps, lr = 800, 0.1
+    _cli(mfm, ["init"], tmp, device)
+    initial = mfm.load_params()
+    with _saved(mfm, "save_params") as saved:
+        text, seconds = _cli(mfm, ["train", str(steps), str(lr)], tmp, device)
+    if len(saved) != 1 or "Finished training" not in text:
+        fail(f"my_first_model train:\n{text}")
+    xs, ys = mfm.synth_stream(steps)
+    run_steps = lg.make_sgd_scan(mfm.ACTS)
+    dev = [(w.to(device), b.to(device)) for w, b in initial]
+    xs_d, ys_d = torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    card, costs = run_steps(dev, xs_d, ys_d, lr)
+    _sync(device)
+    loop_s = time.perf_counter() - t0
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(_flat(card), saved[0])):
+        fail("my_first_model: the replayed steps are not bit-equal to train's")
+    ref, ref_costs = run_steps([(w.double(), b.double()) for w, b in initial],
+                               torch.from_numpy(xs).double(),
+                               torch.from_numpy(ys).double(), lr)
+    ratios = {}
+    for name, got, want, start in zip(("w1", "b1", "w2", "b2"), saved[0],
+                                      _flat(ref), _flat(initial)):
+        ratios[name] = ((got.double() - want).abs().max()
+                        / (want - start.double()).abs().max()).item()
+    cost_err = (costs.cpu().double() - ref_costs).abs().max().item()
+    if not (max(ratios.values()) <= MFM_RTOL_OF_UPDATE
+            and cost_err <= MFM_COST_ATOL
+            and torch.isfinite(costs).all()):
+        fail(f"my_first_model train {steps} {lr}: max|err| / max|update| per "
+             f"leaf {ratios} (tol {MFM_RTOL_OF_UPDATE}), costs {cost_err} "
+             f"(tol {MFM_COST_ATOL}) against the CPU f64 steps")
+    verdicts = []
+    for pair, want in (((0.7, 0.8), "Same sign!"),
+                       ((-0.7, 0.8), "Different signs!")):
+        write_csv_matrix(os.path.join(tmp, "my_first_model",
+                                      "input_nodes.csv"),
+                         np.array([pair], np.float32))
+        out, _ = _cli(mfm, ["run"], tmp, device)
+        if out.splitlines()[-1] != want:
+            fail(f"my_first_model run on {pair}: expected {want!r}:\n{out}")
+        verdicts.append(f"{pair} -> {want}")
+    return dict(steps=steps, cli_s=seconds, loop_s=loop_s, ratios=ratios,
+                cost_err=cost_err, verdicts=verdicts)
+
+
+def _ratio(err, bound) -> float:
+    """max of err / bound elementwise; where the bound is 0, err must be."""
+    if bool((err[bound == 0] > 0).any()):
+        return math.inf
+    return (err / torch.where(bound > 0, bound, 1.0)).max().item()
+
+
+# The Layer graph's activations written out again for the f64 reference of
+# phase 23: (forward, derivative from (raw, activated), the derivative's f32
+# rounding on the card in units of u).
+_REF_ACTIVATIONS = {
+    "relu": (lambda r: torch.clamp_min(r, 0.0),
+             lambda r, a: (r > 0).double(), 0),
+    "linear": (lambda r: r, lambda r, a: torch.ones_like(r), 0),
+    "scale_0.1": (lambda r: 0.1 * r, lambda r, a: torch.full_like(r, 0.1), 1),
+    "softmax_legacy": (lambda r: torch.exp(r - r.max()) / torch.exp(
+        r - r.max()).sum(), lambda r, a: a * (1.0 - a), 2),
+}
+
+
+def _layer_graph_step_check(card_prev, card_next, acts, x, y, lr):
+    """One legacy step on the card held teacher-forced, in f64 on the CPU:
+    the card's forward (``feed_forward`` again on the card: the same ops,
+    the same values) layer by layer against ``W a + b`` from the card's own
+    input to that layer; ReLU exact; the softmax within ``SOFTMAX_ATOL``;
+    then the card's new parameters against the f64 backward and update from
+    the card's forward values (its masks, its softmax), written out here
+    (``_REF_ACTIVATIONS``) and not taken from the port. Each elementwise
+    within ``F32_BOUND_MARGIN`` times the first-order bound of the f32
+    roundings the card makes (``n u sum|terms|`` for a sum of n terms, u
+    per product, subtraction and f32 ``lr``; the backward's errors carried
+    through ``|W|^T``). Returns (the forward's largest error over its
+    bound, the update's, whether the step moved a weight past its f32
+    rounding)."""
+    from big_linear_algebra_tpu_torch.nn import layer_graph as lg
+
+    u = F32_UNIT
+
+    def f64(t):
+        return t.detach().cpu().double()
+
+    with torch.no_grad():
+        a_c, r_c = lg.feed_forward(card_prev, acts, x)
+    prev = [(f64(w), f64(b)) for w, b in card_prev]
+    a_c, r_c = [f64(a) for a in a_c], [f64(r) for r in r_c]
+    fwd = 0.0
+    for (w, b), name, a_in, raw, a_out in zip(prev, acts, a_c, r_c, a_c[1:]):
+        bound = (w.shape[1] + 2) * u * (w.abs() @ a_in.abs() + b.abs())
+        fwd = max(fwd, _ratio((raw - (w @ a_in + b)).abs(),
+                              F32_BOUND_MARGIN * bound))
+        want = _REF_ACTIVATIONS[name][0](raw)
+        if name == "relu":
+            if not torch.equal(a_out, want):
+                fail("legacy step: ReLU on the card differs from max(raw, 0)")
+        else:
+            fwd = max(fwd, (a_out - want).abs().max().item() / SOFTMAX_ATOL)
+    # _sgd_step_cost's backward and update from the card's forward values;
+    # e: the bound on the card's dC/da
+    diff = a_c[-1] - f64(y)
+    dCda, e = 2.0 * diff, 2.0 * u * diff.abs()
+    upd, moved_any = 0.0, False
+    for i in reversed(range(len(prev))):
+        w, b = prev[i]
+        _, ddx_fn, ulps = _REF_ACTIVATIONS[acts[i]]
+        ddx = ddx_fn(r_c[i], a_c[i + 1])
+        e_ddx = ulps * u * ddx.abs()
+        delta = ddx * dCda
+        e_delta = ddx.abs() * e + dCda.abs() * e_ddx + u * delta.abs()
+        step_w = lr * torch.outer(delta, a_c[i])
+        for got, old, want, bound in (
+                (card_next[i][0], w, w - step_w,
+                 lr * torch.outer(e_delta, a_c[i].abs())
+                 + 3 * u * step_w.abs() + u * (w - step_w).abs()),
+                (card_next[i][1], b, b - lr * delta,
+                 lr * e_delta + 2 * u * lr * delta.abs()
+                 + u * (b - lr * delta).abs())):
+            err = (f64(got) - want).abs()
+            upd = max(upd, _ratio(err, F32_BOUND_MARGIN * bound))
+            moved_any |= bool(((want - old).abs() > 2 * u * want.abs()).any())
+        if i:
+            e = w.abs().T @ e_delta + (w.shape[0] + 1) * u * (
+                w.abs().T @ delta.abs())
+            dCda = w.T @ delta
+    return fwd, upd, moved_any
+
+
+def phase_legacy_mnist(tmp: str, device: str = "cuda") -> dict:
+    """Legacy ``mnist init``, ``train 1000 0.05 0`` and ``run 200 0`` on the
+    synthesized set; the CLI's steps replayed on the device one by one,
+    bit-equal to the CLI's, each held teacher-forced in f64
+    (``_layer_graph_step_check``); the run's correct count equal to the CPU
+    f64 path's on the trained checkpoint."""
+    import numpy as np
+
+    from big_linear_algebra_tpu_torch.data import synth
+    from big_linear_algebra_tpu_torch.data.mnist import MnistDataset
+    from big_linear_algebra_tpu_torch.models import mnist as legacy
+    from big_linear_algebra_tpu_torch.nn import layer_graph as lg
+
+    steps, lr = LEGACY_MNIST_STEPS, LEGACY_MNIST_LR
+    os.environ["BLA_DATA_DIR"] = tmp
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_csv, test_csv = synth.ensure_mnist(tmp)
+    _cli(legacy, ["init"], tmp, device)
+    initial = legacy.load_params()
+    with _saved(legacy, "save_params") as saved:
+        text, seconds = _cli(legacy, ["train", str(steps), str(lr), "0"], tmp,
+                             device)
+    avg = re.search(r"Final batch avg: ([0-9.]+)", text)
+    if len(saved) != 1 or avg is None or not math.isfinite(
+            float(avg.group(1))):
+        fail(f"mnist train:\n{text}")
+    xs, ys = legacy.stream_examples(train_csv, steps)
+    xs_d, ys_d = torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device)
+    card = [(w.to(device), b.to(device)) for w, b in initial]
+    fwd, step, rel = [], [], []
+    for k in range(steps):
+        with torch.no_grad():
+            nxt, _ = lg._sgd_step_cost(card, legacy.ACTS, xs_d[k], ys_d[k], lr)
+        f, s, r = _layer_graph_step_check(card, nxt, legacy.ACTS, xs_d[k],
+                                          ys_d[k], lr)
+        fwd.append(f)
+        step.append(s)
+        rel.append(r)
+        card = nxt
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(_flat(card), saved[0])):
+        fail("mnist: the replayed steps are not bit-equal to train's")
+    fwd, step, rel = np.asarray(fwd), np.asarray(step), np.asarray(rel, bool)
+    if not (fwd.max() <= 1.0 and step.max() <= 1.0):
+        fail(f"mnist train, teacher-forced against f64: forward at "
+             f"{fwd.max()} of its bound (step {int(fwd.argmax())}), update at "
+             f"{step.max()} of its bound (step {int(step.argmax())})")
+    run_text, _ = _cli(legacy, ["run", str(LEGACY_MNIST_RUN), "0"], tmp,
+                       device)
+    got = re.search(r"Got (\d+) correct out of (\d+)", run_text)
+    test = MnistDataset.from_csv(test_csv)
+    x64 = torch.from_numpy(test.x[:LEGACY_MNIST_RUN] / 255.0).double()
+    ckpt = [(w.double(), b.double()) for w, b in legacy.load_params()]
+    f64_correct = int((lg.predict_batch(ckpt, legacy.ACTS, x64).argmax(1)
+                       == torch.from_numpy(test.y[:LEGACY_MNIST_RUN]).long()
+                       ).sum())
+    if got is None or int(got.group(1)) != f64_correct or int(
+            got.group(2)) != LEGACY_MNIST_RUN:
+        fail(f"mnist run {LEGACY_MNIST_RUN}: {got and got.group(0)}, the CPU "
+             f"f64 path {f64_correct} correct:\n{run_text[-400:]}")
+    return dict(steps=steps, cli_s=seconds, avg=avg.group(1),
+                fwd=float(fwd.max()), step=float(step.max()),
+                moved=int(rel.sum()),
+                correct=f64_correct, xs=xs_d, ys=ys_d, params=card)
+
+
+def _hinge_iteration_check(w_prev, w_next, x, y, lr):
+    """One mnist_hinge iteration on the card held teacher-forced, in f64 on
+    the CPU: the card's margins (``y * (x @ w)`` again on the card: the same
+    op, the same values) against f64's from the card's weights, then the
+    card's next weights against the f64 update from the card's violation
+    set; each elementwise within ``F32_BOUND_MARGIN`` times the first-order
+    bound of the card's f32 roundings (``n u sum|terms|`` for the sums over
+    784 pixels and over the N examples, u for the f32 ``lr``, the product
+    and the subtraction). Returns the largest error over its bound."""
+    u = F32_UNIT
+    with torch.no_grad():
+        margins = (y * (x @ w_prev)).cpu().double()
+    w, x64, y64 = (t.cpu().double() for t in (w_prev, x, y))
+    bound = (x64.shape[1] + 1) * u * (x64.abs() @ w.abs())
+    ratio = _ratio((margins - y64 * (x64 @ w)).abs(), F32_BOUND_MARGIN * bound)
+    vy = (margins < 1.0).double() * y64
+    grads = -(x64.T @ vy)
+    want = w - lr * grads
+    bound = (lr * (x64.shape[0] + 1) * u * (x64.abs().T @ vy.abs())
+             + 2 * u * lr * grads.abs() + u * want.abs())
+    return max(ratio, _ratio((w_next.cpu().double() - want).abs(),
+                             F32_BOUND_MARGIN * bound))
+
+
+def phase_mnist_hinge(tmp: str, mnist_dir: str, device: str = "cuda") -> dict:
+    """``mnist_hinge init``, ``train 100 0.0005`` and ``run -1 0`` on the
+    8192-image set (copied from ``mnist_dir``); the printed convergence
+    iteration, or its absence, equal to the f64 run's on the CPU; the CLI's
+    iterations replayed on the device one by one, bit-equal to the CLI's,
+    each held teacher-forced in f64 (``_hinge_iteration_check``); the
+    accuracy equal to the CPU f64 path's on the trained checkpoint."""
+    import shutil
+
+    import numpy as np
+
+    from big_linear_algebra_tpu_torch.data.mnist import MnistDataset
+    from big_linear_algebra_tpu_torch.models import mnist_hinge as hinge
+
+    iters, lr = HINGE_ITERATIONS, HINGE_LR
+    shutil.copytree(mnist_dir, os.path.join(tmp, "mnist"))
+    _cli(hinge, ["init"], tmp, device)
+    w0 = hinge.load_weights()
+    with _saved(hinge, "save_weights") as saved:
+        text, seconds = _cli(hinge, ["train", str(iters), str(lr)], tmp,
+                             device)
+    conv = re.search(r"converged < epsilon after iteration (\d+)", text)
+    conv = None if conv is None else int(conv.group(1))
+    if len(saved) != 1 or "Finished training" not in text:
+        fail(f"mnist_hinge train:\n{text}")
+    data = MnistDataset.from_csv(os.path.join(tmp, "mnist", "mnist_train.csv"))
+    x32 = torch.from_numpy(data.x / 255.0)
+    x64, y64 = x32.double(), hinge.signed_targets(torch.from_numpy(data.y),
+                                                  torch.float64)
+    # the f64 trajectory from the same weights: its convergence iteration
+    w, ref_conv = w0.double(), None
+    for start in range(0, iters, hinge.CHUNK):
+        w, norms = hinge.train_chunk(w, x64, y64, lr,
+                                     min(hinge.CHUNK, iters - start))
+        hit = (norms.sum(dim=1) < hinge.EPSILON).nonzero()
+        if len(hit):
+            ref_conv = start + int(hit[0])
+            break
+    if conv != ref_conv:
+        fail(f"mnist_hinge train: converged at {conv} on the card, at "
+             f"{ref_conv} in f64 on the CPU")
+    x_d = x32.to(device)
+    y_d = hinge.signed_targets(torch.from_numpy(data.y).to(device),
+                               torch.float32)
+    card = w0.to(device)
+    ratios = []
+    for _ in range(iters if conv is None else conv + 1):
+        nxt, _ = hinge.train_chunk(card, x_d, y_d, lr, 1)
+        ratios.append(_hinge_iteration_check(card, nxt, x_d, y_d, lr))
+        card = nxt
+    if not torch.equal(card.cpu(), saved[0][0]):
+        fail("mnist_hinge: the replayed iterations are not bit-equal to "
+             "train's")
+    ratios = np.asarray(ratios)
+    if not ratios.max() <= 1.0:
+        fail(f"mnist_hinge train, teacher-forced against f64: iteration "
+             f"{int(ratios.argmax())} at {ratios.max()} of its bound")
+    run_text, _ = _cli(hinge, ["run", "-1", "0"], tmp, device)
+    acc = re.search(r"accuracy ([0-9.]+)", run_text)
+    test = MnistDataset.from_csv(os.path.join(tmp, "mnist", "mnist_test.csv"))
+    scores = (torch.from_numpy(test.x / 255.0).double()
+              @ hinge.load_weights().double())
+    hits = scores.argmax(1) == torch.from_numpy(test.y).long()
+    f64_acc = f"{int(hits.sum()) / len(hits):.5f}"
+    if acc is None or acc.group(1) != f64_acc:
+        fail(f"mnist_hinge run: accuracy {acc and acc.group(1)} on the card, "
+             f"{f64_acc} on the CPU f64 path")
+    return dict(iters=iters, cli_s=seconds, conv=conv, accuracy=f64_acc,
+                ratio=(float(np.median(ratios)), float(ratios.max())),
+                x=x_d, y=y_d, w=card)
+
+
+def phase_smoke(tmp: str, device: str = "cuda") -> dict:
+    """``smoke``: the printed 3x3 product and the one-layer net before and
+    after one step against the f64 values from the same fixtures
+    (``SMOKE_ATOL``); K1 launched no time (the product is under
+    ``_SMALL_FLOPS``)."""
+    import numpy as np
+
+    from big_linear_algebra_tpu_torch.data.csv import read_csv_matrix
+    from big_linear_algebra_tpu_torch.models import smoke
+    from big_linear_algebra_tpu_torch.nn import layer_graph as lg
+    from big_linear_algebra_tpu_torch.ops import matmul as mm
+
+    _zero_k1_counts(mm)
+    text, _ = _cli(smoke, [], tmp, device)
+    if mm.launch_count:
+        fail(f"smoke launched K1 {mm.launch_count} times")
+    lines = text.splitlines()
+    printed = {}
+    for i, line in enumerate(lines):
+        head = re.fullmatch(r"(.+) \((\d+)x(\d+)\):", line)
+        if head:
+            rows = lines[i + 1:i + 1 + int(head.group(2))]
+            printed[head.group(1)] = np.array(
+                [[float(v) for v in row.split()] for row in rows])
+
+    def load(name, r, c):
+        return torch.from_numpy(read_csv_matrix(os.path.join(tmp, name), r,
+                                                c)).double()
+
+    x = load("inputs.csv", 3, 1)[:, 0]
+    params = [(load("weights.csv", 2, 3), load("biases.csv", 2, 1)[:, 0])]
+    acts = ("scale_0.1",)
+    with torch.no_grad():
+        before = lg.predict(params, acts, x)
+        after = lg.predict(lg.sgd_step(params, acts, x, torch.tensor(
+            [1.0, 0.0], dtype=torch.float64), 0.5), acts, x)
+    want = {"a @ b": (load("a.csv", 3, 3) @ load("b.csv", 3, 3)).numpy(),
+            "output before": before.reshape(-1, 1).numpy(),
+            "output after one step": after.reshape(-1, 1).numpy()}
+    if sorted(printed) != sorted(want):
+        fail(f"smoke printed {sorted(printed)}:\n{text}")
+    errs = {k: float(np.abs(printed[k] - want[k]).max()) for k in want}
+    if not max(errs.values()) <= SMOKE_ATOL:
+        fail(f"smoke against f64: {errs} (tol {SMOKE_ATOL}):\n{text}")
+    return errs
+
+
+def phase_debug_flags(p22: dict, tmp: str, device: str = "cuda") -> str:
+    """``mnist_nn train 1 --debug-nans --disable-jit`` from phase 22's
+    initial CSVs: K1's launches by variant as in phase 22, the trained
+    leaves bit-equal to phase 22's ``train 1``. Then one ``train_step``
+    under ``debug_nans()`` with one NaN pixel in its batch must raise
+    ``FloatingPointError`` naming K1's launch, the first op that sees it,
+    and one whose w1 gradient hook makes a NaN must raise in the backward.
+    Returns the run's host seconds, K1's launches and that message."""
+    from big_linear_algebra_tpu_torch.data import synth
+    from big_linear_algebra_tpu_torch.models import mnist_nn
+    from big_linear_algebra_tpu_torch.ops import matmul as mm
+    from big_linear_algebra_tpu_torch.utils import debug
+
+    os.environ["BLA_DATA_DIR"] = tmp
+    with contextlib.redirect_stdout(io.StringIO()):
+        synth.ensure_mnist(tmp)
+    mnist_nn.save_params_csv(p22["initial"])
+    _zero_k1_counts(mm)
+    with _saved(mnist_nn, "save_params_csv") as saved:
+        text, seconds = _cli(mnist_nn, ["train", "1", "--debug-nans",
+                                        "--disable-jit"], tmp, device)
+    counts = dict(mm.variant_launch_counts)
+    if counts != p22["counts"]:
+        fail(f"train 1 --debug-nans --disable-jit: K1 launched {counts}, "
+             f"phase 22's train 1 {p22['counts']}")
+    for k, v in saved[0].items():
+        if not torch.equal(v.view(torch.int32),
+                           p22["trained"][k].view(torch.int32)):
+            fail(f"train 1 --debug-nans --disable-jit: {k} not bit-equal to "
+                 "phase 22's train 1")
+    cfg = mnist_nn.CONFIG
+    model = mnist_nn.MnistNN.from_params(p22["initial"], device=device)
+    gen = torch.Generator().manual_seed(23)
+    x = torch.rand((cfg.batch_size, cfg.input_size), generator=gen)
+    x[3, 400] = float("nan")
+    onehot = torch.nn.functional.one_hot(
+        torch.arange(cfg.batch_size) % 10, 10).float()
+    batch = [v.to(device) for v in (x, onehot, torch.ones(cfg.batch_size))]
+    try:
+        with debug.debug_nans():
+            mnist_nn.train_step(model, *batch, cfg)
+    except FloatingPointError as e:
+        message = str(e)
+    else:
+        fail("train_step under debug_nans() with a NaN pixel did not raise")
+    want = ("matmul_nn kernel launch" if device == "cuda"
+            else "aten.mm.default")
+    if want not in message:
+        fail(f"debug_nans raised {message!r}, expected it to name {want!r}")
+    # the mode sees the ops that autograd's backward runs (on a CUDA device
+    # in autograd's own thread): a NaN made in w1's gradient hook raises
+    model.layers[0].weight.register_hook(lambda g: g * float("nan"))
+    batch[0] = torch.nan_to_num(batch[0])
+    try:
+        with debug.debug_nans():
+            mnist_nn.train_step(model, *batch, cfg)
+    except FloatingPointError as e:
+        backward = str(e)
+    else:
+        fail("a NaN made in the backward under debug_nans() did not raise")
+    return dict(seconds=seconds, counts=counts, message=message,
+                backward=backward)
+
+
+def phase_legacy_profile(mnist_run: dict, hinge_run: dict) -> dict:
+    """Host wall time and a ``torch.profiler`` trace (``trace_summary.py``)
+    of 100 legacy mnist steps and of one mnist_hinge chunk (10 iterations)
+    on the trained parameters: the card's busy share."""
+    from big_linear_algebra_tpu_torch.models import mnist as legacy
+    from big_linear_algebra_tpu_torch.models import mnist_hinge as hinge
+    from big_linear_algebra_tpu_torch.nn import layer_graph as lg
+
+    run_steps = lg.make_sgd_scan(legacy.ACTS)
+    xs, ys = mnist_run["xs"][:100], mnist_run["ys"][:100]
+    out = {}
+    out["mnist"] = _host_and_trace(
+        lambda: run_steps(mnist_run["params"], xs, ys, LEGACY_MNIST_LR),
+        n_traced=1, warmup=1, timed=3)
+    out["hinge"] = _host_and_trace(
+        lambda: hinge.train_chunk(hinge_run["w"], hinge_run["x"],
+                                  hinge_run["y"], HINGE_LR, hinge.CHUNK),
+        n_traced=1, warmup=1, timed=3)
+    return out
+
+
+def phase_legacy_programs(p22: dict, device: str = "cuda") -> None:
+    """Phase 23: the remaining programs and the debug flags, each in a fresh
+    temporary data directory; then their train loops timed and profiled."""
+    dirs = {}
+    with tempfile.TemporaryDirectory(prefix="bla_smoke_") as tmp:
+        for part in ("my_first_model", "mnist", "mnist_hinge", "smoke",
+                     "debug"):
+            dirs[part] = os.path.join(tmp, part)
+            os.makedirs(dirs[part])
+        mfm = phase_my_first_model(dirs["my_first_model"], device)
+        print(f"[23 my_first_model] init + train {mfm['steps']} 0.1 + run: "
+              f"{' ; '.join(mfm['verdicts'])}; against the CPU f64 steps, "
+              f"max|err| / max|update| per leaf "
+              + ", ".join(f"{k} {r:.3e}" for k, r in mfm["ratios"].items())
+              + f" (tol {MFM_RTOL_OF_UPDATE}), costs max|err| "
+              f"{mfm['cost_err']:.3e} (tol {MFM_COST_ATOL}); train "
+              f"{mfm['cli_s']:.3f} s of host wall, its loop "
+              f"{mfm['loop_s']:.3f} s = {mfm['steps'] / mfm['loop_s']:.1f} "
+              f"steps/s", flush=True)
+        lm = phase_legacy_mnist(dirs["mnist"], device)
+        print(f"[23 mnist legacy] init + train {lm['steps']} "
+              f"{LEGACY_MNIST_LR} 0 (Final batch avg {lm['avg']}) + run "
+              f"{LEGACY_MNIST_RUN} 0: Got {lm['correct']} correct on the card "
+              f"and on the CPU f64 path; the {lm['steps']} steps replayed "
+              f"bit-equal, each teacher-forced against f64: forward at most "
+              f"{lm['fwd']:.3e} of its f32 bound, update at most "
+              f"{lm['step']:.3e} of its ({lm['moved']} steps moved a weight "
+              f"past its f32 rounding); "
+              f"train {lm['cli_s']:.3f} s of host wall "
+              f"= {lm['steps'] / lm['cli_s']:.1f} steps/s", flush=True)
+        hg = phase_mnist_hinge(dirs["mnist_hinge"],
+                               os.path.join(dirs["mnist"], "mnist"), device)
+        print(f"[23 mnist_hinge] init + train {hg['iters']} {HINGE_LR} + run "
+              f"-1 0 on 8192 images: converged "
+              f"{'at ' + str(hg['conv']) if hg['conv'] is not None else 'never'}"
+              f" on the card and in f64; accuracy {hg['accuracy']} on the "
+              f"card and on the CPU f64 path; the iterations replayed "
+              f"bit-equal, each teacher-forced against f64 at median "
+              f"{hg['ratio'][0]:.3e}, max {hg['ratio'][1]:.3e} of its f32 "
+              f"bound; train {hg['cli_s']:.3f} s of host wall = "
+              f"{hg['iters'] / hg['cli_s']:.1f} iterations/s", flush=True)
+        sm = phase_smoke(dirs["smoke"], device)
+        print("[23 smoke] printed against f64: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in sm.items())
+              + f" (tol {SMOKE_ATOL}); K1 launches 0", flush=True)
+        dbg = phase_debug_flags(p22, dirs["debug"], device)
+        print(f"[23 debug flags] mnist_nn train 1 --debug-nans --disable-jit:"
+              f" K1 launches {dbg['counts']} as in phase 22, the trained "
+              f"leaves bit-equal to phase 22's, {dbg['seconds']:.3f} s of "
+              f"host wall; a NaN pixel under debug_nans(): "
+              f"FloatingPointError({dbg['message']!r}); a NaN made in the "
+              f"backward: FloatingPointError({dbg['backward']!r})",
+              flush=True)
+        if device == "cuda":
+            prof = phase_legacy_profile(lm, hg)
+            for name, what, n_steps in (("mnist", "100 legacy mnist steps",
+                                         100),
+                                        ("hinge", "one mnist_hinge chunk",
+                                         10)):
+                host, busy, summary, _ = prof[name]
+                print(f"[23 profile] {what} on the card: host wall "
+                      f"{host:.3f} ms = {host / n_steps * 1e3:.2f} us per "
+                      f"step; device busy {busy:.3f} ms = {busy / host:.1%} "
+                      f"of the host time; trace (trace_summary.py):\n    "
+                      + summary.replace("\n", "\n    "), flush=True)
+        del os.environ["BLA_DATA_DIR"]
+
+
 def main() -> int:
     smi_line, exp2_per_s = phase_environment()
     phase_build()
@@ -3688,7 +4294,10 @@ def main() -> int:
     k1 = phase_timing()
     phase_train_gemm_timing()
     k1_launches = phase_main_path()
-    k1_launches += phase_mnist_train()
+    k1_train, p22 = phase_mnist_train()
+    k1_launches += k1_train
+    phase_legacy_programs(p22)
+    del p22
     k2_err = phase_k2_vs_plain()
     phase_k2_bitequal()
     phase_k2_build_info()

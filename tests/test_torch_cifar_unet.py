@@ -219,7 +219,7 @@ def test_cli_flags(tmp_path, monkeypatch, capsys):
                "--scan-steps=2": "dispatch mode",
                "--host-loop": "dispatch mode",
                "--scan-unroll=2": "dispatch mode",
-               "--debug-nans": "ROADMAP", "--bogus": "Unrecognized flag"}
+               "--bogus": "Unrecognized flag"}
     for flag, reason in reasons.items():
         assert cu.main(["run", "1", "--tiny", flag]) == 1, flag
         assert reason in capsys.readouterr().out, flag
@@ -227,9 +227,19 @@ def test_cli_flags(tmp_path, monkeypatch, capsys):
                         ("--image-size", "integer value"),
                         ("--layout=abc", "NCHW or NHWC"),
                         ("--tiny=yes", "takes no value"),
-                        ("--sample-seed=x", "integer value")):
+                        ("--sample-seed=x", "integer value"),
+                        ("--debug-nans=1", "takes no value"),
+                        ("--disable-jit=1", "takes no value")):
         with pytest.raises(ValueError, match=match):
             cu.main(["run", "1", flag])
+    # the debug flags are accepted, and a sample under them is bit-equal
+    assert cu.main(["init", "--tiny"]) == 0
+    bmps = []
+    for flags in ([], ["--debug-nans", "--disable-jit"]):
+        assert cu.main(["run", "1", "--tiny", "--device=cpu", *flags]) == 0
+        bmps.append((tmp_path / "cifar_unet" / "samples" /
+                     "sample_0.bmp").read_bytes())
+    assert bmps[0] == bmps[1]
     if not torch.cuda.is_available():
         for verb in (["run", "1"], ["train", "1"]):
             with pytest.raises(RuntimeError, match="no CUDA device"):

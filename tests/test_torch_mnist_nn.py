@@ -132,16 +132,16 @@ def test_cli_across_packages(tmp_path, monkeypatch, capsys):
 def test_cli_flags(tmp_path, monkeypatch, capsys):
     """Bad verbs and flags exit 1 with their reasons before any work;
     ``--batch``, ``--per-batch`` and ``--jsonl`` are accepted (train is
-    ported; tests/test_torch_mnist_nn_train.py runs it)."""
+    ported; tests/test_torch_mnist_nn_train.py runs it), and so are
+    ``--debug-nans`` and ``--disable-jit``, which take no value
+    (tests/test_torch_debug.py runs them)."""
     monkeypatch.setenv("BLA_DATA_DIR", str(tmp_path))
     assert mnist_nn.main([]) == 1
     assert mnist_nn.main(["train"]) == 1
     assert "number of epochs" in capsys.readouterr().out
-    for flag in ("--dp", "--debug-nans", "--disable-jit", "--bogus",
-                 "--scan-unroll=2"):
+    for flag in ("--dp", "--bogus", "--scan-unroll=2"):
         assert mnist_nn.main(["train", "1", flag]) == 1
     out = capsys.readouterr().out
-    assert "ROADMAP Queue 1, the debug item" in out
     assert "the parallel-modes item" in out
     assert "dispatch mode" in out
     assert "Unrecognized flag" in out
@@ -149,6 +149,9 @@ def test_cli_flags(tmp_path, monkeypatch, capsys):
         mnist_nn.main(["train", "1", "--per-batch=1", "--device=cpu"])
     with pytest.raises(ValueError, match="must be positive"):
         mnist_nn.main(["train", "1", "--batch=0", "--device=cpu"])
+    for flag in ("--debug-nans=1", "--disable-jit=yes"):
+        with pytest.raises(ValueError, match="takes no value"):
+            mnist_nn.main(["train", "1", flag, "--device=cpu"])
     assert not (tmp_path / "mnist").exists()  # rejected before any work
     with pytest.raises(ValueError, match="cuda or cpu"):
         mnist_nn.main(["run", "--device=tpu"])
