@@ -25,6 +25,12 @@ Verbs:
 - ``run [n]``: DDPM ancestral sampling (Ho et al. alg. 2) of n images to
   ``samples/sample_<i>.bmp``, from the port's train state when it is newer
   than the CSV tree.
+- ``train --dp``: data parallel over the ranks of the launch
+  (``make_train_step_dp``, the JAX package's shard_map DP step): each rank
+  steps on its rows of every batch with its own draws, the gradients and
+  the loss are averaged over the ranks, every rank applies the same Adam
+  update, and rank 0 alone prints and writes. ``--tp`` and the pipeline
+  flags wait for the U-Net TP and pipeline slice.
 Every draw (DDPM noise and timesteps, dropout masks, sampling noise, the
 stochastic-rounding seeds of ``--bf16-params``) comes from one
 ``torch.Generator`` on the model's device (Philox on a GPU); JAX's
@@ -46,6 +52,7 @@ parameters the JAX package's nested dict, with the same keys and layouts.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import re
 import time
@@ -84,6 +91,8 @@ from big_linear_algebra_tpu_torch.nn.optim import (
     tree_map,
 )
 from big_linear_algebra_tpu_torch.ops.activations import relu
+from big_linear_algebra_tpu_torch.parallel import spmd
+from big_linear_algebra_tpu_torch.parallel.sharding import batch_sharding
 
 Params = Dict[str, Any]
 
@@ -575,14 +584,10 @@ def _zero_if_none(grad, p):
     return torch.zeros_like(p) if grad is None else grad
 
 
-def train_step(params: Params, opt_state: AdamState, x0: torch.Tensor,
-               generator: torch.Generator, cfg: Config = CONFIG,
-               draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-    """One step: the loss and its gradient with respect to every parameter,
-    then Adam. ``draws``: (t, noise) to use instead of drawing them from
-    ``generator``. With ``--bf16-params`` the stochastic-rounding seed of
-    the Adam writes is drawn from ``generator`` after the step's masks.
-    Returns (params, opt_state, loss); nothing is updated in place."""
+def _loss_and_grads(params: Params, x0: torch.Tensor,
+                    generator: torch.Generator, cfg: Config, draws):
+    """(loss, gradient tree) of the DDPM loss on x0, the draws (t, noise)
+    given or drawn from ``generator``, the dropout masks from it."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
     t, noise = draws if draws is not None else _ddpm_draws(x0, generator,
                                                            cfg)
@@ -593,16 +598,88 @@ def train_step(params: Params, opt_state: AdamState, x0: torch.Tensor,
     # leaves the forward does not use (conv_3 of a block whose channels do
     # not change, the channel-matching convs of equal dims) get zeros, as
     # jax.grad gives them
-    grads = tree_map(lambda p: _zero_if_none(next(grads), p), leaves)
-    sr_seed = None
-    if cfg.param_dtype == "bfloat16":
-        sr_seed = torch.randint(0, 2 ** 32, (), generator=generator,
-                                device=generator.device)
+    return loss.detach(), tree_map(lambda p: _zero_if_none(next(grads), p),
+                                   leaves)
+
+
+def _sr_seed(generator: torch.Generator, cfg: Config):
+    """The step's stochastic-rounding seed for bf16 stored parameters (None
+    for f32/f64 ones), a uint32 drawn from ``generator``."""
+    if cfg.param_dtype != "bfloat16":
+        return None
+    return torch.randint(0, 2 ** 32, (), generator=generator,
+                         device=generator.device)
+
+
+def _adam(params: Params, grads: Params, opt_state: AdamState, cfg: Config,
+          sr_seed):
     with torch.no_grad():
-        params, opt_state = adam_update(
-            tree_map(torch.Tensor.detach, leaves), grads, opt_state,
-            cfg.learn_rate, sr_seed=sr_seed)
-    return params, opt_state, loss.detach()
+        return adam_update(tree_map(torch.Tensor.detach, params), grads,
+                           opt_state, cfg.learn_rate, sr_seed=sr_seed)
+
+
+def train_step(params: Params, opt_state: AdamState, x0: torch.Tensor,
+               generator: torch.Generator, cfg: Config = CONFIG,
+               draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """One step: the loss and its gradient with respect to every parameter,
+    then Adam. ``draws``: (t, noise) to use instead of drawing them from
+    ``generator``. With ``--bf16-params`` the stochastic-rounding seed of
+    the Adam writes is drawn from ``generator`` after the step's masks.
+    Returns (params, opt_state, loss); nothing is updated in place."""
+    loss, grads = _loss_and_grads(params, x0, generator, cfg, draws)
+    params, opt_state = _adam(params, grads, opt_state, cfg,
+                              _sr_seed(generator, cfg))
+    return params, opt_state, loss
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism: the JAX package's shard_map DP step
+# (models/cifar_unet.py:846-876). Each rank runs its shard of the batch;
+# the gradients and the loss are averaged over the ranks.
+# ---------------------------------------------------------------------------
+
+_GOLDEN64 = 0x9E3779B97F4A7C15
+
+
+def rank_generator(step_seed: int, rank: int,
+                   device: torch.device) -> torch.Generator:
+    """The generator of one rank's draws in one DP step: the step's seed
+    with the rank folded in (JAX's ``fold_in(key, axis_index)``)."""
+    seed = (step_seed ^ ((rank + 1) * _GOLDEN64)) & (2 ** 63 - 1)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def make_train_step_dp(mesh, cfg: Config = CONFIG, axis: str = "data"):
+    """DP train step over ``mesh``: x0 is this rank's shard of the batch
+    (``batch_sharding``), params and Adam state are replicated.
+    ``step(params, opt_state, x0, generator, draws=None)``: ``generator``
+    is the replicated stream, the same on every rank (a host generator, so
+    that drawing a seed waits for no device). From it the step draws the
+    stochastic-rounding seed of ``--bf16-params`` first (JAX's ``_sr_key``
+    from the pre-fold key: every rank must round the replicated params
+    alike or the replicas part), then a step seed; the rank's generator
+    (``rank_generator``) makes its t, noise and dropout masks. ``draws``:
+    this rank's (t, noise) instead. The local loss is a mean over the
+    shard, so the gradients and the loss are averaged over ``axis``
+    (pmean, one all-reduce), and every rank applies the same Adam update.
+    Statistically the single-device step at the global batch: each rank
+    draws its own timesteps, noise and masks. (JAX's ``make_epoch_step_dp``
+    is this step under an XLA scan; the port runs one step per batch.)
+    Returns (params, opt_state, loss)."""
+
+    def step(params: Params, opt_state: AdamState, x0: torch.Tensor,
+             generator: torch.Generator, draws=None):
+        sr_seed = _sr_seed(generator, cfg)
+        step_seed = int(torch.randint(0, 2 ** 62, (), generator=generator,
+                                      device=generator.device))
+        local = rank_generator(step_seed, mesh.index(axis), x0.device)
+        loss, grads = _loss_and_grads(params, x0, local, cfg, draws)
+        mean = spmd.pmean_tree({"grads": grads, "loss": loss}, mesh, axis)
+        params, opt_state = _adam(params, mean["grads"], opt_state, cfg,
+                                  sr_seed)
+        return params, opt_state, mean["loss"]
+
+    return step
 
 
 def adam_state_from_jax(state) -> AdamState:
@@ -787,18 +864,30 @@ def init(flags=None) -> None:
 
 
 def _train_state(params, opt_state: AdamState, generator, epoch: int,
-                 cfg: Config, device: torch.device) -> dict:
+                 cfg: Config, device: torch.device, dp: bool) -> dict:
     return {"params": params,
             "opt": {"step": opt_state.step, "m": opt_state.m,
                     "v": opt_state.v},
             "rng": generator.get_state(), "device": device.type,
-            "epoch": epoch, "param_dtype": cfg.param_dtype}
+            "dp": dp, "epoch": epoch, "param_dtype": cfg.param_dtype}
 
 
-def _resume(state: dict, generator, cfg: Config, device: torch.device):
+def _resume(state: dict, generator, cfg: Config, device: torch.device,
+            dp: bool):
     """(params, opt_state, epoch) from a saved train state, cast to this
     run's parameter dtype (a state written under the other ``--bf16-params``
-    setting resumes into this one); the generator continues its stream."""
+    setting resumes into this one); the generator continues its stream. A
+    ``--dp`` state holds the replicated host stream, whatever the rank
+    count: a run with another count of ranks continues it, each rank
+    folding its own index into every step's seed."""
+    if state.get("dp", False) != dp:
+        raise ValueError(
+            "the train state was written by a --dp run, whose draws come "
+            "from a replicated host generator with each rank's index folded "
+            "in; resume it with --dp on two or more ranks (any count)"
+            if not dp else
+            "the train state was written by a run without --dp, whose draws "
+            "come from the device's generator; resume it without --dp")
     if state["device"] != device.type:
         raise ValueError(
             f"the train state was written by a run on {state['device']}; "
@@ -830,36 +919,52 @@ def train(num_epochs: int, *args, flags=None) -> int:
     max_steps = common.int_flag(flags, "max-steps", default=0, minimum=1)
     keep = common.int_flag(flags, "keep", default=3, minimum=0) or None
     best = common.presence_flag(flags, "keep-best")
-    data = Cifar10Batches(synth.ensure_cifar(str(common.data_dir())))
+    mesh = common.dp_mesh(flags, cfg.batch_size)
+    dp = mesh is not None
+    if dp:
+        device = mesh.device
+    rank0 = common.is_rank0()
+    data = Cifar10Batches(common.rank0_first(
+        lambda: synth.ensure_cifar(str(common.data_dir()))))
     if data.num_examples < cfg.batch_size:
         raise SystemExit(
             f"batch size {cfg.batch_size} exceeds the dataset "
             f"({data.num_examples} examples): no full batch to train on")
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    # --dp: the replicated stream is a host generator (make_train_step_dp)
+    generator = torch.Generator(device="cpu" if dp else device).manual_seed(
+        cfg.seed)
     step0 = ckpt_pytree.latest_step(state_dir())
     csv_file = ckpt_dir() / "output_conv.csv"
     epoch0 = 0
     if step0 is not None:
         params, opt_state, epoch0 = _resume(
             ckpt_pytree.restore_pytree(state_dir(), step0, device), generator,
-            cfg, device)
-        print(f"resumed train state at step {opt_state.step} "
-              f"(epoch {epoch0})")
+            cfg, device, dp)
+        if rank0:
+            print(f"resumed train state at step {opt_state.step} "
+                  f"(epoch {epoch0})")
     else:
         _refuse_jax_state(csv_file)
         if csv_file.is_file():
             params = load_params_csv(cfg)
         else:
-            print("no checkpoint found; initializing")
+            if rank0:
+                print("no checkpoint found; initializing")
             params = init_params(torch.Generator().manual_seed(cfg.seed),
                                  cfg)
         params = tree_map(lambda a: a.to(device), params)
         opt_state = adam_init(params)
+    # rank 0 alone writes the train states and the CSV tree, and logs
     manager = ckpt_pytree.TrainCheckpointer(
-        state_dir(), max_to_keep=keep, best_metric="loss" if best else None)
-    logger = common.MetricsLogger(flags.get("jsonl") or None)
+        state_dir(), max_to_keep=keep,
+        best_metric="loss" if best else None) if rank0 else None
+    logger = common.MetricsLogger(flags.get("jsonl") or None, enabled=rank0)
     rng = np.random.default_rng([cfg.seed, epoch0])
     b, n_ex = cfg.batch_size, data.num_examples
+    step = (make_train_step_dp(mesh, cfg) if dp
+            else functools.partial(train_step, cfg=cfg))
+    # each rank's rows of every batch (all of them without --dp)
+    lo, hi = batch_sharding(mesh).bounds(b) if dp else (0, b)
     # The JAX package's 2 GiB rule, applied to the copy the port keeps on
     # the device: the 32x32 records in f32 (each batch is upscaled after
     # it is drawn). A larger set streams through pinned host memory two
@@ -871,28 +976,31 @@ def train(num_epochs: int, *args, flags=None) -> int:
         t0 = time.perf_counter()
         if resident:
             perm = torch.from_numpy(rng.permutation(n_ex)).to(device)
-            batches = (data_dev[perm[i:i + b]]
+            batches = (data_dev[perm[i + lo:i + hi]]
                        for i in range(0, (n_ex // b) * b, b))
         else:
             batches = prefetch_to_device(
-                (x for _, x in data.epoch_batches(rng, b)), device)
+                (x[lo:hi] for _, x in data.epoch_batches(rng, b)), device)
         losses = []
         for step_i, x0 in enumerate(batches):
             if max_steps and step_i >= max_steps:
                 break
-            params, opt_state, loss = train_step(
-                params, opt_state, _fit_images(x0, cfg), generator, cfg)
+            params, opt_state, loss = step(params, opt_state,
+                                           _fit_images(x0, cfg), generator)
             losses.append(loss)
         losses = torch.stack(losses).float().cpu().numpy()
         dt = time.perf_counter() - t0
         avg = float(losses.mean())
         logger.log(epoch=epoch, avg_loss=avg, epoch_seconds=dt,
                    images_per_sec=losses.size * b / dt, step=opt_state.step)
-        manager.save(opt_state.step,
-                     _train_state(params, opt_state, generator, epoch + 1,
-                                  cfg, device),
-                     metrics={"loss": avg})
-    save_params_csv(params, cfg)
+        if rank0:
+            manager.save(opt_state.step,
+                         _train_state(params, opt_state, generator,
+                                      epoch + 1, cfg, device, dp),
+                         metrics={"loss": avg})
+    if rank0:
+        save_params_csv(params, cfg)
+    common.dp_done(mesh)
     logger.close()
     return 0
 
@@ -926,7 +1034,7 @@ def main(argv=None) -> int:
         run_usage="run [<num samples> (default 1)]",
         extra_flags=("tiny", "image-size", "sample-seed", "bf16-params",
                      "layout", "batch", "max-steps", "keep", "keep-best",
-                     "jsonl", "fused-block"),
+                     "jsonl", "fused-block", "dp"),
         unsupported_flags={
             "layout=NHWC": "the channels-last twins are not ported yet "
                            "(ROADMAP: one code path on torch.channels_last)",
@@ -940,7 +1048,7 @@ def main(argv=None) -> int:
             **{f: common.XLA_DISPATCH_MODE
                for f in ("scan-steps", "scan-unroll", "host-loop")},
             **{f: common.PARALLEL_NOT_PORTED
-               for f in ("dp", "tp", "pp", "pp-micro", "pp-schedule")},
+               for f in ("tp", "pp", "pp-micro", "pp-schedule")},
         })
 
 

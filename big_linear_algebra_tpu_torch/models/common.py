@@ -31,7 +31,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -48,12 +48,18 @@ class MetricsLogger:
     """Structured metrics: one stdout line per ``log`` call of
     tab-separated ``key: value`` pairs (floats to five places), and one
     JSON line, with a ``time`` stamp, appended to ``jsonl_path`` when
-    given."""
+    given. A logger made with ``enabled=False`` (a rank other than 0 of a
+    ``--dp`` run) writes nothing."""
 
-    def __init__(self, jsonl_path: Optional[str] = None):
-        self._file = open(jsonl_path, "a") if jsonl_path else None
+    def __init__(self, jsonl_path: Optional[str] = None,
+                 enabled: bool = True):
+        self._enabled = enabled
+        self._file = open(jsonl_path, "a") if jsonl_path and enabled \
+            else None
 
     def log(self, **metrics) -> None:
+        if not self._enabled:
+            return
         print("\t".join(f"{k}: {v:.5f}" if isinstance(v, float)
                         else f"{k}: {v}" for k, v in metrics.items()),
               flush=True)
@@ -105,8 +111,10 @@ BASE_FLAGS = frozenset({"profile", "device", "debug-nans", "disable-jit"})
 
 # Reasons the model CLIs give for the flags of the JAX package's parallel
 # modes and XLA dispatch modes.
-PARALLEL_NOT_PORTED = ("the parallel modes are not ported yet (ROADMAP Queue "
-                       "1, the parallel-modes item)")
+PARALLEL_NOT_PORTED = ("the U-Net's tensor parallelism and the pipeline "
+                       "modes are not ported yet (ROADMAP Queue 1, the "
+                       "parallel-modes item: the U-Net TP and pipeline "
+                       "slice)")
 XLA_DISPATCH_MODE = ("an XLA dispatch mode; the port runs one eager step per "
                      "batch (a CUDA graph over a step is later work)")
 # The JAX package accepts --jsonl on every program and ignores it where no
@@ -175,6 +183,83 @@ def presence_flag(flags, name: str) -> bool:
     return True
 
 
+def dp_mesh(flags, batch_size: Optional[int] = None):
+    """``--dp``'s contract, the JAX package's "all local devices": under a
+    launcher (``torchrun``, or the ranks ``run_cli`` spawns, one per visible
+    card) the rank joins the process group and gets the mesh of every rank
+    on a ``data`` axis, on its own device; with one rank it prints the JAX
+    package's ``--dp: single device, running unsharded`` and returns None
+    (the normal path runs). A ``batch_size`` that does not divide over the
+    ranks raises. None without ``--dp``."""
+    flags = flags or {}
+    if not presence_flag(flags, "dp"):
+        return None
+    from big_linear_algebra_tpu_torch.parallel import mesh as pmesh
+
+    pmesh.distributed_init(device=flags.get("device") or "cuda")
+    if pmesh.world_size() <= 1:
+        print("--dp: single device, running unsharded")
+        return None
+    mesh = pmesh.default_mesh()
+    n = mesh.size("data")
+    if batch_size is not None and batch_size % n:
+        raise SystemExit(f"--dp: batch size {batch_size} is not divisible "
+                         f"by {n} devices")
+    return mesh
+
+
+def is_rank0() -> bool:
+    """Whether this process prints and writes: rank 0 of a ``--dp`` run,
+    or a run without one."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def rank0_first(fn: Callable[[], Any]) -> Any:
+    """``fn()`` on rank 0 first, then on the other ranks (which find the
+    files it made): data synthesis under ``--dp``."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return fn()
+    if dist.get_rank() == 0:
+        out = fn()
+        dist.barrier()
+        return out
+    dist.barrier()
+    return fn()
+
+
+def dp_done(mesh) -> None:
+    """The end of a ``--dp`` verb: every rank waits until rank 0 has written
+    (a verb run next in the same group reads what it wrote)."""
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
+def _dp_ranks_to_spawn(flags) -> int:
+    """Ranks ``--dp`` spawns when launched plainly: one per visible card on
+    a node with several. None under a launcher, on the CPU or on one
+    card."""
+    if any(v in os.environ for v in ("RANK", "WORLD_SIZE", "MASTER_ADDR")):
+        return 0
+    if (flags.get("device") or "cuda") != "cuda":
+        return 0
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return n if n > 1 else 0
+
+
+def _cli_rank(prog: str, argv: List[str]) -> int:
+    import importlib
+
+    module = importlib.import_module(f"big_linear_algebra_tpu_torch.models."
+                                     f"{prog}")
+    return module.main(argv)
+
+
 def device_flag(flags) -> torch.device:
     """``--device=cuda|cpu`` (default ``cuda``). ``cuda`` without a usable
     GPU raises: the program never falls back to the CPU on its own."""
@@ -233,6 +318,12 @@ def run_cli(prog: str,
                   + " ".join(f"--{f}" for f in sorted(allowed)))
             return 1
     verb = pos[0]
+    if "dp" in flags and not verb.startswith("train"):
+        # the JAX package ignores --dp outside train; the port rejects a
+        # flag it would ignore
+        print(f"--dp is not supported by {prog} {verb}: data parallelism "
+              f"applies to train")
+        return 1
     try:
         if verb.startswith("run"):
             n = int(pos[1]) if len(pos) > 1 else -1
@@ -244,6 +335,13 @@ def run_cli(prog: str,
             if len(pos) < 2:
                 print(f"Please supply a number of epochs, usage:\n\t{train_usage}\n")
                 return 1
+            n_ranks = _dp_ranks_to_spawn(flags) if "dp" in flags else 0
+            if n_ranks:  # --dp on a node with several cards: one rank each
+                from big_linear_algebra_tpu_torch.parallel.mesh import (
+                    spawn_ranks)
+
+                spawn_ranks(_cli_rank, n_ranks, prog, argv)
+                return 0
             with maybe_profile("profile" in flags, flags.get("profile", "")), \
                     debug_flags(flags):
                 rc = train_fn(int(pos[1]), *pos[2:], flags=flags)

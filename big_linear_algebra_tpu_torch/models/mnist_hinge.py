@@ -25,9 +25,13 @@ descent on max(0, 1 − y·wᵀx) with argmax-of-``wᵀx`` scoring and full
 gradient resets; reference-trained weights are evaluated with ``run
 --reference-scoring`` (the reference's 1 − wᵀx).
 
-Flags: ``--device=cuda|cpu`` (default ``cuda``), ``--reference-scoring``
-and the base flags; ``--dp`` and ``--jsonl`` are rejected with their
-reasons.
+Flags: ``--device=cuda|cpu`` (default ``cuda``), ``--reference-scoring``,
+``--dp`` and the base flags; ``--jsonl`` is rejected with its reason.
+``train --dp`` shards the examples over the ranks of the launch (zero rows
+pad them to a multiple of the rank count; ``torchrun`` or, on a node with
+several cards, one rank per card) and sums the gradient over the ranks
+once an iteration (``make_train_chunk_dp``); rank 0 alone prints and
+writes.
 """
 
 from __future__ import annotations
@@ -43,6 +47,8 @@ from big_linear_algebra_tpu_torch.data.csv import read_csv_matrix, write_csv_mat
 from big_linear_algebra_tpu_torch.data.mnist import MnistDataset, visualize_digit
 from big_linear_algebra_tpu_torch.models import common
 from big_linear_algebra_tpu_torch.nn.init import uniform_init
+from big_linear_algebra_tpu_torch.parallel import spmd
+from big_linear_algebra_tpu_torch.parallel.sharding import batch_sharding
 
 EPSILON = 0.05  # convergence threshold, model/mnist_hinge.c:168
 CHUNK = 10      # iterations between the reference's norm logs (:152)
@@ -89,6 +95,26 @@ def signed_targets(labels: torch.Tensor, dtype) -> torch.Tensor:
 
 
 @torch.no_grad()
+def _chunk(w, x, y, lr, n_iters, n_total, mesh=None, axis="data"):
+    """The iterations of ``train_chunk`` (JAX ``_chunk_body``): with a
+    mesh, x and y are this rank's examples and the gradient is summed over
+    ``axis`` (one all-reduce an iteration); every rank then holds the same
+    sum, so the same weights and the same convergence freeze."""
+    done = torch.zeros((), dtype=torch.bool, device=w.device)
+    history = []
+    for _ in range(n_iters):
+        margins = y * (x @ w)
+        viol = (margins < 1.0).to(x.dtype)
+        grads = -(x.T @ (viol * y))
+        if mesh is not None:
+            grads = spmd.psum_tree(grads, mesh, axis)
+        norms = torch.sqrt(torch.sum(grads * grads, dim=0)) / n_total
+        w = torch.where(done, w, w - lr * grads)
+        done = done | (torch.sum(norms) < EPSILON)
+        history.append(norms)
+    return w, torch.stack(history)
+
+
 def train_chunk(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor, lr: float,
                 n_iters: int = CHUNK):
     """``n_iters`` full-batch iterations on ``w``'s device with the
@@ -97,18 +123,32 @@ def train_chunk(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor, lr: float,
     update lands, and every later iteration leaves ``w`` frozen (JAX
     ``_chunk_body``/``_train_chunk``). ``y``: ``signed_targets``. Returns
     (w, norms history (n_iters, 10)) as device tensors."""
-    n = x.shape[0]
-    done = torch.zeros((), dtype=torch.bool, device=w.device)
-    history = []
-    for _ in range(n_iters):
-        margins = y * (x @ w)
-        viol = (margins < 1.0).to(x.dtype)
-        grads = -(x.T @ (viol * y))
-        norms = torch.sqrt(torch.sum(grads * grads, dim=0)) / n
-        w = torch.where(done, w, w - lr * grads)
-        done = done | (torch.sum(norms) < EPSILON)
-        history.append(norms)
-    return w, torch.stack(history)
+    return _chunk(w, x, y, lr, n_iters, x.shape[0])
+
+
+def make_train_chunk_dp(mesh, n_total: int, n_iters: int = CHUNK,
+                        axis: str = "data"):
+    """DP chunk (JAX ``make_train_chunk_dp``): the examples sharded over
+    ``axis`` (``pad_examples``, then ``batch_sharding``), the full-batch
+    gradient assembled by one all-reduce an iteration: the trajectory of
+    ``train_chunk`` up to the order of the sums (the hinge gradient is an
+    example sum). ``n_total``: the true (unpadded) example count, the
+    reference's norm/N. ``chunk(w, x, y, lr)`` → (w, norms history)."""
+
+    def chunk(w, x, y, lr):
+        return _chunk(w, x, y, lr, n_iters, n_total, mesh, axis)
+
+    return chunk
+
+
+def pad_examples(x: np.ndarray, labels: np.ndarray, n_ranks: int):
+    """Zero example rows up to a multiple of ``n_ranks``: a zero row adds
+    exactly 0 to the hinge gradient (JAX ``train``'s padding)."""
+    pad = (-x.shape[0]) % n_ranks
+    if pad:
+        x = np.concatenate([x, np.zeros((pad, x.shape[1]), x.dtype)])
+        labels = np.concatenate([labels, np.zeros(pad, labels.dtype)])
+    return x, labels
 
 
 def train(iterations: int, learn_rate: str = None, *args, flags=None):
@@ -118,34 +158,52 @@ def train(iterations: int, learn_rate: str = None, *args, flags=None):
         return
     lr = float(learn_rate)
     device = common.device_flag(flags)
-    train_csv, _ = synth.ensure_mnist(str(common.data_dir()))
-    if not (ckpt_dir() / "weights_0.csv").is_file():
-        print("no checkpoint found; initializing")
-        init()
+    mesh = common.dp_mesh(flags)
+    if mesh is not None:
+        device = mesh.device
+    rank0 = common.is_rank0()
+    train_csv, _ = common.rank0_first(
+        lambda: synth.ensure_mnist(str(common.data_dir())))
+
+    def ensure_weights():
+        if not (ckpt_dir() / "weights_0.csv").is_file():
+            print("no checkpoint found; initializing")
+            init()
+
+    common.rank0_first(ensure_weights)
     w = load_weights(device)
     data = MnistDataset.from_csv(train_csv)
     # matrix_scale 1/255 (:125) in numpy on the host, as the JAX package
     # scales: CUDA's division by a CPU scalar would round some pixels
     # otherwise
-    x = torch.from_numpy(data.x / 255.0).to(device)
-    y = signed_targets(torch.from_numpy(data.y).to(device), x.dtype)
+    x_np, labels_np = data.x / 255.0, data.y
+    n_total = data.num_examples
+    if mesh is not None:  # --dp: each rank's examples, zero rows padding
+        x_np, labels_np = pad_examples(x_np, labels_np, mesh.size("data"))
+        shard = batch_sharding(mesh)
+        x_np, labels_np = shard(x_np), shard(labels_np)
+    x = torch.from_numpy(x_np).to(device)
+    y = signed_targets(torch.from_numpy(labels_np).to(device), x.dtype)
     i = 0
     while i < iterations:
         chunk = min(CHUNK, iterations - i)
-        w, norms_hist = train_chunk(w, x, y, lr, chunk)
+        w, norms_hist = _chunk(w, x, y, lr, chunk, n_total, mesh)
         norms_hist = norms_hist.cpu().numpy()   # one read per chunk
         i += chunk
-        if (i % CHUNK == 0) or i == iterations:  # logUpdate (:152)
-            print(f"Gradient norms after iteration {i - 1}:")
+        if rank0 and ((i % CHUNK == 0) or i == iterations):  # logUpdate
+            print(f"Gradient norms after iteration {i - 1}:")  # (:152)
             for j, nv in enumerate(norms_hist[-1]):
                 print(f"\tModel {j}: {nv:.5f}")
         sums = norms_hist.sum(axis=1)
         if (sums < EPSILON).any():              # (:168-171)
             conv = i - chunk + int(np.argmax(sums < EPSILON))
-            print(f"Gradient converged < epsilon after iteration {conv}")
+            if rank0:
+                print(f"Gradient converged < epsilon after iteration {conv}")
             break
-    save_weights(w)
-    print("Finished training")
+    if rank0:
+        save_weights(w)
+        print("Finished training")
+    common.dp_done(mesh)
 
 
 def run(num: int = -1, log_update_every: int = 1, flags=None):
@@ -188,9 +246,8 @@ def main(argv=None) -> int:
         "mnist_hinge", init, train, run, argv=argv,
         train_usage="train <iterations> <learn_rate>",
         run_usage="run <num> [<output_every_n = 1>]",
-        extra_flags=("reference-scoring",),
-        unsupported_flags={"dp": common.PARALLEL_NOT_PORTED,
-                           "jsonl": common.NO_METRICS_LOG},
+        extra_flags=("reference-scoring", "dp"),
+        unsupported_flags={"jsonl": common.NO_METRICS_LOG},
     )
 
 

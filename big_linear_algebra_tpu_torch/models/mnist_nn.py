@@ -29,8 +29,18 @@ permutation is the JAX package's (``default_rng(Config.seed)``), so both
 packages visit the examples in the same order.
 
 Flags: ``--device=cuda|cpu`` (default ``cuda``), ``--batch=N``,
-``--per-batch``, ``--jsonl=PATH``; ``--scan-unroll`` (an XLA dispatch mode)
-and ``--dp`` are rejected with their reasons.
+``--per-batch``, ``--jsonl=PATH``, ``--dp``; ``--scan-unroll`` (an XLA
+dispatch mode) is rejected with its reason.
+
+``train --dp`` is data parallel over every rank of the launch (``torchrun
+--nproc-per-node=N -m big_linear_algebra_tpu_torch.models.mnist_nn train
+1 --dp``; launched plainly on a node with several cards, one rank per
+card; on one card, the JAX package's "single device, running unsharded"):
+each rank takes its slice of every batch (the resident epoch by default,
+``make_train_step_dp`` under ``--per-batch``), the gradients are summed
+over the ranks, and rank 0 alone logs and writes the CSVs.
+``make_train_step_dp_tp`` is the DP×TP step (the dense layers
+column-parallel over a ``model`` axis), an API as in the JAX package.
 
 Batch-major activations (B, 784) with (in, out) weights, as in the JAX
 package. Unlike the JAX package's functional step, ``train_step`` updates
@@ -40,6 +50,7 @@ the model's parameters in place.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from pathlib import Path
 from typing import Dict, Mapping
@@ -54,8 +65,13 @@ from big_linear_algebra_tpu_torch.ckpt.csv_layouts import layout_exists
 from big_linear_algebra_tpu_torch.data import synth
 from big_linear_algebra_tpu_torch.data.mnist import MnistDataset
 from big_linear_algebra_tpu_torch.models import common
-from big_linear_algebra_tpu_torch.nn import Dense, he_uniform, softmax_cross_entropy
+from big_linear_algebra_tpu_torch.nn import (Dense, dense, he_uniform,
+                                             softmax_cross_entropy)
+from big_linear_algebra_tpu_torch.nn.optim import tree_map
 from big_linear_algebra_tpu_torch.ops.matrix import frobenius_norm
+from big_linear_algebra_tpu_torch.parallel import spmd
+from big_linear_algebra_tpu_torch.parallel.sharding import (
+    batch_sharding, shard_params_tp)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,6 +241,20 @@ def train_step(model: MnistNN, x, onehot, mask, cfg: Config = CONFIG):
     return correct, ce_sum.detach()
 
 
+def _resident_batches(x_dev, y_dev, batch_indices, cfg: Config):
+    """(x, onehot, mask) of each row of ``batch_indices`` (−1 = padding),
+    gathered on the device from the resident raw pixels and labels."""
+    # a divisor on the device: PyTorch's CUDA division by a CPU scalar
+    # multiplies by its reciprocal, which rounds otherwise than the host's
+    # x / 255.0 in _make_batch (--per-batch)
+    scale = torch.full((), 255.0, dtype=x_dev.dtype, device=x_dev.device)
+    for batch_idx in batch_indices:
+        safe = torch.clamp(batch_idx, 0, x_dev.shape[0] - 1)
+        x = x_dev[safe] / scale
+        onehot = F.one_hot(y_dev[safe].long(), cfg.layer_3).to(torch.float32)
+        yield x, onehot, (batch_idx >= 0).to(torch.float32)
+
+
 def epoch_step_resident(model: MnistNN, x_dev, y_dev, perm,
                         cfg: Config = CONFIG):
     """A whole epoch against a device-resident dataset: the host sends only
@@ -232,18 +262,11 @@ def epoch_step_resident(model: MnistNN, x_dev, y_dev, perm,
     labels; ``perm``: (n_batches·B,) indices, −1 = padding (the ragged last
     batch's mask), all on the model's device. One eager step per batch.
     Returns the epoch's summed (correct, ce_sum) as device tensors."""
-    b = cfg.batch_size
-    # a divisor on the device: PyTorch's CUDA division by a CPU scalar
-    # multiplies by its reciprocal, which rounds otherwise than the host's
-    # x / 255.0 in _make_batch (--per-batch)
-    scale = torch.full((), 255.0, dtype=x_dev.dtype, device=x_dev.device)
     correct = ce_sum = 0.0
-    for batch_idx in perm.long().reshape(-1, b):
-        safe = torch.clamp(batch_idx, 0, x_dev.shape[0] - 1)
-        x = x_dev[safe] / scale
-        onehot = F.one_hot(y_dev[safe].long(), cfg.layer_3).to(torch.float32)
-        mask = (batch_idx >= 0).to(torch.float32)
-        c, ce = train_step(model, x, onehot, mask, cfg)
+    for batch in _resident_batches(x_dev, y_dev,
+                                   perm.long().reshape(-1, cfg.batch_size),
+                                   cfg):
+        c, ce = train_step(model, *batch, cfg)
         correct, ce_sum = correct + c, ce_sum + ce
     return correct, ce_sum
 
@@ -266,6 +289,155 @@ def epoch_permutation(rng: np.random.Generator, n: int,
     perm = np.full(-(-n // batch_size) * batch_size, -1, np.int32)
     perm[:n] = rng.permutation(n).astype(np.int32)
     return perm
+
+
+# ---------------------------------------------------------------------------
+# Data and tensor parallelism: the JAX package's shard_map steps
+# (models/mnist_nn.py:243-380). Each rank runs its shard's step; the
+# collectives are explicit (parallel/spmd.py), and K1 runs on each rank's
+# local shapes.
+# ---------------------------------------------------------------------------
+
+
+def make_train_step_dp(mesh, cfg: Config = CONFIG, axis: str = "data"):
+    """DP train step on this rank's shard of the batch (``batch_sharding``):
+    the local forward and backward, then the gradients and the step's
+    (correct, ce_sum) summed over ``axis`` in one all-reduce, the clip and
+    SGD, replicated. The loss is an example sum, so the summed gradient IS
+    the full batch's (up to the order of the sums). ``step(model, x,
+    onehot, mask)`` updates the model in place and returns the summed
+    (correct, ce_sum) as device tensors."""
+
+    def step(model: MnistNN, x, onehot, mask):
+        model.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            loss, (correct, ce_sum) = loss_and_metrics(model, x, onehot,
+                                                       mask, cfg)
+            loss.backward()
+        params = model.params()
+        summed = spmd.psum_tree(
+            {"grads": {k: p.grad for k, p in params.items()},
+             "correct": correct, "ce_sum": ce_sum.detach()}, mesh, axis)
+        with torch.no_grad():
+            for k, p in params.items():
+                p -= cfg.learn_rate * _clip(summed["grads"][k],
+                                            cfg.grad_clip)
+        return summed["correct"], summed["ce_sum"]
+
+    return step
+
+
+def tp_param_specs(model_axis: str = "model") -> Dict[str, tuple]:
+    """The sharded dim of every leaf, as JAX's PartitionSpecs name it
+    (Megatron column-parallel): weights (in, out) shard their out dim,
+    biases their only dim."""
+    specs = {}
+    for i in (1, 2, 3):
+        specs[f"w{i}"] = (None, model_axis)
+        specs[f"b{i}"] = (model_axis,)
+    return specs
+
+
+def place_params_tp(mesh, params: Mapping[str, torch.Tensor],
+                    model_axis: str = "model") -> Dict[str, torch.Tensor]:
+    """This rank's shards of the full ``params`` (``init_params``,
+    ``params_from_jax``, ``load_params_csv``), on the mesh's device: the
+    column-parallel layout of ``tp_param_specs`` (``shard_params_tp``)."""
+    return tree_map(lambda t: t.to(mesh.device),
+                    shard_params_tp(mesh, params, model_axis))
+
+
+def gather_params_tp(mesh, params: Mapping[str, torch.Tensor],
+                     model_axis: str = "model") -> Dict[str, torch.Tensor]:
+    """The full parameters from every rank's shards (for the CSV
+    checkpoint): each leaf gathered along its sharded dim."""
+    specs = tp_param_specs(model_axis)
+    with torch.no_grad():
+        return {k: spmd.all_gather(v, mesh, model_axis,
+                                   dim=specs[k].index(model_axis))
+                for k, v in params.items()}
+
+
+def tp_forward(params: Mapping[str, torch.Tensor], x: torch.Tensor, mesh,
+               model_axis: str = "model") -> torch.Tensor:
+    """TP forward on output-dim-sharded weights: each dense layer (K1 on
+    the shard, its ReLU in K1's epilogue: ReLU commutes with the
+    feature-dim gather) computes a feature shard, and an ``all_gather``
+    over ``model_axis`` rebuilds the full activation for the next layer."""
+    a = x
+    for i in (1, 2, 3):
+        z = dense(a, params[f"w{i}"], params[f"b{i}"],
+                  "relu" if i < 3 else None)
+        a = spmd.all_gather(z, mesh, model_axis, dim=1)
+    return a
+
+
+def make_train_step_dp_tp(mesh, cfg: Config = CONFIG,
+                          data_axis: str = "data",
+                          model_axis: str = "model"):
+    """DP×TP train step: the batch over ``data_axis``, the dense output dims
+    over ``model_axis`` (``place_params_tp``). The weight shards' gradients
+    arrive through ``all_gather``'s backward (the cotangent summed over
+    ``model_axis``, then sliced) and a sum over ``data_axis``; a finite clip
+    takes the Frobenius norm of the full gradient across the model shards.
+    ``step(params, x, onehot, mask)`` returns (new shards, correct,
+    ce_sum), the metrics summed over ``data_axis``."""
+    tp = mesh.size(model_axis)
+
+    def step(params, x, onehot, mask):
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        with torch.enable_grad():
+            logits = tp_forward(leaves, x, mesh, model_axis)
+            loss = softmax_cross_entropy(logits, onehot, mask) \
+                / cfg.input_size
+            # every model shard holds an identical copy of this loss, and
+            # all_gather's backward SUMS the cotangents of all copies:
+            # differentiate loss/tp so that the gradient is exact
+            grads = torch.autograd.grad(loss / tp, list(leaves.values()))
+        with torch.no_grad():
+            pred = torch.argmax(logits, dim=-1)
+            label = torch.argmax(onehot, dim=-1)
+            correct = torch.sum((pred == label) * mask)
+            summed = spmd.psum_tree(
+                {"grads": dict(zip(leaves, grads)), "correct": correct,
+                 "ce_sum": loss.detach() * cfg.input_size}, mesh, data_axis)
+            grads = summed["grads"]
+            if cfg.grad_clip != float("inf"):
+                grads = {k: g * torch.clamp(
+                    cfg.grad_clip / torch.sqrt(spmd.psum(
+                        torch.sum(g * g), mesh, model_axis)), max=1.0)
+                    for k, g in grads.items()}
+            new = {k: leaves[k].detach() - cfg.learn_rate * grads[k]
+                   for k in leaves}
+        return new, summed["correct"], summed["ce_sum"]
+
+    return step
+
+
+def make_epoch_resident_dp(mesh, cfg: Config = CONFIG, axis: str = "data"):
+    """DP counterpart of ``epoch_step_resident``: the dataset is resident on
+    every rank, and each rank gathers its slice of every batch by its
+    position on ``axis``, ``perm.reshape(n_batches, ranks, B/ranks)[:,
+    rank]`` as the JAX package slices it, so an epoch is the single-device
+    epoch's math. ``epoch(model, x_dev, y_dev, perm)`` returns the summed
+    (correct, ce_sum)."""
+    ndev = mesh.size(axis)
+    if cfg.batch_size % ndev:
+        raise ValueError(
+            f"batch_size {cfg.batch_size} not divisible by {ndev} devices")
+    b_local = cfg.batch_size // ndev
+    step = make_train_step_dp(mesh, cfg, axis)
+    r = mesh.index(axis)
+
+    def epoch(model: MnistNN, x_dev, y_dev, perm):
+        idx = perm.long().reshape(-1, ndev, b_local)[:, r]
+        correct = ce_sum = 0.0
+        for batch in _resident_batches(x_dev, y_dev, idx, cfg):
+            c, ce = step(model, *batch)
+            correct, ce_sum = correct + c, ce_sum + ce
+        return correct, ce_sum
+
+    return epoch
 
 
 @torch.inference_mode()
@@ -308,17 +480,30 @@ def train(num_epochs: int, *args, flags=None, cfg: Config = CONFIG) -> None:
             cfg, batch_size=common.positive_int_flag(flags, "batch"))
     per_batch = common.presence_flag(flags, "per-batch")
     device = common.device_flag(flags)
-    train_csv, _ = synth.ensure_mnist(str(common.data_dir()))
+    mesh = common.dp_mesh(flags, cfg.batch_size)
+    if mesh is not None:
+        device = mesh.device
+    train_csv, _ = common.rank0_first(
+        lambda: synth.ensure_mnist(str(common.data_dir())))
     if layout_exists(str(ckpt_dir()), _LAYOUT):
         params = load_params_csv()  # training IS resume (mnist_nn.c:165-170)
     else:
-        print("no checkpoint found; initializing")
+        if common.is_rank0():
+            print("no checkpoint found; initializing")
         params = init_params(torch.Generator().manual_seed(cfg.seed), cfg)
     model = MnistNN.from_params(params, cfg, device=device)
     data = MnistDataset.from_csv(train_csv)
     n = data.num_examples
     rng = np.random.default_rng(cfg.seed)
-    logger = common.MetricsLogger(flags.get("jsonl") or None)
+    logger = common.MetricsLogger(flags.get("jsonl") or None,
+                                  enabled=common.is_rank0())
+    # --dp: each rank steps on its slice of every batch, the gradients
+    # summed over the ranks (the resident epoch by default)
+    step = (functools.partial(train_step, cfg=cfg) if mesh is None
+            else make_train_step_dp(mesh, cfg))
+    shard = (lambda a: a) if mesh is None else batch_sharding(mesh)
+    epoch_fn = (functools.partial(epoch_step_resident, cfg=cfg)
+                if mesh is None else make_epoch_resident_dp(mesh, cfg))
     try:
         if not per_batch:  # the dataset to the device once
             x_dev = torch.from_numpy(data.x).to(device)
@@ -328,22 +513,23 @@ def train(num_epochs: int, *args, flags=None, cfg: Config = CONFIG) -> None:
             if per_batch:  # reference-style: host batches, one at a time
                 correct_sum, loss_sum = 0.0, 0.0
                 for xb, yb in data.epoch_batches(rng, cfg.batch_size):
-                    batch = (torch.from_numpy(a).to(device) for a in
+                    batch = (torch.from_numpy(shard(a)).to(device) for a in
                              _make_batch(xb, yb, cfg.batch_size, cfg.layer_3))
-                    correct, ce_sum = train_step(model, *batch, cfg)
+                    correct, ce_sum = step(model, *batch)
                     correct_sum += float(correct)
                     loss_sum += float(ce_sum)
             else:
                 perm = torch.from_numpy(
                     epoch_permutation(rng, n, cfg.batch_size)).to(device)
-                correct, ce_sum = epoch_step_resident(model, x_dev, y_dev,
-                                                      perm, cfg)
+                correct, ce_sum = epoch_fn(model, x_dev, y_dev, perm)
                 correct_sum, loss_sum = float(correct), float(ce_sum)
             dt = time.perf_counter() - t0
             logger.log(epoch=epoch, avg_accuracy=correct_sum / n,
                        avg_loss=loss_sum / n, epoch_seconds=dt,
                        images_per_sec=n / dt)
-        save_params_csv(model.params())
+        if common.is_rank0():
+            save_params_csv(model.params())
+        common.dp_done(mesh)
     finally:
         logger.close()
 
@@ -370,9 +556,8 @@ def run(num_predictions: int = -1, flags=None, cfg: Config = CONFIG) -> None:
 def main(argv=None) -> int:
     return common.run_cli(
         "mnist_nn", init, train, run, argv=argv,
-        extra_flags=("batch", "per-batch", "jsonl"),
-        unsupported_flags={"dp": common.PARALLEL_NOT_PORTED,
-                           "scan-unroll": common.XLA_DISPATCH_MODE})
+        extra_flags=("batch", "per-batch", "jsonl", "dp"),
+        unsupported_flags={"scan-unroll": common.XLA_DISPATCH_MODE})
 
 
 if __name__ == "__main__":

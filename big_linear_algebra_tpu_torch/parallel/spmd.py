@@ -1,0 +1,183 @@
+"""Collectives over a mesh axis, the counterpart of
+``big_linear_algebra_tpu/parallel/spmd.py``.
+
+JAX writes a sharded step once, per shard, and ``shard_map`` runs it on
+every device of the mesh; its ``shard_map_fn`` exists to do that. Under
+``torch.distributed`` every rank is already a process that runs its own
+shard, so the port has no counterpart of ``shard_map_fn``: a step here is
+the per-shard body itself, and its collectives are explicit calls.
+
+- ``psum_tree`` / ``pmean_tree``: a tree of tensors summed (averaged) over
+  an axis, packed into one buffer for one all-reduce.
+- ``all_gather`` and ``psum``: the collectives that sit inside a
+  differentiated step, each a ``torch.autograd.Function`` with an explicit
+  backward (the port's rule for every op). ``all_gather``'s backward is
+  this rank's slice of the cotangent summed over the axis: JAX transposes
+  ``all_gather`` into ``psum_scatter``. ``psum``'s backward is the
+  identity, as JAX's transpose of ``psum`` under ``shard_map`` is.
+- ``hop``: each rank sends to the next rank of its line and receives from
+  the previous one (JAX's ``ppermute`` with ``i → i+1``), by
+  ``batch_isend_irecv``.
+
+On the gloo backend, CUDA tensors go through host memory: each collective
+and each point-to-point send copies its buffer to the CPU, runs there and
+copies the result back, one rule for all of them (gloo runs on the host;
+this is how ranks that share one card exchange data). NCCL takes the
+device buffers. On a line of one rank, or outside a process group, every
+collective is the identity.
+
+``collective_calls`` and ``collective_seconds`` count every collective and
+the host wall time spent in it (copies included; under NCCL the time to
+enqueue, not to finish).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+from big_linear_algebra_tpu_torch.nn.optim import tree_leaves, tree_map
+
+collective_calls = 0
+collective_seconds = 0.0
+
+
+class _Timed:
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        global collective_calls, collective_seconds
+        collective_calls += 1
+        collective_seconds += time.perf_counter() - self.t0
+
+
+def _staged(x: torch.Tensor) -> bool:
+    return x.is_cuda and dist.get_backend() == "gloo"
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """x summed over ``group`` (a new tensor; x itself is unchanged)."""
+    with _Timed():
+        buf = x.cpu().clone() if _staged(x) else x.clone()
+        dist.all_reduce(buf, group=group)
+        return buf.to(x.device)
+
+
+def _reduce_dtype(dtype: torch.dtype) -> torch.dtype:
+    # bf16 and f16 leaves are summed in f32, then rounded once
+    return torch.float32 if dtype in (torch.bfloat16, torch.float16) \
+        else dtype
+
+
+def _psum_leaves(leaves, group) -> list:
+    """The leaves summed over ``group``: those of one reduction dtype packed
+    into one buffer, one all-reduce per dtype; returned in that dtype."""
+    out = [None] * len(leaves)
+    by_dtype = {}
+    for i, leaf in enumerate(leaves):
+        by_dtype.setdefault(_reduce_dtype(leaf.dtype), []).append(i)
+    for dtype, idx in by_dtype.items():
+        flat = torch.cat([leaves[i].reshape(-1).to(dtype) for i in idx])
+        summed = _all_reduce(flat, group)
+        at = 0
+        for i in idx:
+            n = leaves[i].numel()
+            out[i] = summed[at:at + n].reshape(leaves[i].shape)
+            at += n
+    return out
+
+
+def psum_tree(tree: Any, mesh, axis: str = "data") -> Any:
+    """Every leaf of ``tree`` (a tensor or nested dicts of tensors) summed
+    over ``axis`` (the gradient all-reduce), in one all-reduce per dtype.
+    bf16 leaves are summed in f32 and rounded back once."""
+    group = mesh.group(axis)
+    if group is None:
+        return tree
+    it = iter(_psum_leaves(tree_leaves(tree), group))
+    return tree_map(lambda leaf: next(it).to(leaf.dtype), tree)
+
+
+def pmean_tree(tree: Any, mesh, axis: str = "data") -> Any:
+    """Every leaf of ``tree`` averaged over ``axis``: the sum in the leaf's
+    reduction dtype, divided by the axis size, rounded back once."""
+    group = mesh.group(axis)
+    if group is None:
+        return tree
+    size = mesh.size(axis)
+    it = iter(_psum_leaves(tree_leaves(tree), group))
+    return tree_map(lambda leaf: (next(it) / size).to(leaf.dtype), tree)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        ctx.index, ctx.width = mesh.index(axis), x.shape[dim]
+        group = mesh.group(axis)
+        if group is None:
+            return x.clone()
+        with _Timed():
+            src = x.cpu().contiguous() if _staged(x) else x.contiguous()
+            parts = [torch.empty_like(src) for _ in range(mesh.size(axis))]
+            dist.all_gather(parts, src, group=group)
+            return torch.cat(parts, dim=dim).to(x.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        """psum_scatter: the cotangent summed over the axis, then this
+        rank's slice of it."""
+        group = ctx.mesh.group(ctx.axis)
+        if group is not None:
+            g = _all_reduce(g.contiguous(), group)
+        return (g.narrow(ctx.dim, ctx.index * ctx.width, ctx.width),
+                None, None, None)
+
+
+def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0
+               ) -> torch.Tensor:
+    """The ranks' ``x`` along ``axis`` concatenated on ``dim`` in axis order
+    (JAX's ``all_gather(..., tiled=True)``), differentiable."""
+    return _AllGather.apply(x, mesh, axis, dim)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        group = mesh.group(axis)
+        return x.clone() if group is None else _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``x`` summed over ``axis``, differentiable (backward: identity)."""
+    return _Psum.apply(x, mesh, axis)
+
+
+def hop(tensors, mesh, axis: str):
+    """Each rank's ``tensors`` sent to the next rank of its line along
+    ``axis`` (ring order), and the previous rank's received: JAX's
+    ``ppermute`` with the permutation ``i → (i+1) mod n``. Returns new
+    tensors of the same shapes, dtypes and device."""
+    group = mesh.group(axis)
+    if group is None:
+        return [t.clone() for t in tensors]
+    line = mesh.line(axis)
+    i = mesh.index(axis)
+    nxt, prev = line[(i + 1) % len(line)], line[(i - 1) % len(line)]
+    with _Timed():
+        staged = _staged(tensors[0])
+        sends = [(t.cpu() if staged else t).contiguous() for t in tensors]
+        recvs = [torch.empty_like(t) for t in sends]
+        ops = ([dist.P2POp(dist.isend, t, nxt, group) for t in sends]
+               + [dist.P2POp(dist.irecv, t, prev, group) for t in recvs])
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return [r.to(t.device) for r, t in zip(recvs, tensors)]

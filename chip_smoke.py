@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases, one line each (or a few), in the order 1–4, 22, 23, 5–7, 16–18,
-11–15, 8–10, 19–21; any failure exits non-zero:
+Phases, one line each (or a few), in the order 1–4, 22, 23, 24, 5–7,
+16–18, 11–15, 8–10, 19–21; any failure exits non-zero:
 1. environment: the card's name and power limit, torch and CUDA versions;
    fails when no CUDA device is available;
 2. build: compiles the kernels from ``big_linear_algebra_tpu_torch/csrc/``
@@ -18,14 +18,17 @@ Phases, one line each (or a few), in the order 1–4, 22, 23, 5–7, 16–18,
    {no epilogue, bias, bias+ReLU} at the three mnist_nn layer shapes and a
    ragged one, and f32 x the same epilogues at the five K1 GEMMs of an
    mnist_nn train step at batch 64 (layers 1 and 2's forwards (nn) and
-   weight gradients (tn), layer 2's data gradient (nt)), against the plain
+   weight gradients (tn), layer 2's data gradient (nt)) and at a rank's K1
+   GEMMs of the DP and DP x TP steps at 2 and 4 ranks (batch 32 and 16 a
+   rank; w1's column shards), against the plain
    PyTorch version with TF32 off; a TF32
    product at the layer shapes must fail the f32 bound; two f32 runs
    bit-equal at each of those shapes; the kernels' registers, shared
    memory and spills (the build's ``-Xptxas -v``), blocks per SM and the
    rule's grid (block shape, K splits over a cluster) at each shape,
    failing on a spill or on clusters that do not all fit at once (the
-   train step's shapes included); then the kernel's time beside the plain
+   train step's and the DP ranks' shapes included); then the kernel's time
+   beside the plain
    version's and torch.matmul's (CUDA events, after warm-up), at the layer
    shapes and at the train step's K1 GEMMs, with each one's bound;
 4. mnist_nn main path: ``mnist_nn init`` then ``mnist_nn run`` on the
@@ -64,8 +67,38 @@ Phases, one line each (or a few), in the order 1–4, 22, 23, 5–7, 16–18,
    ``FloatingPointError`` at K1's launch, and a NaN made in a gradient
    hook raising in the backward; then 100 legacy steps and one hinge
    chunk timed and profiled (the card's busy share);
+24. the data- and sequence-parallel modes (run after 23): two ranks
+   launched with ``python3 -m torch.distributed.run --standalone
+   --nproc-per-node=2`` (this script with ``--phase24-rank``), which share
+   the card over gloo (a card each over NCCL where there are as many),
+   each in fresh temporary data directories: mnist_nn ``train 1 --dp``
+   and ``train 1 --dp --per-batch`` (K1's launches per rank by variant
+   equal to the count derived from batch 32 and ``_SMALL_FLOPS``, the
+   replicas bit-equal, every trained leaf within ``TRAIN_RTOL_OF_UPDATE``
+   of its update from the single-device epoch in f64 on the CPU), then the
+   epoch replayed bit-equal, each step's gradient on each rank within
+   ``DP_GRAD_RTOL_OF_MAX`` of f64 at the same parameters with the card's
+   ReLU decisions, which the same gradient from operands truncated to TF32
+   must fail; the DP×TP step on (data 1 x model 2) (K1's launches at the
+   column shards, its gathered gradient within ``DP_GRAD_RTOL_OF_MAX`` of
+   the single-device step's, each leaf within ``TRAIN_RTOL_OF_UPDATE`` of
+   the f64 step); mnist_hinge ``train
+   100 0.0005 --dp`` (the convergence as f64's, the iterations replayed
+   bit-equal and each teacher-forced against f64 from the ranks' gathered
+   margins); cifar_unet ``train 1 --dp --image-size=64 --max-steps=20``
+   (batch 16 = 2 x 8; finite, falling losses, the replicas bit-equal, K2,
+   K2c and K2d 4 each per rank per step), ``train 1 --dp --fused-block
+   --max-steps=10`` at 32x32 (K5a and K5b per rank as many as the gate's
+   blocks at batch 8, all on the tensor-core route; replicas bit-equal)
+   and one resumed step; ring attention, bf16 (4, 8192, 64) and f32 (2,
+   2048, 16) (K2, K2c and K2d twice each per rank, two runs bit-equal, o,
+   dq, dk and dv within 2e-2 of max|ref| in bf16 and phase 5's and 8's
+   bounds in f32 of the plain flash over the whole sequence); then each
+   rank's host wall, busy share and collective time per step or call
+   (``tools/parallel_check.py`` runs it alone);
 5. K2 against plain, on the card: f32/bf16 x d in {16, 64} x (B, N) in
-   {(1, 1024) the U-Net's shape, (2, 300) ragged, (1, 4096), (1, 16384)},
+   {(1, 1024) the U-Net's shape, (2, 300) ragged, (1, 4096), (1, 16384),
+   (8, 1024) and (4, 1024) a U-Net DP rank's at 2 and 4 ranks},
    and the other head dims the kernel takes at (2, 300); o and lse against
    ``_plain_flash``, and bf16 operands that are views one element past an
    aligned buffer; two bf16 runs bit-equal at (1, 1024, 16) and at (16,
@@ -84,7 +117,8 @@ Phases, one line each (or a few), in the order 1–4, 22, 23, 5–7, 16–18,
    error is reported beside it; then one bf16 forward's device and host
    time;
 8. K2c/K2d against plain, on the card: f32/bf16 x d in {16, 64} x (B, N)
-   in {(16, 1024) the train step's shape, (2, 300) ragged, (1, 4096)}, and
+   in {(16, 1024) the train step's shape, (2, 300) ragged, (1, 4096), (8,
+   1024) and (4, 1024) a U-Net DP rank's}, and
    the other head dims at (2, 300); dq, dk, dv against
    ``_plain_flash_bwd`` on the same (q, k, v, o, lse, g); the bf16
    tensor-core kernels' registers, shared memory and spills (the build's
@@ -116,12 +150,14 @@ Phases, one line each (or a few), in the order 1–4, 22, 23, 5–7, 16–18,
    the kernels' dropout bits bit-equal to the plain version's; then the
    tensor-core K5a alone, bf16 x train on/off at each split and map its
    plan chooses (B = 1, 4, 5, 16; 8x8 and 4x4; C = 256 and 512 -> 256
-   with w3), its plan equal to the C side's, two runs bit-equal; its
+   with w3) and at a U-Net DP rank's fused blocks (batch 8 and 4), its
+   plan equal to the C side's, two runs bit-equal; its
    registers, shared memory, spills, blocks per SM, clusters resident at
    once and HMMA count, failing on a spill or on no HMMA; then K5b with its
    data gradients on the tensor-core route, bf16 x train on/off at (16,
    256, 8x8), (16, 512 -> 256, 4x4), (1, 512 -> 256, 8x8), (16, 256, 4x4),
-   (5, 512 -> 256, 8x8) and (1, 256, 8x8), every output within 2e-2 of
+   (5, 512 -> 256, 8x8), (1, 256, 8x8) and a U-Net DP rank's fused blocks
+   (batch 8 and 4), every output within 2e-2 of
    max|ref| of ``_plain_fused_bwd``, every case on that route, its plan
    equal to the C side's, two runs bit-equal, and the same build record;
 12. K5 timing: K5a on both routes (the FMA route forced on the same bf16
@@ -237,6 +273,19 @@ LOGIT_ATOL = 1e-3
 # max|ref| the weights would say little: one epoch moves them by ~3% of
 # their initial size.)
 TRAIN_RTOL_OF_UPDATE = 5e-3
+# The rank counts whose per-rank shapes the kernel phases hold (3, 5, 8, 11):
+# phase 24's two ranks and the four-card run (tools/parallel_check.py
+# --ranks=4).
+DP_RANK_COUNTS = (2, 4)
+# A DP (or DP×TP) step's gradient on the card against the f64 gradient of
+# the same batch at the same parameters with the card's ReLU decisions
+# (phase 24), max|err| / max|ref| per leaf. Fixed before the first run from
+# readings of sound runs (each shard's gradient at 1, 2 and 4 shards of
+# batch 64 on an H100, teacher-forced over an epoch: 1.8e-7 to 5.8e-7;
+# tools/mnist_dp_check.py) and of a control that the phase runs and needs
+# to fail: the same gradient from operands truncated to TF32's 10-bit
+# mantissa, as a TF32 product would see them (1.3e-3 to 2.5e-3).
+DP_GRAD_RTOL_OF_MAX = 1e-5
 
 # K2 against its plain version on the same inputs. f32: both sides exp2 and
 # sum in f32 and differ only in the order of the sums (the kernel merges
@@ -385,14 +434,17 @@ RAGGED_SHAPE = (130, 257, 200)
 K1_SHAPES = ("Wide", "Thin")
 TPU_KERNEL = "big_linear_algebra_tpu/ops/matmul.py:220"
 K2_TPU_KERNEL = "big_linear_algebra_tpu/nn/attention.py:545"
-K2_SHAPES = [(1, 1024), (2, 300), (1, 4096), (1, 16384)]  # B, N
+# B, N; then a U-Net DP rank's flash sites at 64x64 (batch 8 and 4 a rank)
+K2_SHAPES = [(1, 1024), (2, 300), (1, 4096), (1, 16384), (8, 1024),
+             (4, 1024)]
 K2_MAIN = (1, 1024, 16)  # B, N, d at the U-Net's four flash sites, 64x64
 K2_TRAIN = (16, 1024, 16)  # B, N, d at the flash sites of a train step
 K2_TIMED = [K2_MAIN, K2_TRAIN, (4, 4096, 64)]
 K2_ODD_VIEWS = [K2_MAIN, (2, 300, 64)]  # bf16 operands at +1 element
 K2C_TPU_KERNEL = "big_linear_algebra_tpu/nn/attention.py:662"
 K2D_TPU_KERNEL = "big_linear_algebra_tpu/nn/attention.py:682"
-K2BWD_SHAPES = [(16, 1024), (2, 300), (1, 4096)]  # B, N
+# B, N; then a U-Net DP rank's flash sites at 64x64 (batch 8 and 4 a rank)
+K2BWD_SHAPES = [(16, 1024), (2, 300), (1, 4096), (8, 1024), (4, 1024)]
 K2BWD_MAIN = (16, 1024, 16)  # B, N, d at the flash sites of a train step
 K2BWD_TIMED = [K2BWD_MAIN, (4, 4096, 64)]
 TRAIN_STEPS, RESUME_STEPS = 50, 10
@@ -499,6 +551,27 @@ def k1_train_gemms():
             if 2 * m * n * k >= mm._SMALL_FLOPS]
 
 
+def k1_dp_gemms():
+    """The GEMMs of a rank's mnist_nn DP step at the per-rank batch of each
+    of ``DP_RANK_COUNTS`` and of its DP×TP step on (data ranks/2 x model
+    2) that ``_dispatch`` sends to K1 in f32, less those of
+    ``k1_train_gemms``."""
+    from big_linear_algebra_tpu_torch.models import mnist_nn
+    from big_linear_algebra_tpu_torch.ops import matmul as mm
+
+    cfg = mnist_nn.CONFIG
+    seen, out = set(k1_train_gemms()), []
+    for ranks in DP_RANK_COUNTS:
+        for v, m, k, n in (
+                train_step_gemms(cfg.sizes, cfg.batch_size // ranks)
+                + tp_step_gemms(cfg.sizes, cfg.batch_size // (ranks // 2),
+                                2)):
+            if 2 * m * n * k >= mm._SMALL_FLOPS and (v, m, k, n) not in seen:
+                seen.add((v, m, k, n))
+                out.append((v, m, k, n))
+    return out
+
+
 def phase_kernel_vs_plain() -> float:
     """Every case against the plain version; returns the worst f32 max abs
     error."""
@@ -515,8 +588,9 @@ def phase_kernel_vs_plain() -> float:
              for variant in ("nn", "nt", "tn")
              for dtype in (torch.float32, torch.bfloat16)]
     train = [(v, m, k, n, torch.float32) for v, m, k, n in k1_train_gemms()]
-    worst_train = 0.0
-    for variant, m, k, n, dtype in cases + train:
+    dp = [(v, m, k, n, torch.float32) for v, m, k, n in k1_dp_gemms()]
+    worst_train = worst_dp = 0.0
+    for variant, m, k, n, dtype in cases + train + dp:
         a, b, bias = _operands(variant, m, k, n, dtype, gen)
         if dtype == torch.float32:
             tol = f32_bound(a, b, k)
@@ -538,6 +612,8 @@ def phase_kernel_vs_plain() -> float:
                 worst_abs = max(worst_abs, err)
                 if (variant, m, k, n, dtype) in train:
                     worst_train = max(worst_train, err / tol)
+                if (variant, m, k, n, dtype) in dp:
+                    worst_dp = max(worst_dp, err / tol)
             else:
                 scale = want.float().abs().max().item()
                 rel = err / scale
@@ -550,15 +626,18 @@ def phase_kernel_vs_plain() -> float:
     if bad:
         fail(f"{len(bad)} of {n_cases} kernel cases disagree with the plain "
              "version:\n  " + "\n  ".join(bad))
-    train_shapes = ", ".join(f"{v} M={m} K={k} N={n}"
-                             for v, m, k, n, _ in train)
+    train_shapes, dp_shapes = (", ".join(f"{v} M={m} K={k} N={n}"
+                                         for v, m, k, n, _ in gemms)
+                               for gemms in (train, dp))
     print(f"[3 kernel vs plain] {n_cases} cases pass: f32 max abs err "
           f"{worst_abs:.3e}, worst err / bound {worst[torch.float32]:.3f} "
           f"(bound {F32_ULPS}*K*max|a|*max|b|*2^-24); bf16 max err / "
           f"max|ref| {worst[torch.bfloat16]:.3e} (tol {BF16_RTOL_OF_MAX}); "
           f"of them {3 * len(train)} f32 cases at the mnist_nn train step's "
           f"K1 GEMMs ({train_shapes}), worst err / bound "
-          f"{worst_train:.3f}", flush=True)
+          f"{worst_train:.3f}; {3 * len(dp)} f32 cases at a rank's K1 GEMMs "
+          f"of the DP and DP x TP steps at {DP_RANK_COUNTS} ranks "
+          f"({dp_shapes}), worst err / bound {worst_dp:.3f}", flush=True)
     return worst_abs
 
 
@@ -783,8 +862,8 @@ def phase_k1_build_info() -> None:
         fail("K1 kernels (spill, incomplete record or no block fits):\n  "
              + "\n  ".join(bad))
     grids = []
-    train = [(m, k, n) for _, m, k, n in k1_train_gemms()]
-    for m, k, n in MAIN_SHAPES + [RAGGED_SHAPE] + train:
+    train = [(m, k, n) for _, m, k, n in k1_train_gemms() + k1_dp_gemms()]
+    for m, k, n in MAIN_SHAPES + [RAGGED_SHAPE] + list(dict.fromkeys(train)):
         out = (ctypes.c_int * 4)()
         plan(m, n, k, out)
         shape, mt, nt, sp = out
@@ -1181,7 +1260,8 @@ def phase_k2_vs_plain() -> float:
         fail(f"{len(bad)} K2 cases disagree with the plain version:\n  "
              + "\n  ".join(bad))
     print(f"[5 K2 vs plain] {n_cases} cases pass (f32/bf16 x d 16, 64 x "
-          f"(B, N) {K2_SHAPES}, and d {[d for _, _, d in cases[8:]]} at "
+          f"(B, N) {K2_SHAPES}, and d "
+          f"{[d for _, _, d in cases[2 * len(K2_SHAPES):]]} at "
           f"(2, 300); bf16 q, k, v as views one element past an aligned "
           f"buffer at (B, N, d) {K2_ODD_VIEWS}): worst f32 o err/(atol "
           f"{K2_F32_ATOL} + rtol {K2_F32_RTOL}*|ref|) "
@@ -1500,7 +1580,8 @@ def phase_k2bwd_vs_plain() -> dict:
         fail(f"{len(bad)} K2c/K2d outputs disagree with the plain version:"
              "\n  " + "\n  ".join(bad))
     print(f"[8 K2c/K2d vs plain] {n_cases} cases pass (f32/bf16 x d 16, 64 "
-          f"x (B, N) {K2BWD_SHAPES}, and d {[d for _, _, d in cases[6:]]} at "
+          f"x (B, N) {K2BWD_SHAPES}, and d "
+          f"{[d for _, _, d in cases[2 * len(K2BWD_SHAPES):]]} at "
           f"(2, 300)); dq, dk, dv each: worst f32 err/(atol {K2BWD_F32_ATOL}"
           f" + rtol {K2BWD_F32_RTOL}*|ref|) {worst[torch.float32]:.3f}, "
           f"worst bf16 err/max|ref| {worst[torch.bfloat16]:.3e} (tol "
@@ -2184,8 +2265,25 @@ def _bwd_tc_split(b, c, f, h, w, gsz) -> str:
             f"{info['clusters']} clusters resident at once")
 
 
+def _dp_fused_shapes(listed) -> list:
+    """The fused blocks of a U-Net DP rank's ``--fused-block`` forward at
+    32x32 (``Config``, at the per-rank batch of each of
+    ``DP_RANK_COUNTS``) as (B, C, F, H, W, group size), less those in
+    ``listed``."""
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+
+    cfg, out = cu.CONFIG, []
+    for ranks in DP_RANK_COUNTS:
+        for block in _unet_fused_blocks(cfg, cfg.batch_size // ranks):
+            shape = (*block, cfg.group_size)
+            if shape not in listed and shape not in out:
+                out.append(shape)
+    return out
+
+
 def phase_k5a_tc_vs_plain() -> float:
-    """The tensor-core K5a alone at K5_TC_SHAPES, bf16 x train on/off,
+    """The tensor-core K5a alone at K5_TC_SHAPES and a U-Net DP rank's
+    blocks (``_dp_fused_shapes``), bf16 x train on/off,
     against ``_plain_fused_fwd`` (2e-2 of max|ref|), every case on that
     route and its Python plan equal to the C side's; two runs bit-equal at
     the train step's and the sampler's largest block. Returns the worst
@@ -2197,6 +2295,7 @@ def phase_k5a_tc_vs_plain() -> float:
     fb.launch_count = fb.tc_launch_count = 0
     shapes = K5_TC_SHAPES + [s for s in K5_SHAPES if fb._fwd_route(
         torch.bfloat16, *s[:5], 3, s[5]) == "tc"]
+    shapes += _dp_fused_shapes(shapes)
     for b, c, f, h, w, gsz in shapes:
         plan = fb._tc_plan(b, c, f, h, w, 3, gsz)
         info = _tc_info(b, c, f, h, w, gsz)
@@ -2276,8 +2375,9 @@ def phase_k5a_tc_build_info() -> None:
 
 
 def phase_k5b_tc_vs_plain() -> dict:
-    """K5b on the tensor-core route (both kernels), alone at K5B_TC_SHAPES,
-    bf16 x train on/off, against ``_plain_fused_bwd`` (every output within
+    """K5b on the tensor-core route (both kernels), alone at K5B_TC_SHAPES
+    and a U-Net DP rank's blocks (``_dp_fused_shapes``), bf16 x train
+    on/off, against ``_plain_fused_bwd`` (every output within
     2e-2 of its max|ref|), every case on that route and its Python plan
     equal to the C side's; two runs bit-equal at the train
     step's 8x8 block and the 512 -> 256 4x4 one. Returns the worst abs
@@ -2291,7 +2391,8 @@ def phase_k5b_tc_vs_plain() -> dict:
     worst_abs = {"K5b tc": 0.0, "K5b tc wgrad": 0.0}
     worst = dict.fromkeys(names, 0.0)
     _zero_fused_counts(fb)
-    for b, c, f, h, w, gsz in K5B_TC_SHAPES:
+    shapes = K5B_TC_SHAPES + _dp_fused_shapes(K5B_TC_SHAPES)
+    for b, c, f, h, w, gsz in shapes:
         plan = fb._bwd_tc_plan(b, c, f, h, w, 3, gsz)
         info = _bwd_tc_info(b, c, f, h, w, gsz)
         if plan != (info["nc"], info["smem"]):
@@ -2340,7 +2441,7 @@ def phase_k5b_tc_vs_plain() -> dict:
     print(f"[11 K5b tensor cores] {n_cases} bf16 cases, every data-gradient "
           f"and weight-gradient launch on the tensor-core route (train "
           f"on/off at (B, C, F, H, "
-          f"W, group) {K5B_TC_SHAPES}), worst err/max|ref| "
+          f"W, group) {shapes}), worst err/max|ref| "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
           + f" (tol {K5_BF16_RTOL_OF_MAX}), worst abs err of dx and d_td "
           f"{worst_abs['K5b tc']:.3e}, of the weight gradients "
@@ -3988,18 +4089,21 @@ def phase_legacy_mnist(tmp: str, device: str = "cuda") -> dict:
                 correct=f64_correct, xs=xs_d, ys=ys_d, params=card)
 
 
-def _hinge_iteration_check(w_prev, w_next, x, y, lr):
+def _hinge_iteration_check(w_prev, w_next, x, y, lr, margins=None):
     """One mnist_hinge iteration on the card held teacher-forced, in f64 on
     the CPU: the card's margins (``y * (x @ w)`` again on the card: the same
-    op, the same values) against f64's from the card's weights, then the
+    op, the same values; or ``margins`` as the card computed them, the DP
+    ranks' gathered) against f64's from the card's weights, then the
     card's next weights against the f64 update from the card's violation
     set; each elementwise within ``F32_BOUND_MARGIN`` times the first-order
     bound of the card's f32 roundings (``n u sum|terms|`` for the sums over
     784 pixels and over the N examples, u for the f32 ``lr``, the product
     and the subtraction). Returns the largest error over its bound."""
     u = F32_UNIT
-    with torch.no_grad():
-        margins = (y * (x @ w_prev)).cpu().double()
+    if margins is None:
+        with torch.no_grad():
+            margins = y * (x @ w_prev)
+    margins = margins.cpu().double()
     w, x64, y64 = (t.cpu().double() for t in (w_prev, x, y))
     bound = (x64.shape[1] + 1) * u * (x64.abs() @ w.abs())
     ratio = _ratio((margins - y64 * (x64 @ w)).abs(), F32_BOUND_MARGIN * bound)
@@ -4284,6 +4388,1049 @@ def phase_legacy_programs(p22: dict, device: str = "cuda") -> None:
         del os.environ["BLA_DATA_DIR"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the data- and sequence-parallel modes, P24_RANKS ranks under
+# torch.distributed.run (they share the one card over gloo, or get a card
+# each over NCCL where there are as many).
+# ---------------------------------------------------------------------------
+
+P24_RANKS = 2
+# cifar_unet train --dp: steps at 64x64, then at 32x32 with --fused-block
+P24_UNET_STEPS, P24_FUSED_STEPS = 20, 10
+# ring attention: (B, N, d, dtype) over the ranks' "seq" axis (on the CPU
+# rehearsal, smaller)
+P24_RING = {"cuda": [(4, 8192, 64, torch.bfloat16),
+                     (2, 2048, 16, torch.float32)],
+            "cpu": [(2, 256, 64, torch.bfloat16),
+                    (2, 128, 16, torch.float32)]}
+# bf16 ring outputs against the plain flash over the whole sequence: the
+# same bf16 roundings of q^ and P, but P is rounded against each visiting
+# block's running max and merged, so single probabilities may round a
+# bf16 step (2**-8) apart; phase 5's and phase 8's bf16 tolerance.
+RING_BF16_RTOL_OF_MAX = 2e-2
+# The whole launch of the ranks; it ends well inside this.
+P24_TIMEOUT_S = 900
+
+
+def tp_step_gemms(sizes, batch: int, tp: int):
+    """(variant, M, K, N) of every GEMM of one mnist_nn DP×TP step on one
+    rank: ``train_step_gemms`` with each layer's output dim split over
+    ``tp`` model shards (the column-parallel weights)."""
+    gemms = []
+    for i, (fan_in, fan_out) in enumerate(zip(sizes, sizes[1:])):
+        out = fan_out // tp
+        gemms.append(("nn", batch, fan_in, out))
+        if i > 0:
+            gemms.append(("nt", batch, out, fan_in))
+        gemms.append(("tn", fan_in, batch, out))
+    return gemms
+
+
+def _k1_counts(gemms, steps: int = 1) -> dict:
+    """K1's launches by variant for ``steps`` steps of ``gemms``: those of
+    at least ``_SMALL_FLOPS`` (the rest take the plain product)."""
+    from big_linear_algebra_tpu_torch.ops import matmul as mm
+
+    counts = {"nn": 0, "nt": 0, "tn": 0}
+    for v, m, k, n in gemms:
+        if 2 * m * n * k >= mm._SMALL_FLOPS:
+            counts[v] += steps
+    return counts
+
+
+def _unet_fused_blocks(cfg, batch: int) -> list:
+    """The fused blocks of ``cfg``'s U-Net forward with ``--fused-block`` at
+    ``batch``, in bf16, as (B, C, F, H, W): the model's wiring and the
+    gate, with every conv, attention site and fused block replaced by zeros
+    of its output's shape (nothing is computed at full width)."""
+    import dataclasses
+
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn import fused_block as fb
+
+    cfg = dataclasses.replace(cfg, fused_block=True,
+                              compute_dtype="bfloat16")
+    blocks = []
+
+    def block(x, td, w1, w2, w3, seed, gsz, rate, train, eps=1e-8,
+              bits=None):
+        blocks.append((*x.shape[:2], w1.shape[0], *x.shape[2:]))
+        return x.new_zeros(x.shape[0], w1.shape[0], *x.shape[2:])
+
+    def conv(x, k, stride=1):
+        return x.new_zeros(x.shape[0], k.shape[0], -(-x.shape[2] // stride),
+                           -(-x.shape[3] // stride))
+
+    real = cu.conv2d, cu.self_attention_block, fb.fused_resnet_block
+    cu.conv2d, cu.self_attention_block = conv, (lambda h, p: h)
+    fb.fused_resnet_block = block
+    try:
+        params = cu.init_params(torch.Generator().manual_seed(0), cfg)
+        x = torch.zeros(batch, cfg.in_channels, cfg.image_size,
+                        cfg.image_size)
+        with torch.inference_mode():
+            cu.forward(params, x, torch.zeros(batch, dtype=torch.int64), cfg)
+    finally:
+        cu.conv2d, cu.self_attention_block, fb.fused_resnet_block = real
+    return blocks
+
+
+def _params_hash(tree) -> str:
+    """sha256 of every leaf's bytes, in the tree's order."""
+    import hashlib
+
+    from big_linear_algebra_tpu_torch.nn.optim import tree_leaves
+
+    digest = hashlib.sha256()
+    for leaf in tree_leaves(tree):
+        digest.update(leaf.detach().contiguous().cpu().view(
+            torch.uint8).numpy().tobytes())
+    return digest.hexdigest()
+
+
+@contextlib.contextmanager
+def _wrapped(module, name: str, wrap):
+    """``module.<name>`` replaced by ``wrap(original)`` within the block."""
+    real = getattr(module, name)
+    setattr(module, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _collectives():
+    from big_linear_algebra_tpu_torch.parallel import spmd
+
+    return spmd.collective_calls, spmd.collective_seconds
+
+
+def _profile(fn, device: str, n_calls_timed: int = 3) -> dict:
+    """A rank's host wall per call of ``fn`` and the collectives' host time
+    per call, over ``n_calls_timed`` calls after one warm-up, ending in a
+    synchronise; on the card then the busy share of one call traced by
+    ``torch.profiler`` (``_host_and_trace``)."""
+    fn()
+    _sync(device)
+    calls0, secs0 = _collectives()
+    t0 = time.perf_counter()
+    for _ in range(n_calls_timed):
+        fn()
+    _sync(device)
+    host = (time.perf_counter() - t0) * 1e3 / n_calls_timed
+    calls, secs = _collectives()
+    busy, summary = None, ""
+    if device == "cuda":
+        _, busy, summary, _ = _host_and_trace(fn, n_traced=1, warmup=0,
+                                              timed=1)
+    return {"host_ms": host, "busy_ms": busy, "summary": summary,
+            "coll_ms": (secs - secs0) * 1e3 / n_calls_timed,
+            "coll_calls": (calls - calls0) / n_calls_timed}
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """f32 ``t`` truncated to TF32's 10-bit mantissa."""
+    return (t.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def _of_max(got, ref) -> float:
+    """max|got - ref| / max|ref|, ``ref`` in f64 on the CPU."""
+    return ((got.detach().cpu().double() - ref).abs().max()
+            / ref.abs().max()).item()
+
+
+def _with_decisions(model, fn):
+    """``fn()`` with forward hooks on ``model``'s layers 1 and 2: (its
+    result, their ReLU decisions (outputs > 0), in call order)."""
+    decisions = []
+    hooks = [model.layers[i].register_forward_hook(
+        lambda _m, _i, out: decisions.append(out.detach() > 0))
+        for i in (0, 1)]
+    try:
+        return fn(), decisions
+    finally:
+        for hook in hooks:
+            hook.remove()
+
+
+def _mlp_grads_f64(params, x, onehot, mask, decisions, cfg) -> dict:
+    """The gradient of mnist_nn's loss (``loss_and_metrics``: softmax CE
+    summed over the batch, over ``input_size``) in f64 on the CPU, with
+    layers 1 and 2's ReLU decisions given: where the card decided, so that
+    a pre-activation within rounding of 0 cannot part the two."""
+    p = {k: v.detach().cpu().double() for k, v in params.items()}
+    masks = [d.cpu().double() for d in decisions]
+    acts = [x.detach().cpu().double()]
+    for i in (1, 2, 3):
+        z = acts[-1] @ p[f"w{i}"] + p[f"b{i}"]
+        acts.append(z * masks[i - 1] if i < 3 else z)
+    g = ((torch.softmax(acts[3], dim=-1) - onehot.cpu().double())
+         * mask.cpu().double()[:, None] / cfg.input_size)
+    out = {}
+    for i in (3, 2, 1):
+        out[f"w{i}"], out[f"b{i}"] = acts[i - 1].T @ g, g.sum(0)
+        if i > 1:
+            g = (g @ p[f"w{i}"].T) * masks[i - 2]
+    return out
+
+
+def _p24_mnist_replay(mesh, initial, x_dev, y_dev, perm, want) -> dict:
+    """The resident DP epoch of ``train 1 --dp`` replayed from the initial
+    CSVs on the same permutation, every step's local gradient (the
+    all-reduce's input) held against ``_mlp_grads_f64`` of this rank's rows
+    at the same parameters with the card's ReLU decisions: the worst
+    max|err| / max|ref| per leaf over the steps, and its step. Then the
+    control: the first step's gradient from the operands truncated to TF32
+    (``_tf32``) against the f64 gradient of the exact operands. ``want``:
+    the CLI's trained leaves, which the replay must equal bit for bit."""
+    from big_linear_algebra_tpu_torch.models import mnist_nn
+    from big_linear_algebra_tpu_torch.parallel import spmd
+
+    cfg = mnist_nn.CONFIG
+    model = mnist_nn.MnistNN.from_params(initial, device=mesh.device)
+    seen, worst, steps = {}, {}, [0]
+
+    def decide(real):
+        def wrapped(m, x, onehot, mask, cfg_):
+            out, decisions = _with_decisions(
+                m, lambda: real(m, x, onehot, mask, cfg_))
+            seen.update(params={k: v.detach().cpu() for k, v in
+                                m.params().items()},
+                        batch=(x, onehot, mask), decisions=decisions)
+            seen.setdefault("first", (x, onehot, mask))
+            return out
+        return wrapped
+
+    def check(real):
+        def wrapped(tree, *a, **kw):
+            ref = _mlp_grads_f64(seen["params"], *seen["batch"],
+                                 seen["decisions"], cfg)
+            for k, g in tree["grads"].items():
+                r = _of_max(g, ref[k])
+                if r > worst.get(k, (-1.0, 0))[0]:
+                    worst[k] = (r, steps[0])
+            steps[0] += 1
+            return real(tree, *a, **kw)
+        return wrapped
+
+    with _wrapped(mnist_nn, "loss_and_metrics", decide), \
+            _wrapped(spmd, "psum_tree", check):
+        mnist_nn.make_epoch_resident_dp(mesh, cfg)(model, x_dev, y_dev,
+                                                   perm)
+    bit_equal = all(torch.equal(v.detach().cpu(), want[k])
+                    for k, v in model.params().items())
+    x, onehot, mask = seen["first"]
+    ctl = mnist_nn.MnistNN.from_params(
+        {k: _tf32(v) for k, v in initial.items()}, device=mesh.device)
+
+    def grads():
+        ctl.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            mnist_nn.loss_and_metrics(ctl, _tf32(x), onehot, mask,
+                                      cfg)[0].backward()
+
+    _, decisions = _with_decisions(ctl, grads)
+    ref = _mlp_grads_f64(initial, x, onehot, mask, decisions, cfg)
+    control = {k: _of_max(v.grad, ref[k]) for k, v in ctl.params().items()}
+    return {"worst": worst, "steps": steps[0], "control": control,
+            "bit_equal": bit_equal}
+
+
+def _p24_mnist(tmp: str, device: str) -> dict:
+    """mnist_nn ``train 1 --dp`` and ``train 1 --dp --per-batch`` (each in
+    its copy of the initial CSVs), K1's launches by variant around each;
+    this rank's trained parameters; one resident DP epoch profiled; then
+    the DP×TP step on (data 1 x model 2) beside the single-device step on
+    the same batch."""
+    import numpy as np
+
+    from big_linear_algebra_tpu_torch.data.mnist import MnistDataset
+    from big_linear_algebra_tpu_torch.models import mnist_nn
+    from big_linear_algebra_tpu_torch.ops import matmul as mm
+    from big_linear_algebra_tpu_torch.parallel import (batch_sharding,
+                                                       default_mesh,
+                                                       make_mesh, spmd)
+
+    cfg = mnist_nn.CONFIG
+    models = []
+
+    def spy(real):
+        def make(*a, **kw):
+            step = real(*a, **kw)
+
+            def wrapped(model, *batch):
+                models.append(model)
+                return step(model, *batch)
+            return wrapped
+        return make
+
+    out = {}
+    with _wrapped(mnist_nn, "make_train_step_dp", spy):
+        for mode, where in (("resident", "mnist"),
+                            ("--per-batch", "mnist_pb")):
+            args = ["train", "1", "--dp"] + (
+                [mode] if mode != "resident" else [])
+            _zero_k1_counts(mm)
+            models.clear()
+            text, secs = _cli(mnist_nn, args, os.path.join(tmp, where),
+                              device)
+            out[mode] = {
+                "counts": dict(mm.variant_launch_counts),
+                "total": mm.launch_count, "text": text, "seconds": secs,
+                "steps": len(models),
+                "params": {k: v.detach().cpu().clone()
+                           for k, v in models[-1].params().items()}}
+    del os.environ["BLA_DATA_DIR"]
+
+    initial = torch.load(os.path.join(tmp, "mnist_initial.pt"))
+    data = MnistDataset.from_csv(os.path.join(tmp, "mnist", "mnist",
+                                              "mnist_train.csv"))
+    mesh = default_mesh()
+    model = mnist_nn.MnistNN.from_params(out["resident"]["params"],
+                                         device=mesh.device)
+    x_dev = torch.from_numpy(data.x).to(mesh.device)
+    y_dev = torch.from_numpy(data.y).to(mesh.device)
+    perm = torch.from_numpy(mnist_nn.epoch_permutation(
+        np.random.default_rng(1), data.num_examples,
+        cfg.batch_size)).to(mesh.device)
+    out["replay"] = _p24_mnist_replay(
+        mesh, initial, x_dev, y_dev,
+        torch.from_numpy(mnist_nn.epoch_permutation(
+            np.random.default_rng(cfg.seed), data.num_examples,
+            cfg.batch_size)).to(mesh.device),
+        out["resident"]["params"])
+    epoch = mnist_nn.make_epoch_resident_dp(mesh, cfg)
+    out["profile"] = _profile(lambda: epoch(model, x_dev, y_dev, perm),
+                              device, n_calls_timed=2)
+    out["profile"]["steps"] = perm.numel() // cfg.batch_size
+
+    # DP x TP: (data ranks/2 x model 2), one step from the initial
+    # parameters on the first batch
+    mesh2 = make_mesh({"data": mesh.size("data") // 2, "model": 2})
+    x, onehot, mask = (torch.from_numpy(a).to(mesh.device) for a in
+                       mnist_nn._make_batch(data.x[:cfg.batch_size],
+                                            data.y[:cfg.batch_size],
+                                            cfg.batch_size, cfg.layer_3))
+    shards = mnist_nn.place_params_tp(mesh2, initial)
+    rows = batch_sharding(mesh2)
+    summed = {}
+
+    def keep(real):
+        def wrapped(*a, **kw):
+            summed.update(real(*a, **kw))
+            return summed
+        return wrapped
+
+    _zero_k1_counts(mm)
+    with _wrapped(spmd, "psum_tree", keep):
+        new, correct, ce = mnist_nn.make_train_step_dp_tp(mesh2, cfg)(
+            shards, rows(x), rows(onehot), rows(mask))
+    _sync(device)
+    tp_counts = dict(mm.variant_launch_counts)
+    full = mnist_nn.gather_params_tp(mesh2, new)
+    tp_grads = mnist_nn.gather_params_tp(mesh2, summed["grads"])
+    single = mnist_nn.MnistNN.from_params(initial, device=mesh.device)
+    c1, ce1 = mnist_nn.train_step(single, x, onehot, mask, cfg)
+    out["tp"] = {"counts": tp_counts,
+                 "full": {k: v.cpu() for k, v in full.items()},
+                 "grads": {k: v.cpu() for k, v in tp_grads.items()},
+                 "single_grads": {k: v.grad.cpu() for k, v in
+                                  single.params().items()},
+                 "single": {k: v.detach().cpu() for k, v in
+                            single.params().items()},
+                 "metrics": (float(correct), float(ce), float(c1),
+                             float(ce1))}
+    return out
+
+
+def _p24_hinge(tmp: str, device: str) -> dict:
+    """mnist_hinge ``train 100 0.0005 --dp`` (rank 0 prints), then the DP
+    iterations replayed one by one from the same weights on this rank's
+    examples, bit-equal to the CLI's; rank 0 holds each teacher-forced
+    against f64 on the whole set (``_hinge_iteration_check``, with the
+    ranks' own margins gathered, so the violation set is the card's)."""
+    from big_linear_algebra_tpu_torch.data.mnist import MnistDataset
+    from big_linear_algebra_tpu_torch.models import mnist_hinge as hinge
+    from big_linear_algebra_tpu_torch.parallel import (batch_sharding,
+                                                       default_mesh, spmd)
+
+    where = os.path.join(tmp, "hinge")
+    last = []
+
+    def spy(real):
+        def chunk(*a, **kw):
+            w, norms = real(*a, **kw)
+            last[:] = [w.detach().cpu().clone()]
+            return w, norms
+        return chunk
+
+    w0 = torch.load(os.path.join(tmp, "hinge_w0.pt"))
+    with _wrapped(hinge, "_chunk", spy):
+        text, secs = _cli(hinge, ["train", str(HINGE_ITERATIONS),
+                                  str(HINGE_LR), "--dp"], where, device)
+    del os.environ["BLA_DATA_DIR"]
+    mesh = default_mesh()
+    data = MnistDataset.from_csv(os.path.join(where, "mnist",
+                                              "mnist_train.csv"))
+    n_total = data.num_examples
+    x_np, labels = hinge.pad_examples(data.x / 255.0, data.y,
+                                      mesh.size("data"))
+    shard = batch_sharding(mesh)
+    x_l = torch.from_numpy(shard(x_np)).to(mesh.device)
+    y_l = hinge.signed_targets(torch.from_numpy(shard(labels)).to(
+        mesh.device), x_l.dtype)
+    x_full = torch.from_numpy(data.x / 255.0)
+    y_full = hinge.signed_targets(torch.from_numpy(data.y), x_full.dtype)
+    step = hinge.make_train_chunk_dp(mesh, n_total, 1)
+    w = w0.to(mesh.device)
+    ratios = []
+    for _ in range(HINGE_ITERATIONS):
+        with torch.no_grad():
+            margins = y_l * (x_l @ w)  # the op _chunk computes
+            margins = spmd.all_gather(margins, mesh, "data", dim=0)
+        nxt, norms = step(w, x_l, y_l, HINGE_LR)
+        if mesh.rank == 0:
+            ratios.append(_hinge_iteration_check(
+                w, nxt, x_full, y_full, HINGE_LR,
+                margins=margins[:n_total]))
+        w = nxt
+        if float(norms.sum()) < hinge.EPSILON:
+            break
+    return {"text": text, "seconds": secs, "ratios": ratios,
+            "bit_equal": torch.equal(w.cpu(), last[0]),
+            "iterations": len(ratios) if mesh.rank == 0 else None,
+            "profile": _profile(lambda: hinge.make_train_chunk_dp(
+                mesh, n_total, hinge.CHUNK)(w, x_l, y_l, HINGE_LR), device)}
+
+
+def _p24_unet(tmp: str, device: str) -> dict:
+    """cifar_unet ``train 1 --dp --image-size=64 --max-steps=20`` (full
+    width, bf16 compute, batch 16: 8 per rank) with K2/K2c/K2d's launches
+    around it, then ``train 1 --dp --fused-block --max-steps=10`` at 32x32
+    (K5a/K5b's launches and routes), then one resumed step; every step's
+    loss and a hash of this rank's parameters after each run; then one DP
+    step at 64x64 profiled. On the CPU rehearsal, the TINY net."""
+    import dataclasses
+
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn import attention as at
+    from big_linear_algebra_tpu_torch.nn import fused_block as fb
+    from big_linear_algebra_tpu_torch.nn.optim import adam_init, tree_map
+    from big_linear_algebra_tpu_torch.parallel import default_mesh
+
+    where = os.path.join(tmp, "unet")
+    mesh = default_mesh()
+    world = mesh.size("data")
+    # the CPU rehearsal: the TINY net at batch 2 a rank
+    tiny = ["--tiny", f"--batch={2 * world}"] if device == "cpu" else []
+    losses, last = [], {}
+
+    def spy(real):
+        def make(*a, **kw):
+            step = real(*a, **kw)
+
+            def wrapped(*args, **kwargs):
+                params, opt, loss = step(*args, **kwargs)
+                losses.append(loss)
+                last["params"] = params
+                return params, opt, loss
+            return wrapped
+        return make
+
+    out = {}
+    with _wrapped(cu, "make_train_step_dp", spy):
+        at.launch_count = at.bwd_dq_launch_count = 0
+        at.bwd_dkv_launch_count = 0
+        text, secs = _cli(cu, ["train", "1", "--dp", "--image-size=64",
+                               f"--max-steps={P24_UNET_STEPS}", *tiny],
+                          where, device)
+        out["flash"] = {"K2": at.launch_count, "K2c": at.bwd_dq_launch_count,
+                        "K2d": at.bwd_dkv_launch_count, "text": text,
+                        "seconds": secs,
+                        "losses": torch.stack(losses).float().cpu(),
+                        "hash": _params_hash(last["params"])}
+        losses.clear()
+        _zero_fused_counts(fb)
+        text, secs = _cli(cu, ["train", "1", "--dp", "--fused-block",
+                               f"--max-steps={P24_FUSED_STEPS}", *tiny],
+                          where, device)
+        out["fused"] = {
+            "counts": (fb.launch_count, fb.tc_launch_count,
+                       fb.bwd_launch_count, fb.bwd_tc_launch_count,
+                       fb.wgrad_launch_count, fb.wgrad_tc_launch_count),
+            "text": text, "seconds": secs,
+            "losses": torch.stack(losses).float().cpu(),
+            "hash": _params_hash(last["params"])}
+        losses.clear()
+        text, _ = _cli(cu, ["train", "1", "--dp", "--fused-block",
+                            "--max-steps=1", *tiny], where, device)
+        out["resumed"] = {"text": text,
+                          "losses": torch.stack(losses).float().cpu(),
+                          "hash": _params_hash(last["params"])}
+    del os.environ["BLA_DATA_DIR"]
+
+    base = (dataclasses.replace(cu.TINY, batch_size=2 * world) if tiny
+            else cu.CONFIG)
+    cfg = dataclasses.replace(base, image_size=64)
+    params = last["params"]
+    opt = adam_init(params)
+    gen = torch.Generator().manual_seed(24)
+    x0 = torch.rand((cfg.batch_size // mesh.size("data"), 3, 64, 64),
+                    generator=gen).to(mesh.device) * 2 - 1
+    step = cu.make_train_step_dp(mesh, cfg)
+    out["profile"] = _profile(lambda: step(params, opt, x0, gen), device)
+    del params, opt
+    out["batch"] = base.batch_size
+    out["blocks"] = len(_unet_fused_blocks(base, base.batch_size // world))
+    return out
+
+
+def _ring_check(got, want, dtype, bwd: bool) -> float:
+    """Largest error over its bound of ``got`` against ``want`` (the plain
+    flash's): bf16 ``RING_BF16_RTOL_OF_MAX`` of max|ref|; f32 phase 5's
+    elementwise bound for o, phase 8's for the gradients."""
+    got, want = got.double(), want.double()
+    if dtype == torch.bfloat16:
+        return ((got - want).abs().max() / (RING_BF16_RTOL_OF_MAX
+                                            * want.abs().max())).item()
+    atol, rtol = ((K2BWD_F32_ATOL, K2BWD_F32_RTOL) if bwd
+                  else (K2_F32_ATOL, K2_F32_RTOL))
+    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
+def _p24_ring(device: str) -> list:
+    """Ring attention over the ranks' ``seq`` axis at each of
+    ``P24_RING[device]``: this rank's rows of (B, N, d) inputs drawn alike
+    on every rank, forward and backward twice (bit-equal), K2/K2c/K2d's
+    launches around the first, each output held against the plain flash
+    and its plain backward over the whole sequence, and the pair timed."""
+    from big_linear_algebra_tpu_torch.nn import attention as at
+    from big_linear_algebra_tpu_torch.parallel import (default_mesh,
+                                                       ring_attention)
+    from big_linear_algebra_tpu_torch.parallel.sharding import BatchShard
+
+    mesh = default_mesh("seq")
+    rows = BatchShard(mesh.index("seq"), mesh.size("seq"))
+    results = []
+    for b, n, d, dtype in P24_RING[device]:
+        gen = torch.Generator().manual_seed(n + d)
+        q, k, v, g = (torch.randn(b, n, d, generator=gen).to(
+            mesh.device, dtype) for _ in range(4))
+
+        def run():
+            leaves = [rows(x, dim=1).clone().requires_grad_()
+                      for x in (q, k, v)]
+            o = ring_attention(*leaves, mesh, "seq")
+            o.backward(rows(g, dim=1))
+            return [o.detach()] + [x.grad for x in leaves]
+
+        at.launch_count = at.bwd_dq_launch_count = 0
+        at.bwd_dkv_launch_count = 0
+        first = run()
+        _sync(device)
+        launches = (at.launch_count, at.bwd_dq_launch_count,
+                    at.bwd_dkv_launch_count)
+        second = run()
+        equal = all(torch.equal(a, b) for a, b in zip(first, second))
+        with torch.no_grad():
+            o_ref, lse = at._plain_flash(q, k, v)
+            refs = [o_ref, *at._plain_flash_bwd(q, k, v, o_ref, lse, g)]
+        ratios = {name: _ring_check(got, rows(ref, dim=1), dtype,
+                                    name != "o")
+                  for name, got, ref in zip(("o", "dq", "dk", "dv"), first,
+                                            refs)}
+        del refs, o_ref, lse
+        results.append({"shape": (b, n, d), "dtype": str(dtype),
+                        "launches": launches, "bit_equal": equal,
+                        "ratios": ratios,
+                        "profile": _profile(run, device)})
+    return results
+
+
+def _phase24_rank(tmp: str, device: str) -> int:
+    """One rank of phase 24 (``chip_smoke.py --phase24-rank TMP DEVICE``
+    under ``torch.distributed.run``): joins the group, runs the parts and
+    writes its results to ``TMP/rank<r>.pt`` for the launching process."""
+    from big_linear_algebra_tpu_torch.parallel import mesh as pmesh
+
+    rank = pmesh.distributed_init(device=device)
+    dev = pmesh.current_device()
+    out = {"rank": rank, "device": str(dev), "backend": pmesh.backend(),
+           "why": pmesh.select_backend(dev, pmesh.local_world_size())[1]}
+    out["mnist"] = _p24_mnist(tmp, device)
+    out["hinge"] = _p24_hinge(tmp, device)
+    out["unet"] = _p24_unet(tmp, device)
+    out["ring"] = _p24_ring(device)
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    return 0
+
+
+def _run_ranks(tmp: str, device: str, n: int) -> tuple:
+    """``python3 -m torch.distributed.run --standalone --nproc-per-node=N
+    chip_smoke.py --phase24-rank TMP DEVICE`` in its own process group
+    (killed whole on the time limit): (stdout, seconds)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n}", os.path.abspath(__file__),
+           "--phase24-rank", tmp, device]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=P24_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        stdout, stderr = proc.communicate()
+        fail(f"phase 24: the ranks did not end within {P24_TIMEOUT_S} s:\n"
+             f"{stdout[-4000:]}\n{stderr[-8000:]}")
+    if proc.returncode != 0:
+        fail(f"phase 24: torch.distributed.run exited {proc.returncode}:\n"
+             f"{stdout[-6000:]}\n{stderr[-10000:]}")
+    return stdout, time.perf_counter() - t0
+
+
+def _p24_prepare(tmp: str, device: str) -> dict:
+    """The ranks' inputs in ``tmp``: mnist_nn ``init`` with the 8192-image
+    set (a copy for ``--per-batch``), mnist_hinge ``init`` on a copy of the
+    set, and the CIFAR batches with ``cifar_unet init`` (full width; TINY
+    on the CPU rehearsal)."""
+    import shutil
+
+    from big_linear_algebra_tpu_torch.data import synth
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.models import mnist_hinge as hinge
+    from big_linear_algebra_tpu_torch.models import mnist_nn
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        mnist = os.path.join(tmp, "mnist")
+        os.environ["BLA_DATA_DIR"] = mnist
+        synth.ensure_mnist(mnist)
+        if mnist_nn.main(["init"]) != 0:
+            fail(f"mnist_nn init:\n{out.getvalue()}")
+        initial = mnist_nn.load_params_csv()
+        torch.save(initial, os.path.join(tmp, "mnist_initial.pt"))
+        shutil.copytree(mnist, os.path.join(tmp, "mnist_pb"))
+        where = os.path.join(tmp, "hinge")
+        shutil.copytree(os.path.join(mnist, "mnist"),
+                        os.path.join(where, "mnist"))
+        os.environ["BLA_DATA_DIR"] = where
+        if hinge.main(["init"]) != 0:
+            fail(f"mnist_hinge init:\n{out.getvalue()}")
+        w0 = hinge.load_weights()
+        torch.save(w0, os.path.join(tmp, "hinge_w0.pt"))
+        where = os.path.join(tmp, "unet")
+        os.environ["BLA_DATA_DIR"] = where
+        synth.ensure_cifar(where)
+        t0 = time.perf_counter()
+        if cu.main(["init"] + (["--tiny"] if device == "cpu" else [])) != 0:
+            fail(f"cifar_unet init:\n{out.getvalue()}")
+        init_s = time.perf_counter() - t0
+        del os.environ["BLA_DATA_DIR"]
+    return {"initial": initial, "w0": w0, "init_s": init_s}
+
+
+def _mnist_f64_epoch(initial, tmp: str):
+    """The single-device epoch of ``train 1`` in f64 on the CPU from the
+    same CSVs and permutation (the plain path), as phase 22 computes it."""
+    import numpy as np
+
+    from big_linear_algebra_tpu_torch.data.mnist import MnistDataset
+    from big_linear_algebra_tpu_torch.models import mnist_nn
+
+    cfg = mnist_nn.CONFIG
+    data = MnistDataset.from_csv(os.path.join(tmp, "mnist", "mnist",
+                                              "mnist_train.csv"))
+    model = mnist_nn.MnistNN.from_params(initial, device="cpu",
+                                         dtype=torch.float64)
+    perm = mnist_nn.epoch_permutation(np.random.default_rng(cfg.seed),
+                                      data.num_examples, cfg.batch_size)
+    mnist_nn.epoch_step_resident(model, torch.from_numpy(data.x).double(),
+                                 torch.from_numpy(data.y),
+                                 torch.from_numpy(perm), cfg)
+    return {k: v.detach() for k, v in model.params().items()}, data
+
+
+def _of_update(got, ref, initial) -> dict:
+    """max|got - ref| / max|ref - initial| per leaf."""
+    return {k: ((got[k].double() - ref[k]).abs().max()
+                / (ref[k] - initial[k].double()).abs().max()).item()
+            for k in ref}
+
+
+def _p24_check_mnist(ranks, prep, tmp, device) -> list:
+    from big_linear_algebra_tpu_torch.models import mnist_nn
+
+    cfg = mnist_nn.CONFIG
+    ref, data = _mnist_f64_epoch(prep["initial"], tmp)
+    steps = -(-data.num_examples // cfg.batch_size)
+    world = len(ranks)
+    local = cfg.batch_size // world
+    want = (_k1_counts(train_step_gemms(cfg.sizes, local), steps)
+            if device == "cuda" else {"nn": 0, "nt": 0, "tn": 0})
+    lines = []
+    ratios = {}
+    for mode in ("resident", "--per-batch"):
+        runs = [r["mnist"][mode] for r in ranks]
+        for r, run in enumerate(runs):
+            if run["counts"] != want:
+                fail(f"mnist_nn train 1 --dp {mode} on rank {r}: K1 launched "
+                     f"{run['counts']}, expected {want} ({steps} steps of "
+                     f"batch {local} per rank, _SMALL_FLOPS)")
+            if run["steps"] != steps:
+                fail(f"mnist_nn train 1 --dp {mode}: {run['steps']} DP "
+                     f"steps on rank {r}, expected {steps}")
+            for k, v in run["params"].items():
+                if not (torch.isfinite(v).all() and torch.equal(
+                        v.view(torch.int32),
+                        runs[0]["params"][k].view(torch.int32))):
+                    fail(f"mnist_nn train 1 --dp {mode}: {k} on rank {r} "
+                         f"not bit-equal to rank 0's (or not finite)")
+        ratios[mode] = _of_update(runs[0]["params"], ref, prep["initial"])
+        if not max(ratios[mode].values()) <= TRAIN_RTOL_OF_UPDATE:
+            fail(f"mnist_nn train 1 --dp {mode} against the single-device "
+                 f"f64 epoch on the CPU, max|err| / max|update| per leaf "
+                 f"{ratios[mode]} > {TRAIN_RTOL_OF_UPDATE}")
+    line = _epoch_line(ranks[0]["mnist"]["resident"]["text"], 0)
+    pb = _epoch_line(ranks[0]["mnist"]["--per-batch"]["text"], 0)
+    for r, rank in enumerate(ranks[1:], start=1):
+        for mode in ("resident", "--per-batch"):
+            if "epoch:" in rank["mnist"][mode]["text"]:
+                fail(f"mnist_nn train --dp: rank {r} printed metrics")
+    lines.append(
+        f"[24 mnist_nn dp] train 1 --dp on {world} ranks ({steps} steps, "
+        f"batch {cfg.batch_size} = {world} x {local}): K1 launches per "
+        f"rank {ranks[0]['mnist']['resident']['counts']} (expected {want} "
+        f"from the local shapes and _SMALL_FLOPS), the same with "
+        f"--per-batch; replicas bit-equal; avg_loss {line['avg_loss']}, "
+        f"{float(line['images_per_sec']):.1f} images/s (--per-batch "
+        f"{float(pb['images_per_sec']):.1f}); against the single-device f64 "
+        f"epoch, max|err| / max|update| per leaf "
+        + ", ".join(f"{k} {v:.3e}" for k, v in ratios["resident"].items())
+        + " (--per-batch "
+        + ", ".join(f"{k} {v:.3e}" for k, v in ratios["--per-batch"].items())
+        + f"; tol {TRAIN_RTOL_OF_UPDATE})")
+
+    # the epoch step by step: each rank's gradients teacher-forced against
+    # f64 with the card's ReLU decisions, and the control
+    for r, rank in enumerate(ranks):
+        rp = rank["mnist"]["replay"]
+        if not rp["bit_equal"] or rp["steps"] != steps:
+            fail(f"mnist_nn DP epoch replayed on rank {r}: {rp['steps']} "
+                 f"steps (expected {steps}), trained leaves bit-equal to "
+                 f"train 1 --dp's: {rp['bit_equal']}")
+        over = {k: v for k, v in rp["worst"].items()
+                if not v[0] <= DP_GRAD_RTOL_OF_MAX}
+        if over:
+            fail(f"mnist_nn DP step on rank {r}: the local gradient against "
+                 f"f64 at the same parameters with the card's ReLU "
+                 f"decisions, max|err| / max|ref| (step) {over} > "
+                 f"{DP_GRAD_RTOL_OF_MAX}")
+        if not max(rp["control"].values()) > DP_GRAD_RTOL_OF_MAX:
+            fail(f"mnist_nn DP step on rank {r}: the control (operands "
+                 f"truncated to TF32) passes the bound "
+                 f"{DP_GRAD_RTOL_OF_MAX}: {rp['control']}")
+    lines.append(
+        f"[24 mnist_nn dp steps] the DP epoch replayed from the initial CSVs"
+        f" bit-equal to train 1 --dp on every rank; each of its {steps} "
+        f"steps' local gradient (batch {local}, the all-reduce's input) "
+        f"against f64 at the same parameters with the card's ReLU "
+        f"decisions, worst max|err| / max|ref| per leaf (step): "
+        + "; ".join(f"rank {r} " + ", ".join(
+            f"{k} {v:.3e} ({s_})" for k, (v, s_) in
+            rank["mnist"]["replay"]["worst"].items())
+            for r, rank in enumerate(ranks))
+        + f" (tol {DP_GRAD_RTOL_OF_MAX}); the control, the first step's "
+        f"gradient from operands truncated to TF32, rank 0: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in
+                    ranks[0]["mnist"]["replay"]["control"].items())
+        + " (must exceed the tol)")
+
+    # DP x TP against the single-device step, and both against f64
+    tp = ranks[0]["mnist"]["tp"]
+    n_data = world // 2  # the DP x TP step's (data, model 2) mesh
+    want_tp = (_k1_counts(tp_step_gemms(cfg.sizes, cfg.batch_size // n_data,
+                                        2))
+               if device == "cuda" else {"nn": 0, "nt": 0, "tn": 0})
+    x, onehot, mask = (torch.from_numpy(a).double() for a in
+                       mnist_nn._make_batch(data.x[:cfg.batch_size],
+                                            data.y[:cfg.batch_size],
+                                            cfg.batch_size, cfg.layer_3))
+    model64 = mnist_nn.MnistNN.from_params(prep["initial"],
+                                           dtype=torch.float64)
+    mnist_nn.train_step(model64, x, onehot, mask, cfg)
+    ref64 = {k: v.detach() for k, v in model64.params().items()}
+    tp_ratio = _of_update(tp["full"], ref64, prep["initial"])
+    single_ratio = _of_update(tp["single"], ref64, prep["initial"])
+    grad_ratio = {k: _of_max(tp["grads"][k], v.double())
+                  for k, v in tp["single_grads"].items()}
+    for r, rank in enumerate(ranks):
+        t = rank["mnist"]["tp"]
+        if t["counts"] != want_tp:
+            fail(f"the DP x TP step on rank {r}: K1 launched {t['counts']}, "
+                 f"expected {want_tp} (column shards of 2)")
+        for k, v in t["full"].items():
+            if not (torch.equal(v, tp["full"][k])
+                    and torch.equal(t["grads"][k], tp["grads"][k])):
+                fail(f"the DP x TP step: gathered {k} (or its gradient) on "
+                     f"rank {r} differs from rank 0's")
+    if not max(grad_ratio.values()) <= DP_GRAD_RTOL_OF_MAX:
+        fail(f"the DP x TP step's gathered gradient against the "
+             f"single-device step's on the same batch, max|err| / max|ref| "
+             f"per leaf {grad_ratio} > {DP_GRAD_RTOL_OF_MAX}")
+    if not max(tp_ratio.values()) <= TRAIN_RTOL_OF_UPDATE:
+        fail(f"the DP x TP step against the f64 step, max|err| / "
+             f"max|update| per leaf {tp_ratio} > {TRAIN_RTOL_OF_UPDATE}")
+    c, ce, c1, ce1 = tp["metrics"]
+    if c != c1:
+        fail(f"the DP x TP step counts {c} correct, the single-device step "
+             f"{c1}")
+    lines.append(
+        f"[24 mnist_nn dp x tp] one step on (data {n_data} x model 2), "
+        f"batch {cfg.batch_size}: K1 launches per rank {tp['counts']} "
+        f"(expected {want_tp} at the column shards); the gathered leaves "
+        f"equal on every rank; the gathered gradient against the "
+        f"single-device step's on the card, max|err| / max|ref| per leaf "
+        + ", ".join(f"{k} {v:.3e}" for k, v in grad_ratio.items())
+        + f" (tol {DP_GRAD_RTOL_OF_MAX}); against the single-device f64 "
+        f"step, max|err| / max|update| per leaf "
+        + ", ".join(f"{k} {v:.3e}" for k, v in tp_ratio.items())
+        + " (the single-device step on the card: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in single_ratio.items())
+        + f"; tol {TRAIN_RTOL_OF_UPDATE}); ce {ce:.6f} vs {ce1:.6f}")
+    return lines
+
+
+def _p24_check_hinge(ranks, prep, tmp) -> list:
+    import numpy as np
+
+    from big_linear_algebra_tpu_torch.data.mnist import MnistDataset
+    from big_linear_algebra_tpu_torch.models import mnist_hinge as hinge
+
+    h0 = ranks[0]["hinge"]
+    text = h0["text"]
+    conv = re.search(r"converged < epsilon after iteration (\d+)", text)
+    conv = None if conv is None else int(conv.group(1))
+    if "Finished training" not in text or any(
+            r["hinge"]["text"] for r in ranks[1:]):
+        fail(f"mnist_hinge train --dp: rank 0 must print, and only it:\n"
+             f"{text}")
+    for r, rank in enumerate(ranks):
+        if not rank["hinge"]["bit_equal"]:
+            fail(f"mnist_hinge --dp: the replayed iterations on rank {r} are "
+                 f"not bit-equal to train's")
+    data = MnistDataset.from_csv(os.path.join(tmp, "hinge", "mnist",
+                                              "mnist_train.csv"))
+    x64 = torch.from_numpy(data.x / 255.0).double()
+    y64 = hinge.signed_targets(torch.from_numpy(data.y), torch.float64)
+    w, ref_conv = prep["w0"].double(), None
+    for start in range(0, HINGE_ITERATIONS, hinge.CHUNK):
+        w, norms = hinge.train_chunk(w, x64, y64, HINGE_LR,
+                                     min(hinge.CHUNK, HINGE_ITERATIONS - start))
+        hit = (norms.sum(dim=1) < hinge.EPSILON).nonzero()
+        if len(hit):
+            ref_conv = start + int(hit[0])
+            break
+    if conv != ref_conv:
+        fail(f"mnist_hinge train --dp: converged at {conv} on the card, at "
+             f"{ref_conv} in f64 on the CPU")
+    ratios = np.asarray(h0["ratios"])
+    if not ratios.max() <= 1.0:
+        fail(f"mnist_hinge train --dp, teacher-forced against f64: iteration"
+             f" {int(ratios.argmax())} at {ratios.max()} of its bound")
+    return [f"[24 mnist_hinge dp] train {HINGE_ITERATIONS} {HINGE_LR} --dp on "
+            f"{len(ranks)} ranks ({data.num_examples // len(ranks)} examples "
+            f"each): converged "
+            f"{'at ' + str(conv) if conv is not None else 'never'} on the "
+            f"card and in f64; {len(ratios)} iterations replayed bit-equal on "
+            f"every rank, each teacher-forced against f64 at median "
+            f"{np.median(ratios):.3e}, max {ratios.max():.3e} of its f32 "
+            f"bound; rank 0 alone printed; train {h0['seconds']:.3f} s of "
+            f"host wall"]
+
+
+def _falls(losses: torch.Tensor, what: str) -> tuple:
+    k = len(losses) // 4 or 1
+    head, tail = losses[:k].mean().item(), losses[-k:].mean().item()
+    if not (torch.isfinite(losses).all() and tail < head):
+        fail(f"{what}: losses not finite or not falling: {losses.tolist()}")
+    return head, tail, k
+
+
+def _p24_check_unet(ranks, device) -> list:
+    lines = []
+    u0 = ranks[0]["unet"]
+    n_fused, batch = u0["blocks"], u0["batch"]
+    world = len(ranks)
+    local = batch // world
+    for part in ("flash", "fused", "resumed"):
+        hashes = {r["unet"][part]["hash"] for r in ranks}
+        if len(hashes) != 1:
+            fail(f"cifar_unet train --dp ({part}): the replicas' parameters "
+                 f"differ after the run (hashes {hashes})")
+        for r, rank in enumerate(ranks):
+            if not torch.equal(rank["unet"][part]["losses"],
+                               u0[part]["losses"]):
+                fail(f"cifar_unet train --dp ({part}): rank {r}'s pmean'd "
+                     "losses differ from rank 0's")
+    per = 4 if device == "cuda" else 0
+    for r, rank in enumerate(ranks):
+        f = rank["unet"]["flash"]
+        got = (f["K2"], f["K2c"], f["K2d"])
+        if got != (per * P24_UNET_STEPS,) * 3:
+            fail(f"cifar_unet train --dp --image-size=64 on rank {r}: K2/K2c/"
+                 f"K2d launched {got}, expected {per * P24_UNET_STEPS} each "
+                 f"(4 flash sites x {P24_UNET_STEPS} steps)")
+        want = (n_fused * P24_FUSED_STEPS if device == "cuda" else 0,) * 6
+        if rank["unet"]["fused"]["counts"] != want:
+            fail(f"cifar_unet train --dp --fused-block on rank {r}: K5a/its "
+                 f"tensor-core route/K5b data/its tensor-core route/K5b "
+                 f"weight gradients/their tensor-core route launched "
+                 f"{rank['unet']['fused']['counts']}, expected {want} "
+                 f"({n_fused} fused blocks at batch {local} per rank x "
+                 f"{P24_FUSED_STEPS} steps)")
+    fl = u0["flash"]
+    if len(fl["losses"]) != P24_UNET_STEPS:
+        fail(f"{len(fl['losses'])} DP steps at 64x64, expected "
+             f"{P24_UNET_STEPS}")
+    head, tail, k = _falls(fl["losses"], "train --dp --image-size=64")
+    ep0 = _epoch_line(fl["text"], 0)
+    fu = u0["fused"]
+    if not (len(fu["losses"]) == P24_FUSED_STEPS
+            and torch.isfinite(fu["losses"]).all()):
+        fail(f"train --dp --fused-block: {P24_FUSED_STEPS} finite step "
+             f"losses expected, got {fu['losses'].tolist()}")
+    resumed = (f"resumed train state at step "
+               f"{P24_UNET_STEPS + P24_FUSED_STEPS} (epoch 2)")
+    if resumed not in u0["resumed"]["text"] or len(
+            u0["resumed"]["losses"]) != 1:
+        fail(f"the third train --dp did not resume at epoch 2:\n"
+             f"{u0['resumed']['text']}")
+    for r, rank in enumerate(ranks[1:], start=1):
+        if any(rank["unet"][p]["text"] for p in ("flash", "fused",
+                                                   "resumed")):
+            fail(f"cifar_unet train --dp: rank {r} printed")
+    lines.append(
+        f"[24 unet dp] train 1 --dp --image-size=64 --max-steps="
+        f"{P24_UNET_STEPS} on {world} ranks (batch {batch} = {world} x "
+        f"{local}, {'TINY, f32' if device == 'cpu' else 'full width, bf16'} "
+        f"compute, f32 masters): launches per rank "
+        f"K2 {fl['K2']}, K2c {fl['K2c']}, K2d {fl['K2d']} ({per} each a "
+        f"step); loss mean of steps 1-{k} {head:.5f}, of the last {k} "
+        f"{tail:.5f}; replicas bit-equal; epoch {ep0['epoch_seconds']} s "
+        f"({ep0['images_per_sec']} images/s). train 1 --dp --fused-block "
+        f"--max-steps={P24_FUSED_STEPS} (32x32): K5a/tc/K5b data/tc/K5b "
+        f"weights/tc per rank {fu['counts']} ({n_fused} fused blocks a step "
+        f"at batch {local}, every launch on the tensor-core "
+        f"route); losses finite (mean {fu['losses'].mean().item():.5f}); "
+        f"replicas bit-equal; "
+        f"then '{resumed}', step loss {u0['resumed']['losses'][0]:.5f}, "
+        f"replicas bit-equal")
+    return lines
+
+
+def _p24_check_ring(ranks, device) -> list:
+    lines = []
+    world = len(ranks)
+    for i, case in enumerate(ranks[0]["ring"]):
+        for r, rank in enumerate(ranks):
+            c = rank["ring"][i]
+            if c["launches"] != ((world,) * 3 if device == "cuda"
+                                 else (0, 0, 0)):
+                fail(f"ring attention {case['shape']} {case['dtype']} on "
+                     f"rank {r}: K2/K2c/K2d launched {c['launches']}, "
+                     f"expected {world} each (one per rotation)")
+            if not c["bit_equal"]:
+                fail(f"ring attention {case['shape']} {case['dtype']} on "
+                     f"rank {r}: two runs not bit-equal")
+            if not max(c["ratios"].values()) <= 1.0:
+                fail(f"ring attention {case['shape']} {case['dtype']} on "
+                     f"rank {r} against the plain flash over the whole "
+                     f"sequence: error / bound {c['ratios']}")
+        worst = {k: max(rank["ring"][i]["ratios"][k] for rank in ranks)
+                 for k in ("o", "dq", "dk", "dv")}
+        b, n, d = case["shape"]
+        lines.append(
+            f"[24 ring attention] {case['dtype']} (B, N, d) = {(b, n, d)}, "
+            f"{n // world} rows per rank: K2, K2c, K2d launched "
+            f"{case['launches']} per rank (one each per rotation); two runs "
+            f"bit-equal; against the plain flash and its backward over the "
+            f"whole sequence, error / bound "
+            + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+            + (f" (bound {RING_BF16_RTOL_OF_MAX} of max|ref|)"
+               if "bfloat16" in case["dtype"] else
+               " (phase 5's bound for o, phase 8's for the gradients)"))
+    return lines
+
+
+def _p24_profile_lines(ranks, device, smi_line: str) -> list:
+    lines = []
+    parts = [("mnist_nn resident DP epoch", lambda r: r["mnist"]["profile"]),
+             ("mnist_hinge DP chunk (10 iterations)",
+              lambda r: r["hinge"]["profile"]),
+             ("cifar_unet DP step, 64x64", lambda r: r["unet"]["profile"])]
+    parts += [(f"ring attention forward + backward {c['dtype']} "
+               f"{c['shape']}", (lambda i: lambda r: r["ring"][i]["profile"])
+               (i)) for i, c in enumerate(ranks[0]["ring"])]
+    for what, get in parts:
+        for r, rank in enumerate(ranks):
+            p = get(rank)
+            busy = ("" if p["busy_ms"] is None else
+                    f"; device busy {p['busy_ms']:.3f} ms = "
+                    f"{p['busy_ms'] / p['host_ms']:.1%} of the host time")
+            steps = p.get("steps")
+            per_step = ("" if not steps else
+                        f" = {p['host_ms'] / steps * 1e3:.2f} us per step")
+            coll = p["coll_ms"] / (steps or 1)
+            lines.append(
+                f"[24 profile] {what}, rank {r} ({rank['device']}, "
+                f"{rank['backend']}): host wall {p['host_ms']:.3f} ms"
+                f"{per_step}{busy}; collectives {coll * 1e3:.2f} us of host "
+                f"time per {'step' if steps else 'call'} "
+                f"({p['coll_calls'] / (steps or 1):.1f} calls) | {smi_line}")
+    return lines
+
+
+def phase_parallel(smi_line: str = "", device: str = "cuda",
+                   n_ranks: int = P24_RANKS) -> None:
+    """Phase 24: the data- and sequence-parallel modes, ``n_ranks`` ranks
+    (``P24_RANKS`` = 2) launched with ``python3 -m torch.distributed.run
+    --standalone --nproc-per-node=2`` (``_phase24_rank``): mnist_nn
+    ``train 1 --dp`` and ``--per-batch`` (K1's launches per rank derived
+    from the local shapes, the replicas bit-equal, each leaf within
+    ``TRAIN_RTOL_OF_UPDATE`` of its update from the single-device f64
+    epoch), the DP×TP step on (data ranks/2 x model 2), mnist_hinge ``train 100 0.0005 --dp`` (each
+    iteration teacher-forced against f64), cifar_unet ``train 1 --dp`` at
+    64x64 and with ``--fused-block`` at 32x32 plus a resumed step (finite,
+    falling losses, replicas bit-equal, K2/K2c/K2d and K5a/K5b launches per
+    rank), ring attention (bf16 (4, 8192, 64), f32 (2, 2048, 16); K2,
+    K2c and K2d P times each per rank, two runs bit-equal, within the
+    bounds of the plain flash over the whole sequence); each rank's host
+    wall, busy share and collective time."""
+    with tempfile.TemporaryDirectory(prefix="bla_smoke_") as tmp:
+        prep = _p24_prepare(tmp, device)
+        stdout, seconds = _run_ranks(tmp, device, n_ranks)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(n_ranks)]
+        how = ("every collective and ring hop staged through host memory"
+               if ranks[0]["backend"] == "gloo"
+               else "NCCL on the device buffers")
+        lines = [f"[24 launch] python3 -m torch.distributed.run --standalone "
+                 f"--nproc-per-node={n_ranks}: "
+                 + "; ".join(f"rank {r['rank']} on {r['device']}"
+                             for r in ranks)
+                 + f", backend {ranks[0]['backend']} ({ranks[0]['why']}): "
+                 f"{how}; {seconds:.1f} s of wall for the launch "
+                 f"(cifar_unet init {prep['init_s']:.2f} s before it)"]
+        lines += _p24_check_mnist(ranks, prep, tmp, device)
+        lines += _p24_check_hinge(ranks, prep, tmp)
+        lines += _p24_check_unet(ranks, device)
+        lines += _p24_check_ring(ranks, device)
+        lines += _p24_profile_lines(ranks, device, smi_line)
+    for line in lines:
+        print(line, flush=True)
+
+
 def main() -> int:
     smi_line, exp2_per_s = phase_environment()
     phase_build()
@@ -4298,6 +5445,7 @@ def main() -> int:
     k1_launches += k1_train
     phase_legacy_programs(p22)
     del p22
+    phase_parallel(smi_line)
     k2_err = phase_k2_vs_plain()
     phase_k2_bitequal()
     phase_k2_build_info()
@@ -4478,4 +5626,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase24-rank"]:  # one rank of phase 24
+        raise SystemExit(_phase24_rank(*sys.argv[2:4]))
     raise SystemExit(main())

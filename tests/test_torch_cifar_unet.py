@@ -212,7 +212,7 @@ def test_bmp_and_pixel_conversions_match_jax(tmp_path, rng, monkeypatch):
 def test_cli_flags(tmp_path, monkeypatch, capsys):
     monkeypatch.setenv("BLA_DATA_DIR", str(tmp_path))
     reasons = {"--layout=nhwc": "channels-last", "--prng=threefry": "Philox",
-               "--dp": "parallel", "--tp": "parallel",
+               "--dp": "applies to train", "--tp": "parallel",
                "--pp": "parallel", "--pp-micro=2": "parallel",
                "--pp-schedule=1f1b": "parallel",
                "--remat": "torch.utils.checkpoint",

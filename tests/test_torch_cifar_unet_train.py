@@ -344,7 +344,8 @@ def test_cli_train_flags(tmp_path, monkeypatch, capsys):
                "--scan-steps=2": "dispatch mode",
                "--scan-unroll=2": "dispatch mode",
                "--host-loop": "dispatch mode", "--prng=rbg": "Philox",
-               "--dp": "parallel", "--layout=NHWC": "channels-last"}
+               "--tp": "U-Net TP and pipeline slice",
+               "--layout=NHWC": "channels-last"}
     for flag, reason in reasons.items():
         assert cu.main(["train", "1", "--tiny", flag]) == 1, flag
         assert reason in capsys.readouterr().out, flag

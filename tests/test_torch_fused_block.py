@@ -349,6 +349,24 @@ def test_k5b_route_takes_every_block_of_the_train_step():
         assert fb._bwd_route(torch.float32, *shape) == "fma", shape
 
 
+def test_k5_routes_take_every_block_of_the_dp_train_step():
+    """``train --dp --fused-block`` on two ranks steps at batch 8 a rank:
+    the gate admits all ten full-width blocks there (up_2 resnet_1, 512 →
+    256 at 8×8, fails it only at batch 16), and K5a and K5b both take the
+    tensor-core kernels in bf16, in clusters of 8 within an H100 block's
+    shared memory."""
+    blocks = _unet_fused_blocks(cu.CONFIG, 8)
+    assert len(blocks) == 10
+    assert {(c, f, h) for _, c, f, h, *_ in blocks} == {
+        (256, 256, 8), (256, 256, 4), (512, 256, 4), (512, 256, 8)}
+    for shape in blocks:
+        assert fb._fwd_route(torch.bfloat16, *shape) == "tc", shape
+        assert fb._bwd_route(torch.bfloat16, *shape) == "tc", shape
+        for plan in (fb._tc_plan, fb._bwd_tc_plan):
+            nc, smem = plan(*shape)
+            assert nc == 8 and smem <= fb._MAX_SMEM, (plan, shape)
+
+
 def test_k5b_route_rule_edges():
     """The TINY U-Net's blocks go to the FMA data-gradient kernel in bf16
     and f32; the tensor-core plan's shared memory at the train step's

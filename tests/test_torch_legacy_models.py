@@ -16,7 +16,6 @@ from big_linear_algebra_tpu.models import mnist as jax_mnist
 from big_linear_algebra_tpu.models import mnist_hinge as jax_hinge
 from big_linear_algebra_tpu.models import my_first_model as jax_mfm
 from big_linear_algebra_tpu.models import smoke as jax_smoke
-from big_linear_algebra_tpu_torch.models import common
 from big_linear_algebra_tpu_torch.models import mnist as port_mnist
 from big_linear_algebra_tpu_torch.models import mnist_hinge as port_hinge
 from big_linear_algebra_tpu_torch.models import my_first_model as port_mfm
@@ -234,17 +233,17 @@ def test_mnist_he_init_and_autoinit(tmp_path, monkeypatch, capsys):
 
 def test_legacy_cli_flags(tmp_path, monkeypatch, capsys):
     """``--dp`` is rejected with JAX's own reasons (my_first_model, mnist)
-    or as the parallel modes (mnist_hinge), ``--jsonl`` as a flag these
-    programs would ignore, and the base flags are accepted; all before any
-    work."""
+    and, outside ``train``, by mnist_hinge (whose ``train --dp`` is data
+    parallel), ``--jsonl`` as a flag these programs would ignore, and the
+    base flags are accepted; all before any work."""
     monkeypatch.setenv("BLA_DATA_DIR", str(tmp_path))
     for jax_mod, port_mod in ((jax_mfm, port_mfm), (jax_mnist, port_mnist)):
         assert jax_mod.main(["train", "1", "0.1", "--dp"]) == 1
         want = capsys.readouterr().out
         assert port_mod.main(["train", "1", "0.1", "--dp"]) == 1
         assert capsys.readouterr().out == want
-    assert port_hinge.main(["train", "1", "0.1", "--dp"]) == 1
-    assert common.PARALLEL_NOT_PORTED in capsys.readouterr().out
+    assert port_hinge.main(["run", "--dp"]) == 1
+    assert "data parallelism applies to train" in capsys.readouterr().out
     for port_mod in (port_mfm, port_mnist, port_hinge):
         assert port_mod.main(["train", "1", "0.1", "--jsonl=x"]) == 1
         assert "logs no metrics" in capsys.readouterr().out

@@ -139,10 +139,11 @@ def test_cli_flags(tmp_path, monkeypatch, capsys):
     assert mnist_nn.main([]) == 1
     assert mnist_nn.main(["train"]) == 1
     assert "number of epochs" in capsys.readouterr().out
-    for flag in ("--dp", "--bogus", "--scan-unroll=2"):
+    for flag in ("--bogus", "--scan-unroll=2"):
         assert mnist_nn.main(["train", "1", flag]) == 1
+    assert mnist_nn.main(["run", "--dp"]) == 1  # --dp is train's
     out = capsys.readouterr().out
-    assert "the parallel-modes item" in out
+    assert "data parallelism applies to train" in out
     assert "dispatch mode" in out
     assert "Unrecognized flag" in out
     with pytest.raises(ValueError, match="takes no value"):

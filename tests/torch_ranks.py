@@ -1,0 +1,308 @@
+"""Rank bodies for the port's parallel tests, run in spawned gloo CPU ranks.
+
+This module imports torch and the port, never jax: every spawned rank
+imports it afresh. A test module builds a list of cases (name, function
+name here, keyword arguments of numpy data), ``spawn`` runs them all in one
+launch of ``world`` ranks, and each rank's results come back as numpy.
+"""
+
+import contextlib
+import hashlib
+import io
+import os
+import pickle
+import tempfile
+
+import numpy as np
+import torch
+
+from big_linear_algebra_tpu_torch.parallel import mesh as pmesh
+from big_linear_algebra_tpu_torch.parallel.mesh import spawn_ranks
+
+
+def _np(x):
+    if isinstance(x, dict):
+        return {k: _np(v) for k, v in x.items()}
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().to(torch.float64).numpy()
+    return x
+
+
+def _t(x):
+    if isinstance(x, dict):
+        return {k: _t(v) for k, v in x.items()}
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def run(cases_path: str, out_dir: str) -> int:
+    torch.set_num_threads(1)
+    rank = pmesh.distributed_init(device="cpu")
+    with open(cases_path, "rb") as f:
+        cases = pickle.load(f)
+    results = {name: globals()[fn](**kwargs) for name, fn, kwargs in cases}
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+    return 0
+
+
+def spawn(world: int, cases) -> list:
+    """Run ``cases`` in one launch of ``world`` gloo CPU ranks; returns
+    each rank's {case name: result}, in rank order."""
+    with tempfile.TemporaryDirectory(prefix="bla_ranks_") as tmp:
+        path = os.path.join(tmp, "cases.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(cases, f)
+        with contextlib.redirect_stdout(io.StringIO()):
+            spawn_ranks(run, world, path, tmp)
+        out = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# mesh, sharding, collectives
+# ---------------------------------------------------------------------------
+
+
+def mesh_facts():
+    """What the mesh, sharding and collective helpers give this rank of a
+    world of 4."""
+    from big_linear_algebra_tpu_torch.parallel import (batch_sharding,
+                                                       default_mesh,
+                                                       make_hybrid_mesh,
+                                                       make_mesh, replicate,
+                                                       shard_params_tp, spmd)
+
+    r = pmesh.rank()
+    out = {}
+    mesh = make_mesh({"data": 2, "model": 2})
+    out["shape"] = mesh.shape
+    out["grid"] = mesh.devices.tolist()
+    out["coords"] = mesh.coords
+    out["lines"] = (mesh.line("data"), mesh.line("model"))
+    out["default"] = default_mesh().shape
+    out["hybrid"] = make_hybrid_mesh({"dcn": 1}, {"data": 2,
+                                                  "model": 2}).shape
+    for bad in ({"data": 3}, {"data": 2, "model": 4}):
+        try:
+            make_mesh(bad)
+        except ValueError as e:
+            out[f"error {bad}"] = str(e)
+    try:
+        make_hybrid_mesh({"dcn": 2}, {"data": 2})
+    except ValueError as e:
+        out["hybrid error"] = str(e)
+    x = torch.arange(8.0).reshape(8, 1)
+    out["batch"] = _np(batch_sharding(mesh)(x))
+    params = {"w": torch.arange(12.0).reshape(3, 4), "b": torch.arange(4.0),
+              "s": torch.tensor(7.0)}
+    out["tp"] = _np(shard_params_tp(mesh, params))
+    out["replicate"] = _np(replicate(mesh, {"a": torch.full((2,),
+                                                            float(r))}))
+    tree = {"a": torch.full((3,), float(r + 1), dtype=torch.float64),
+            "b": {"c": torch.full((2,), float(r), dtype=torch.bfloat16)}}
+    out["psum data"] = _np(spmd.psum_tree(tree, mesh, "data"))
+    out["pmean model"] = _np(spmd.pmean_tree(tree, mesh, "model"))
+    out["psum dtypes"] = [str(v.dtype) for v in (
+        spmd.psum_tree(tree, mesh, "data")["a"],
+        spmd.psum_tree(tree, mesh, "data")["b"]["c"])]
+    z = torch.full((2, 3), float(r), dtype=torch.float64, requires_grad=True)
+    g = spmd.all_gather(z, mesh, "model", dim=1)
+    out["gathered"] = _np(g)
+    (g * torch.arange(12.0, dtype=torch.float64).reshape(2, 6)).sum() \
+        .backward()
+    out["gather grad"] = _np(z.grad)
+    p = torch.full((1,), float(r), requires_grad=True)
+    s = spmd.psum(p, mesh, "data")
+    (3 * s).sum().backward()
+    out["psum"], out["psum grad"] = _np(s), _np(p.grad)
+    out["hop"] = _np(spmd.hop([torch.full((2,), float(r))], mesh,
+                              "data")[0])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# mnist_nn and mnist_hinge
+# ---------------------------------------------------------------------------
+
+
+def mnist_dp_step(params, x, onehot, mask, lr):
+    from big_linear_algebra_tpu_torch.models import mnist_nn
+    from big_linear_algebra_tpu_torch.parallel import (batch_sharding,
+                                                       default_mesh)
+
+    cfg = mnist_nn.Config(learn_rate=lr)
+    mesh = default_mesh()
+    model = mnist_nn.MnistNN.from_params(_t(params), cfg)
+    shard = batch_sharding(mesh)
+    correct, ce = mnist_nn.make_train_step_dp(mesh, cfg)(
+        model, *(shard(_t(v)) for v in (x, onehot, mask)))
+    return {"params": _np(model.params()), "correct": float(correct),
+            "ce": float(ce)}
+
+
+def mnist_dp_tp_step(params, x, onehot, mask, lr, data, model, clip):
+    from big_linear_algebra_tpu_torch.models import mnist_nn
+    from big_linear_algebra_tpu_torch.parallel import (batch_sharding,
+                                                       make_mesh)
+
+    cfg = mnist_nn.Config(learn_rate=lr, grad_clip=clip)
+    mesh = make_mesh({"data": data, "model": model})
+    shards = mnist_nn.place_params_tp(mesh, _t(params))
+    shard = batch_sharding(mesh)
+    new, correct, ce = mnist_nn.make_train_step_dp_tp(mesh, cfg)(
+        shards, *(shard(_t(v)) for v in (x, onehot, mask)))
+    return {"params": _np(mnist_nn.gather_params_tp(mesh, new)),
+            "correct": float(correct), "ce": float(ce)}
+
+
+def mnist_dp_epoch(params, x_raw, y, perm, lr):
+    from big_linear_algebra_tpu_torch.models import mnist_nn
+    from big_linear_algebra_tpu_torch.parallel import default_mesh
+
+    cfg = mnist_nn.Config(learn_rate=lr)
+    model = mnist_nn.MnistNN.from_params(_t(params), cfg)
+    epoch = mnist_nn.make_epoch_resident_dp(default_mesh(), cfg)
+    correct, ce = epoch(model, _t(x_raw), _t(y), _t(perm))
+    return {"params": _np(model.params()), "correct": float(correct),
+            "ce": float(ce)}
+
+
+def hinge_dp_chunk(w, x, labels, lr, n_iters):
+    from big_linear_algebra_tpu_torch.models import mnist_hinge as hinge
+    from big_linear_algebra_tpu_torch.parallel import (batch_sharding,
+                                                       default_mesh)
+
+    mesh = default_mesh()
+    xp, lp = hinge.pad_examples(x, labels, mesh.size("data"))
+    shard = batch_sharding(mesh)
+    xt = _t(shard(xp))
+    chunk = hinge.make_train_chunk_dp(mesh, x.shape[0], n_iters)
+    w, norms = chunk(_t(w), xt, hinge.signed_targets(_t(shard(lp)),
+                                                     xt.dtype), lr)
+    return {"w": _np(w), "norms": _np(norms), "rows": xt.shape[0]}
+
+
+def cli(module, argv, data_dir):
+    """``module.main(argv)`` in this rank (the process group is joined):
+    (exit code or SystemExit message, stdout)."""
+    import importlib
+
+    mod = importlib.import_module(
+        f"big_linear_algebra_tpu_torch.models.{module}")
+    os.environ["BLA_DATA_DIR"] = data_dir
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = mod.main(argv)
+    except SystemExit as e:
+        rc = str(e)
+    finally:
+        del os.environ["BLA_DATA_DIR"]
+    return rc, out.getvalue()
+
+
+# ---------------------------------------------------------------------------
+# cifar_unet
+# ---------------------------------------------------------------------------
+
+
+def injected_dropout(mask_of):
+    """A ``dropout`` whose mask of the i-th call is ``mask_of(i, shape,
+    keep)`` (the same formula as ``nn/dropout.py``)."""
+    calls = []
+
+    def dropout(x, rate, generator, deterministic=False):
+        if deterministic or rate == 0.0:
+            return x
+        keep = 1.0 - rate
+        mask = mask_of(len(calls), tuple(x.shape), keep).to(x.device)
+        calls.append(tuple(x.shape))
+        return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+    return dropout, calls
+
+
+def unet_dp_step(params, x0, t, noise, mask_seed, cfg_kwargs):
+    """One TINY DP step with this rank's (t, noise) and dropout masks
+    injected; returns the loss, the params and the Adam moments."""
+    import dataclasses
+
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn.optim import adam_init
+    from big_linear_algebra_tpu_torch.parallel import (batch_sharding,
+                                                       default_mesh)
+
+    cfg = dataclasses.replace(cu.TINY, **cfg_kwargs)
+    mesh = default_mesh()
+    shard = batch_sharding(mesh)
+    dropout, calls = injected_dropout(
+        lambda i, shape, keep: torch.from_numpy(
+            np.random.default_rng([mask_seed, pmesh.rank(), i]).random(
+                shape) < keep))
+    real = cu.dropout
+    cu.dropout = dropout
+    try:
+        p = _t(params)
+        p, opt, loss = cu.make_train_step_dp(mesh, cfg)(
+            p, adam_init(p), shard(_t(x0)), torch.Generator().manual_seed(3),
+            draws=(shard(_t(t)), shard(_t(noise))))
+    finally:
+        cu.dropout = real
+    return {"loss": float(loss), "params": _np(p), "m": _np(opt.m),
+            "v": _np(opt.v), "calls": calls}
+
+
+def unet_bf16_replicas(x0, n_steps):
+    """``n_steps`` TINY DP steps with bf16 stored params (stochastic
+    rounding), this rank's draws from its rank generator: a hash of the
+    params' bytes, and how far they moved."""
+    import dataclasses
+
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn.optim import adam_init, tree_leaves
+    from big_linear_algebra_tpu_torch.parallel import (batch_sharding,
+                                                       default_mesh)
+
+    cfg = dataclasses.replace(cu.TINY, param_dtype="bfloat16")
+    mesh = default_mesh()
+    p0 = cu.cast_params(cu.init_params(torch.Generator().manual_seed(0),
+                                       cfg), cfg)
+    p, opt = p0, adam_init(p0)
+    step = cu.make_train_step_dp(mesh, cfg)
+    gen = torch.Generator().manual_seed(5)
+    losses = []
+    for _ in range(n_steps):
+        p, opt, loss = step(p, opt, batch_sharding(mesh)(_t(x0)), gen)
+        losses.append(float(loss))
+    digest = hashlib.sha256()
+    for leaf in tree_leaves(p):
+        digest.update(leaf.contiguous().view(torch.int16).numpy().tobytes())
+    moved = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(tree_leaves(p), tree_leaves(p0)))
+    return {"hash": digest.hexdigest(), "moved": moved, "losses": losses,
+            "dtype": str(tree_leaves(p)[0].dtype)}
+
+
+# ---------------------------------------------------------------------------
+# ring attention
+# ---------------------------------------------------------------------------
+
+
+def ring(q, k, v, g):
+    """Ring attention over a ``seq`` axis of every rank, this rank's rows:
+    the output and the gradients of <o, g>."""
+    from big_linear_algebra_tpu_torch.parallel import (default_mesh,
+                                                       ring_attention)
+    from big_linear_algebra_tpu_torch.parallel.sharding import BatchShard
+
+    mesh = default_mesh("seq")
+    rows = BatchShard(mesh.index("seq"), mesh.size("seq"))
+    q, k, v = (rows(_t(a), dim=1).clone().requires_grad_()
+               for a in (q, k, v))
+    o = ring_attention(q, k, v, mesh, "seq")
+    o.backward(rows(_t(g), dim=1))
+    return {"o": _np(o), "dq": _np(q.grad), "dk": _np(k.grad),
+            "dv": _np(v.grad)}
