@@ -29,8 +29,18 @@ Verbs:
   (``make_train_step_dp``, the JAX package's shard_map DP step): each rank
   steps on its rows of every batch with its own draws, the gradients and
   the loss are averaged over the ranks, every rank applies the same Adam
-  update, and rank 0 alone prints and writes. ``--tp`` and the pipeline
-  flags wait for the U-Net TP and pipeline slice.
+  update, and rank 0 alone prints and writes.
+- ``train --tp``: tensor parallel over every rank of the launch
+  (``place_tp``, ``make_train_step_tp``): each sharded conv computes its
+  rank's output channels, which are gathered before the group norm; the
+  step is the single-device step, its draws included.
+- ``train --pp [--pp-micro=n] [--pp-schedule=gpipe|1f1b] [--dp]``: the
+  down, mid and up stages on three ranks (``make_train_step_pp``,
+  ``parallel/pipeline.py``), n microbatches a batch; with ``--dp`` at six
+  or more ranks a ``stage 3 × data n`` mesh.
+  Not ported: ``--layout=NHWC``, ``--remat``, ``--prng`` and the XLA
+  dispatch modes (``--scan-steps``, ``--scan-unroll``, ``--host-loop``);
+  ``main`` rejects each with its reason.
 Every draw (DDPM noise and timesteps, dropout masks, sampling noise, the
 stochastic-rounding seeds of ``--bf16-params``) comes from one
 ``torch.Generator`` on the model's device (Philox on a GPU); JAX's
@@ -92,7 +102,17 @@ from big_linear_algebra_tpu_torch.nn.optim import (
 )
 from big_linear_algebra_tpu_torch.ops.activations import relu
 from big_linear_algebra_tpu_torch.parallel import spmd
-from big_linear_algebra_tpu_torch.parallel.sharding import batch_sharding
+from big_linear_algebra_tpu_torch.parallel.pipeline import (
+    assemble_grads,
+    fold_generator,
+    gpipe_hetero,
+    gpipe_hetero_1f1b,
+    pipeline_plan,
+)
+from big_linear_algebra_tpu_torch.parallel.sharding import (
+    BatchShard,
+    batch_sharding,
+)
 
 Params = Dict[str, Any]
 
@@ -401,6 +421,44 @@ def _gn_relu(x: torch.Tensor, cfg: Config) -> torch.Tensor:
     return relu(group_norm(x, cfg.group_size))
 
 
+@dataclasses.dataclass(frozen=True)
+class _Shard:
+    """A weight of the TP forward (``forward(..., tp=...)``): this rank's
+    slice ``local`` along ``dim`` of a leaf of full ``shape``, whose slices
+    the ranks of ``mesh``'s ``axis`` hold in axis order."""
+    local: torch.Tensor
+    dim: int
+    shape: torch.Size
+    mesh: Any
+    axis: str
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """x, computed from this slice, gathered along ``dim`` over the
+        axis (backward: the cotangent summed over the axis, then sliced)."""
+        return spmd.all_gather(x, self.mesh, self.axis, dim)
+
+
+def _local(w):
+    return w.local if isinstance(w, _Shard) else w
+
+
+def _full(w):
+    """The whole weight: a sharded one gathered."""
+    return w.gather(w.local, w.dim) if isinstance(w, _Shard) else w
+
+
+def _conv(x: torch.Tensor, w, stride: int, add=None) -> torch.Tensor:
+    """``conv2d`` plus ``add[:, :, None, None]`` when given. A sharded
+    kernel computes this rank's output channels (and ``add`` is their
+    slice); the full activation is then gathered along the channels, so
+    everything after it sees whole activations (the column-parallel GEMM
+    GSPMD makes of JAX's conv)."""
+    y = conv2d(x, _local(w), stride)
+    if add is not None:
+        y = y + add[:, :, None, None]
+    return w.gather(y, 1) if isinstance(w, _Shard) else y
+
+
 def _resnet_block(x, temb, p, cfg: Config, generator, train: bool):
     """GN→ReLU→conv3×3 → +time → GN→ReLU→dropout→conv3×3 + residual
     (``_forward_resnet``, model/cifar_unet.c:1044-1072). In train mode the
@@ -408,8 +466,11 @@ def _resnet_block(x, temb, p, cfg: Config, generator, train: bool):
     package's key order (down 0–7, mid 8–9, up 10–17). With
     ``cfg.fused_block`` a block at H·W ≤ 64 that the gate admits is one
     fused block (the JAX package's dispatch), which draws its dropout seed
-    from ``generator`` in place of the mask."""
-    td = temb @ p["time_w"] + p["time_b"]                # (B, out)
+    from ``generator`` in place of the mask. Under TP the time dense
+    computes this rank's channels of ``td``, added to the conv's own
+    channels; a fused block gathers its kernels and ``td`` and runs whole
+    on every rank (GSPMD has no partitioning rule for a ``pallas_call``)."""
+    td = temb @ _local(p["time_w"]) + _local(p["time_b"])  # (B, out)
     in_ch, out_ch = x.shape[1], p["conv_1"].shape[0]
     if (cfg.fused_block and x.shape[2] * x.shape[3] <= 64
             and fused_block.supported(x.shape, in_ch, out_ch,
@@ -419,16 +480,17 @@ def _resnet_block(x, temb, p, cfg: Config, generator, train: bool):
         if train and cfg.dropout_rate > 0.0:
             seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                                  device=x.device, dtype=torch.int32)
-        w3 = p["conv_3"] if in_ch != out_ch else None
+        if isinstance(p["time_w"], _Shard):
+            td = p["time_w"].gather(td, 1)
+        w3 = _full(p["conv_3"]) if in_ch != out_ch else None
         return fused_block.fused_resnet_block(
-            x, td, p["conv_1"], p["conv_2"], w3, seed, cfg.group_size,
-            cfg.dropout_rate, train)
-    h = conv2d(_gn_relu(x, cfg), p["conv_1"], 1)
-    h = h + td[:, :, None, None]
+            x, td, _full(p["conv_1"]), _full(p["conv_2"]), w3, seed,
+            cfg.group_size, cfg.dropout_rate, train)
+    h = _conv(_gn_relu(x, cfg), p["conv_1"], 1, add=td)
     h = _gn_relu(h, cfg)
     h = dropout(h, cfg.dropout_rate, generator, deterministic=not train)
-    h = conv2d(h, p["conv_2"], 1)
-    return h + (x if in_ch == out_ch else conv2d(x, p["conv_3"], 1))
+    h = _conv(h, p["conv_2"], 1)
+    return h + (x if in_ch == out_ch else _conv(x, p["conv_3"], 1))
 
 
 def _upsample(x: torch.Tensor, stride: int) -> torch.Tensor:
@@ -447,17 +509,17 @@ def _down_stage(params, x, temb, cfg: Config, generator, train: bool):
 
     h = block(x, params["down_1"]["resnet_1"])
     skip_1 = block(h, params["down_1"]["resnet_2"])
-    h = conv2d(skip_1, params["down_1"]["conv"], s)
+    h = _conv(skip_1, params["down_1"]["conv"], s)
 
     h = block(h, params["down_2"]["resnet_1"])
     h = self_attention_block(h, params["down_2"]["attn_1"])
     h = block(h, params["down_2"]["resnet_2"])
     skip_2 = self_attention_block(h, params["down_2"]["attn_2"])
-    h = conv2d(skip_2, params["down_2"]["conv"], s)
+    h = _conv(skip_2, params["down_2"]["conv"], s)
 
     h = block(h, params["down_3"]["resnet_1"])
     skip_3 = block(h, params["down_3"]["resnet_2"])
-    h = conv2d(skip_3, params["down_3"]["conv"], s)
+    h = _conv(skip_3, params["down_3"]["conv"], s)
 
     h = block(h, params["down_4"]["resnet_1"])
     skip_4 = block(h, params["down_4"]["resnet_2"])
@@ -489,14 +551,14 @@ def _up_stage(params, h, skips, temb, cfg: Config, generator, train: bool):
     h = block(h, params["up_1"]["resnet_2"])
     h = _upsample(h, s)
     if d4 != d3:
-        h = conv2d(h, params["up_1"]["conv"], 1)
+        h = _conv(h, params["up_1"]["conv"], 1)
 
     h = torch.cat([h, skip_3], dim=1)
     h = block(h, params["up_2"]["resnet_1"])
     h = block(h, params["up_2"]["resnet_2"])
     h = _upsample(h, s)
     if d3 != d2:
-        h = conv2d(h, params["up_2"]["conv"], 1)
+        h = _conv(h, params["up_2"]["conv"], 1)
 
     h = torch.cat([h, skip_2], dim=1)
     h = block(h, params["up_3"]["resnet_1"])
@@ -505,27 +567,31 @@ def _up_stage(params, h, skips, temb, cfg: Config, generator, train: bool):
     h = self_attention_block(h, params["up_3"]["attn_2"])  # §7.2 fixed
     h = _upsample(h, s)
     if d2 != d1:
-        h = conv2d(h, params["up_3"]["conv"], 1)
+        h = _conv(h, params["up_3"]["conv"], 1)
 
     h = torch.cat([h, skip_1], dim=1)
     h = block(h, params["up_4"]["resnet_1"])
     h = block(h, params["up_4"]["resnet_2"])
 
     # Output (:1163-1165)
-    return conv2d(_gn_relu(h, cfg), params["output_conv"], 1)
+    return _conv(_gn_relu(h, cfg), params["output_conv"], 1)
 
 
 def forward(params: Params, x: torch.Tensor, t: torch.Tensor,
             cfg: Config = CONFIG, generator: Optional[torch.Generator] = None,
-            train: bool = False) -> torch.Tensor:
+            train: bool = False, tp=None) -> torch.Tensor:
     """Full U-Net forward (≈ ``forward``, model/cifar_unet.c:1099-1165).
     x: (B, 3, H, W) in [−1, 1]; t: (B,) timesteps. Params and x are cast to
     ``cfg.compute_dtype`` inside the autograd graph, so gradients arrive on
     the stored parameters in their own dtype (f32 masters under bf16
     compute); the output is in the compute dtype. ``train`` switches
-    dropout on, its masks drawn from ``generator``."""
+    dropout on, its masks drawn from ``generator``. ``tp``: a ``TPLayout``
+    when ``params`` are this rank's TP slices (``place_tp``); the sharded
+    convs then compute their own channels and gather them."""
     dt = getattr(torch, cfg.compute_dtype)
     params = tree_map(lambda p: p if p.dtype == dt else p.to(dt), params)
+    if tp is not None:
+        params = tp.mark(params)
     x = x.to(dt)
     temb = time_embedding(t, cfg).to(dt)
     skips = _down_stage(params, x, temb, cfg, generator, train)
@@ -568,14 +634,15 @@ def _noised(x0: torch.Tensor, t: torch.Tensor, noise: torch.Tensor,
 
 def loss_fn(params: Params, x0: torch.Tensor, t: torch.Tensor,
             noise: torch.Tensor, cfg: Config = CONFIG,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            tp=None) -> torch.Tensor:
     """DDPM simple loss ‖ε − ε̂(√ᾱ_t·x₀ + √(1−ᾱ_t)·ε, t)‖², as a mean (the
     reference's sum seed normalized like compute_mse_loss,
     model/cifar_unet.c:1858), in ≥ f32. The draws t and ε are arguments, so
     a test can feed the JAX package's; the train-mode forward's dropout
-    masks come from ``generator``."""
+    masks come from ``generator``; ``tp`` as in ``forward``."""
     pred = forward(params, _noised(x0, t, noise, cfg), t, cfg,
-                   generator=generator, train=True)
+                   generator=generator, train=True, tp=tp)
     acc = torch.promote_types(torch.float32, x0.dtype)
     return mse_loss(pred.to(acc), noise.to(acc)) / math.prod(x0.shape)
 
@@ -585,21 +652,28 @@ def _zero_if_none(grad, p):
 
 
 def _loss_and_grads(params: Params, x0: torch.Tensor,
-                    generator: torch.Generator, cfg: Config, draws):
+                    generator: torch.Generator, cfg: Config, draws,
+                    tp=None):
     """(loss, gradient tree) of the DDPM loss on x0, the draws (t, noise)
-    given or drawn from ``generator``, the dropout masks from it."""
+    given or drawn from ``generator``, the dropout masks from it. ``tp``:
+    the ``TPLayout`` of TP slices ``params``; every rank of the model axis
+    then holds the whole loss, and each ``all_gather``'s backward sums the
+    ranks' cotangents, so loss/n is differentiated: a sharded leaf's
+    gradient is then exact, and a replicated leaf's is summed over the
+    axis (each rank holds a share of it)."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
     t, noise = draws if draws is not None else _ddpm_draws(x0, generator,
                                                            cfg)
     with torch.enable_grad():
-        loss = loss_fn(leaves, x0, t, noise, cfg, generator)
+        loss = loss_fn(leaves, x0, t, noise, cfg, generator, tp)
         flat = tree_leaves(leaves)
-        grads = iter(torch.autograd.grad(loss, flat, allow_unused=True))
+        grads = iter(torch.autograd.grad(
+            loss if tp is None else loss / tp.n, flat, allow_unused=True))
     # leaves the forward does not use (conv_3 of a block whose channels do
     # not change, the channel-matching convs of equal dims) get zeros, as
     # jax.grad gives them
-    return loss.detach(), tree_map(lambda p: _zero_if_none(next(grads), p),
-                                   leaves)
+    grads = tree_map(lambda p: _zero_if_none(next(grads), p), leaves)
+    return loss.detach(), grads if tp is None else tp.sum_replicated(grads)
 
 
 def _sr_seed(generator: torch.Generator, cfg: Config):
@@ -612,10 +686,11 @@ def _sr_seed(generator: torch.Generator, cfg: Config):
 
 
 def _adam(params: Params, grads: Params, opt_state: AdamState, cfg: Config,
-          sr_seed):
+          sr_seed, sr_index=None):
     with torch.no_grad():
         return adam_update(tree_map(torch.Tensor.detach, params), grads,
-                           opt_state, cfg.learn_rate, sr_seed=sr_seed)
+                           opt_state, cfg.learn_rate, sr_seed=sr_seed,
+                           sr_index=sr_index)
 
 
 def train_step(params: Params, opt_state: AdamState, x0: torch.Tensor,
@@ -638,15 +713,16 @@ def train_step(params: Params, opt_state: AdamState, x0: torch.Tensor,
 # the gradients and the loss are averaged over the ranks.
 # ---------------------------------------------------------------------------
 
-_GOLDEN64 = 0x9E3779B97F4A7C15
-
-
 def rank_generator(step_seed: int, rank: int,
                    device: torch.device) -> torch.Generator:
     """The generator of one rank's draws in one DP step: the step's seed
     with the rank folded in (JAX's ``fold_in(key, axis_index)``)."""
-    seed = (step_seed ^ ((rank + 1) * _GOLDEN64)) & (2 ** 63 - 1)
-    return torch.Generator(device=device).manual_seed(seed)
+    return fold_generator(step_seed, rank, device)
+
+
+def _step_seed(generator: torch.Generator) -> int:
+    return int(torch.randint(0, 2 ** 62, (), generator=generator,
+                             device=generator.device))
 
 
 def make_train_step_dp(mesh, cfg: Config = CONFIG, axis: str = "data"):
@@ -670,14 +746,365 @@ def make_train_step_dp(mesh, cfg: Config = CONFIG, axis: str = "data"):
     def step(params: Params, opt_state: AdamState, x0: torch.Tensor,
              generator: torch.Generator, draws=None):
         sr_seed = _sr_seed(generator, cfg)
-        step_seed = int(torch.randint(0, 2 ** 62, (), generator=generator,
-                                      device=generator.device))
-        local = rank_generator(step_seed, mesh.index(axis), x0.device)
+        local = rank_generator(_step_seed(generator), mesh.index(axis),
+                               x0.device)
         loss, grads = _loss_and_grads(params, x0, local, cfg, draws)
         mean = spmd.pmean_tree({"grads": grads, "loss": loss}, mesh, axis)
         params, opt_state = _adam(params, mean["grads"], opt_state, cfg,
                                   sr_seed)
         return params, opt_state, mean["loss"]
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism (the JAX package's place_tp / place_dp_tp, GSPMD's
+# column-parallel convs written out per rank)
+# ---------------------------------------------------------------------------
+
+
+def tp_param_specs(params: Params, n_shards: int,
+                   model_axis: str = "model") -> Params:
+    """Which leaves shard over a model axis of ``n_shards`` ranks, by the
+    JAX package's rule (``tp_param_specs``): a conv kernel ``(O, I, kh,
+    kw)`` shards O, ``time_w`` ``(T, O)`` its dim 1, ``time_b`` its dim 0,
+    each when ``n_shards`` divides it; the attention projections ``q``,
+    ``k``, ``v``, ``w``, ``b`` and every other leaf replicate. Returns a
+    tree of the dim each leaf shards along, or None where it replicates
+    (JAX's ``P(model, ...)`` with the axis at that dim, or ``P()``).
+    ``model_axis`` is JAX's argument; the markers do not name it."""
+
+    def spec(name, leaf):
+        if name in ("q", "k", "v", "w", "b"):
+            return None
+        if leaf.ndim == 4 and leaf.shape[0] % n_shards == 0:
+            return 0
+        if name == "time_w" and leaf.shape[1] % n_shards == 0:
+            return 1
+        if name == "time_b" and leaf.shape[0] % n_shards == 0:
+            return 0
+        return None
+
+    def walk(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        return spec(name, tree)
+
+    return walk(params)
+
+
+class TPLayout:
+    """A tree's TP layout over ``mesh``'s ``axis``: ``specs`` (the dim each
+    leaf shards along, or None; ``tp_param_specs`` of the full tree)."""
+
+    def __init__(self, mesh, specs: Params, axis: str = "model"):
+        self.mesh, self.specs, self.axis = mesh, specs, axis
+        self.n, self.index = mesh.size(axis), mesh.index(axis)
+
+    def place(self, tree: Params) -> Params:
+        """This rank's slice of every sharded leaf of a full tree."""
+        shard = BatchShard(self.index, self.n)
+        return tree_map(lambda x, d: x if d is None
+                        else shard(x, dim=d).contiguous(), tree, self.specs)
+
+    def gather(self, tree: Params) -> Params:
+        """The full tree from the ranks' slices (collective)."""
+        return tree_map(lambda x, d: x if d is None else spmd.all_gather(
+            x, self.mesh, self.axis, d), tree, self.specs)
+
+    def mark(self, tree: Params) -> Params:
+        """The slices as ``_Shard`` weights for the TP forward."""
+        def shard(x, d):
+            if d is None:
+                return x
+            shape = list(x.shape)
+            shape[d] *= self.n
+            return _Shard(x, d, torch.Size(shape), self.mesh, self.axis)
+        return tree_map(shard, tree, self.specs)
+
+    def sum_replicated(self, grads: Params) -> Params:
+        """``grads`` with every replicated leaf summed over the axis."""
+        flat, specs = tree_leaves(grads), tree_leaves(self.specs)
+        rep = {str(i): g for i, (g, d) in enumerate(zip(flat, specs))
+               if d is None}
+        summed = spmd.psum_tree(rep, self.mesh, self.axis)
+        it = iter(range(len(flat)))
+        return tree_map(lambda g: summed.get(str(next(it)), g), grads)
+
+    def sr_index(self, tree: Params) -> Params:
+        """Each sharded leaf's element indices in its full leaf (so that
+        ``--bf16-params`` rounds a slice as the whole leaf would); None
+        for replicated leaves."""
+        def index(x, d):
+            if d is None:
+                return None
+            shape = list(x.shape)
+            shape[d] *= self.n
+            full = torch.arange(math.prod(shape), dtype=torch.int64,
+                                device=x.device).reshape(shape)
+            return full.narrow(d, self.index * x.shape[d], x.shape[d])
+        return tree_map(index, tree, self.specs)
+
+
+def place_tp(mesh, params: Params, opt_state: Optional[AdamState] = None,
+             model_axis: str = "model"):
+    """This rank's TP slices of ``params`` (and of the Adam moments, which
+    shard alike) on ``mesh``'s ``model_axis``: the JAX package's
+    ``place_tp``, where the sharding is a layout and GSPMD partitions the
+    step; here each rank keeps its slices and ``make_train_step_tp`` runs
+    the partitioned step. ``gather_tp`` is the inverse."""
+    layout = TPLayout(mesh, tp_param_specs(params, mesh.size(model_axis)),
+                      model_axis)
+    params = layout.place(params)
+    if opt_state is None:
+        return params
+    return params, AdamState(step=opt_state.step, m=layout.place(opt_state.m),
+                             v=layout.place(opt_state.v))
+
+
+def gather_tp(layout: TPLayout, params: Params,
+              opt_state: Optional[AdamState] = None):
+    """The full tree (and Adam state) from the ranks' TP slices, on every
+    rank of the model axis: what the train state and the CSV tree hold."""
+    params = layout.gather(params)
+    if opt_state is None:
+        return params
+    return params, AdamState(step=opt_state.step,
+                             m=layout.gather(opt_state.m),
+                             v=layout.gather(opt_state.v))
+
+
+def place_dp_tp(mesh, params: Params, opt_state: Optional[AdamState] = None,
+                model_axis: str = "model"):
+    """The DP×TP layout on a 2-D ``data × model`` mesh: ``place_tp`` over
+    ``model_axis``, replicated over the data axis; each batch is cut with
+    ``dp_tp_batch_sharding``."""
+    return place_tp(mesh, params, opt_state, model_axis=model_axis)
+
+
+def dp_tp_batch_sharding(mesh, data_axis: str = "data") -> BatchShard:
+    return batch_sharding(mesh, data_axis)
+
+
+def make_train_step_tp(mesh, specs: Params, cfg: Config = CONFIG,
+                       model_axis: str = "model",
+                       data_axis: Optional[str] = None):
+    """The TP train step on ``mesh``'s ``model_axis`` (params and Adam
+    state from ``place_tp``, ``specs`` = ``tp_param_specs`` of the full
+    tree): the TP forward and its backward (``_loss_and_grads``), then Adam
+    on each rank's slices; a ``--bf16-params`` slice rounds with its full
+    leaf's bits.
+
+    Without ``data_axis`` every rank takes the whole batch and draws from
+    ``generator`` exactly as ``train_step`` does (t, noise, the masks, then
+    the rounding seed): every rank of the line draws alike, and the step is
+    the single-device step, as JAX's GSPMD step is. With ``data_axis``
+    (DP×TP) x0 is this rank's data shard and ``generator`` the replicated
+    host stream, as in ``make_train_step_dp``: the rounding seed, then a
+    step seed with the **data** index folded in (never the global rank, so
+    that the ranks of one model line draw alike); the gradients and the
+    loss are then averaged over ``data_axis``. ``draws``: this rank's (t,
+    noise). Returns (params, opt_state, loss)."""
+    layout = TPLayout(mesh, specs, model_axis)
+
+    def step(params: Params, opt_state: AdamState, x0: torch.Tensor,
+             generator: torch.Generator, draws=None):
+        if data_axis is None:
+            loss, grads = _loss_and_grads(params, x0, generator, cfg, draws,
+                                          layout)
+            sr_seed = _sr_seed(generator, cfg)
+        else:
+            sr_seed = _sr_seed(generator, cfg)
+            local = rank_generator(_step_seed(generator),
+                                   mesh.index(data_axis), x0.device)
+            loss, grads = _loss_and_grads(params, x0, local, cfg, draws,
+                                          layout)
+            mean = spmd.pmean_tree({"grads": grads, "loss": loss}, mesh,
+                                   data_axis)
+            grads, loss = mean["grads"], mean["loss"]
+        index = layout.sr_index(params) if sr_seed is not None else None
+        params, opt_state = _adam(params, grads, opt_state, cfg, sr_seed,
+                                  index)
+        return params, opt_state, loss
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism: the U-Net's down/mid/up stages (the JAX package's
+# unet_pipeline_stages and make_train_step_pp)
+# ---------------------------------------------------------------------------
+
+
+def split_params_stages(params: Params) -> list:
+    """The parameter dict's three pipeline stages' subtrees (down / mid /
+    up and the output head)."""
+    down = {k: params[k] for k in ("down_1", "down_2", "down_3", "down_4")}
+    mid = {"mid": params["mid"]}
+    up = {k: params[k]
+          for k in ("up_1", "up_2", "up_3", "up_4", "output_conv")}
+    return [down, mid, up]
+
+
+def unet_pipeline_stages(cfg: Config = CONFIG, train: bool = False) -> list:
+    """The U-Net as three stages for ``gpipe_hetero`` (the same
+    ``_down_stage``/``_mid_stage``/``_up_stage`` ``forward`` runs).
+    Boundary 0 is ``(x, t as a float)``; the skips and the time embedding
+    travel in the boundaries. ``train=False``: ``(p, boundary)``, dropout
+    off. ``train=True``: ``(p, boundary, generator)``, the masks from the
+    per-(stage, microbatch) generator ``gpipe_hetero(key=...)`` makes. A
+    mismatch raises, as in JAX: stages that silently ignored a generator
+    would run deterministic where the caller believes dropout is on."""
+    dt = getattr(torch, cfg.compute_dtype)
+
+    def _check(generator):
+        if train and generator is None:
+            raise ValueError(
+                "train=True pipeline stages need gpipe_hetero(..., key=...)")
+        if not train and generator is not None:
+            raise ValueError(
+                "inference stages got a key; build unet_pipeline_stages("
+                "cfg, train=True) for training-mode dropout")
+
+    def _cast(p):
+        return tree_map(lambda a: a if a.dtype == dt else a.to(dt), p)
+
+    def stage_down(p, boundary, generator=None):
+        _check(generator)
+        x, t = boundary
+        temb = time_embedding(t, cfg).to(dt)
+        skips = _down_stage(_cast(p), x.to(dt), temb, cfg, generator, train)
+        return skips + (temb,)
+
+    def stage_mid(p, boundary, generator=None):
+        _check(generator)
+        s1, s2, s3, s4, temb = boundary
+        h = _mid_stage(_cast(p), s4, temb, cfg, generator, train)
+        return h, (s1, s2, s3, s4), temb
+
+    def stage_up(p, boundary, generator=None):
+        _check(generator)
+        h, skips, temb = boundary
+        return _up_stage(_cast(p), h, skips, temb, cfg, generator, train)
+
+    return [stage_down, stage_mid, stage_up]
+
+
+def pp_draws(x0: torch.Tensor, generator: torch.Generator, cfg: Config):
+    """(rounding seed, step seed, t, noise) of one PP step from the
+    replicated host ``generator``: the ``--bf16-params`` rounding seed
+    first, then a step seed; t and noise come from a device generator of
+    the step seed (the same on every rank), the dropout masks from its
+    folds (``gpipe_hetero``'s key)."""
+    sr_seed = _sr_seed(generator, cfg)
+    seed = _step_seed(generator)
+    t, noise = _ddpm_draws(
+        x0, torch.Generator(device=x0.device).manual_seed(seed), cfg)
+    return sr_seed, seed, t, noise
+
+
+def make_pp_loss_and_grads(mesh, cfg: Config = CONFIG, axis: str = "stage",
+                           n_micro: int = 4, data_axis: Optional[str] = None,
+                           schedule: str = "gpipe"):
+    """The pipeline's loss and gradient: ``fn(params, x0, t, noise, seed)
+    -> (loss, grads)``, the MSE over the global batch's normalizer in ≥ f32
+    (``loss_fn``'s), through ``gpipe_hetero`` and autograd (``"gpipe"``) or
+    ``gpipe_hetero_1f1b`` with the analytic seed 2(pred − target)/N
+    (``"1f1b"``), the dropout masks from the folds of ``seed``; the loss and
+    the full gradient tree on every rank (``assemble_grads``)."""
+    fns = unet_pipeline_stages(cfg, train=True)
+    if data_axis is not None and n_micro % mesh.size(data_axis):
+        raise ValueError(
+            f"n_micro={n_micro} not divisible by data axis "
+            f"{data_axis!r} of size {mesh.size(data_axis)}")
+    if schedule not in ("gpipe", "1f1b"):
+        raise ValueError(f"schedule must be gpipe or 1f1b, got {schedule!r}")
+    s = mesh.index(axis)
+    n_data = 1 if data_axis is None else mesh.size(data_axis)
+    base = 0 if data_axis is None else mesh.index(data_axis) * (
+        n_micro // n_data)
+    plan = None  # the boundaries' shapes, made at the first call
+
+    def loss_and_grads(params: Params, x0: torch.Tensor, t: torch.Tensor,
+                       noise: torch.Tensor, seed: int):
+        nonlocal plan
+        b = x0.shape[0]
+        if b % n_micro:
+            raise ValueError(
+                f"batch {b} not divisible by n_micro={n_micro}")
+        mb, shape = b // n_micro, tuple(x0.shape[1:])
+        xs = _noised(x0, t, noise, cfg).reshape(n_micro, mb, *shape)
+        ts = t.reshape(n_micro, mb).to(x0.dtype)
+        noise_m = noise.reshape(n_micro, mb, *shape)
+        acc = torch.promote_types(torch.float32, x0.dtype)
+        n_total = math.prod(x0.shape)
+        stages = split_params_stages(params)
+        if plan is None or not plan.fits(fns, stages, (xs, ts), seed):
+            plan = pipeline_plan(fns, stages, (xs, ts), seed)
+        if schedule == "1f1b":
+            def seed_fn(pred, target):
+                d = pred.to(acc) - target.to(acc)
+                return torch.sum(d * d) / n_total, 2.0 * d / n_total
+
+            loss, stage_grads = gpipe_hetero_1f1b(
+                fns, stages, (xs, ts), noise_m, seed_fn, mesh, axis,
+                key=seed, data_axis=data_axis, plan=plan)
+        else:
+            leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+            stages = split_params_stages(leaves)
+            with torch.enable_grad():
+                pred = gpipe_hetero(fns, stages, (xs, ts), mesh, axis,
+                                    key=seed, data_axis=data_axis, plan=plan)
+                target = noise_m[base:base + pred.shape[0]]
+                loss = mse_loss(pred.to(acc), target.to(acc)) / n_total
+                grads = iter(torch.autograd.grad(
+                    loss, tree_leaves(stages[s]), allow_unused=True))
+            loss = loss.detach()
+            if data_axis is not None:
+                loss = spmd.psum(loss, mesh, data_axis)
+            stage_grads = assemble_grads(
+                tree_map(lambda _: next(grads), stages[s]), stages, mesh,
+                axis, data_axis)
+        grads = {}
+        for tree in stage_grads:  # disjoint stage subtrees
+            grads.update(tree)
+        return loss, {k: grads[k] for k in params}
+
+    return loss_and_grads
+
+
+def make_train_step_pp(mesh, cfg: Config = CONFIG, axis: str = "stage",
+                       n_micro: int = 4, data_axis: Optional[str] = None,
+                       schedule: str = "gpipe"):
+    """The pipeline train step on ``mesh``'s ``axis`` of three ranks (down,
+    mid, up): the batch in ``n_micro`` microbatches through the pipeline
+    (``make_pp_loss_and_grads``: GPipe by autograd, or 1F1B), then Adam.
+
+    Every rank holds the whole parameter tree and Adam state and runs its
+    stage's subtree; after the backward each rank's stage gradients are
+    assembled into the full gradient tree (``assemble_grads``: summed over
+    ``data_axis``, then over ``axis`` from zero-padded trees), and every
+    rank applies the same Adam update, so the replicas stay bit-equal and
+    rank 0 writes. With ``data_axis`` (PP×DP, a ``stage × data`` mesh) each
+    data coordinate runs its own ring over ``n_micro / n_data``
+    microbatches, the dropout folds on global microbatch indices, so the
+    step is the 1-D pipeline's at the same global batch.
+
+    ``step(params, opt_state, x0, generator, draws=None)``: x0 the whole
+    batch on every rank, ``generator`` the replicated host stream
+    (``pp_draws``); ``draws``: (t, noise) instead. Returns (params,
+    opt_state, loss)."""
+    loss_and_grads = make_pp_loss_and_grads(mesh, cfg, axis, n_micro,
+                                            data_axis, schedule)
+
+    def step(params: Params, opt_state: AdamState, x0: torch.Tensor,
+             generator: torch.Generator, draws=None):
+        sr_seed, seed, t, noise = pp_draws(x0, generator, cfg)
+        if draws is not None:
+            t, noise = draws
+        loss, grads = loss_and_grads(params, x0, t, noise, seed)
+        params, opt_state = _adam(params, grads, opt_state, cfg, sr_seed)
+        return params, opt_state, loss
 
     return step
 
@@ -863,31 +1290,44 @@ def init(flags=None) -> None:
     print(f"initialized parameters in {ckpt_dir()}")
 
 
+# The draw chains a train state's generator can belong to, and how to
+# resume each: "device" (one device, and --tp, whose step is the
+# single-device step), "dp" (--dp) and "pp" (--pp, and --pp --dp, whose
+# step is the 1-D pipeline's at the same global batch).
+_CHAINS = {
+    "device": "a run without --dp or --pp (one device, or --tp), whose draws "
+              "come from the device's generator; resume it without --dp and "
+              "--pp",
+    "dp": "a --dp run, whose draws come from a replicated host generator "
+          "with each rank's index folded in; resume it with --dp on two or "
+          "more ranks (any count)",
+    "pp": "a --pp run, whose draws come from a replicated host generator "
+          "with each stage and microbatch folded in; resume it with --pp on "
+          "three or more ranks (with or without --dp)",
+}
+
+
 def _train_state(params, opt_state: AdamState, generator, epoch: int,
-                 cfg: Config, device: torch.device, dp: bool) -> dict:
+                 cfg: Config, device: torch.device, chain: str) -> dict:
     return {"params": params,
             "opt": {"step": opt_state.step, "m": opt_state.m,
                     "v": opt_state.v},
             "rng": generator.get_state(), "device": device.type,
-            "dp": dp, "epoch": epoch, "param_dtype": cfg.param_dtype}
+            "chain": chain, "epoch": epoch, "param_dtype": cfg.param_dtype}
 
 
 def _resume(state: dict, generator, cfg: Config, device: torch.device,
-            dp: bool):
-    """(params, opt_state, epoch) from a saved train state, cast to this
-    run's parameter dtype (a state written under the other ``--bf16-params``
-    setting resumes into this one); the generator continues its stream. A
-    ``--dp`` state holds the replicated host stream, whatever the rank
-    count: a run with another count of ranks continues it, each rank
-    folding its own index into every step's seed."""
-    if state.get("dp", False) != dp:
-        raise ValueError(
-            "the train state was written by a --dp run, whose draws come "
-            "from a replicated host generator with each rank's index folded "
-            "in; resume it with --dp on two or more ranks (any count)"
-            if not dp else
-            "the train state was written by a run without --dp, whose draws "
-            "come from the device's generator; resume it without --dp")
+            chain: str):
+    """(params, opt_state, epoch) from a saved train state (the full tree),
+    cast to this run's parameter dtype (a state written under the other
+    ``--bf16-params`` setting resumes into this one); the generator
+    continues its stream. The state records its draw chain (``_CHAINS``;
+    states from before the pipeline record ``dp``), and resuming it into
+    another chain is refused. A ``--dp`` or ``--pp`` state holds the
+    replicated host stream, whatever the rank count."""
+    written = state.get("chain") or ("dp" if state.get("dp") else "device")
+    if written != chain:
+        raise ValueError(f"the train state was written by {_CHAINS[written]}")
     if state["device"] != device.type:
         raise ValueError(
             f"the train state was written by a run on {state['device']}; "
@@ -910,8 +1350,97 @@ def _resume(state: dict, generator, cfg: Config, device: torch.device,
 _RESIDENT_BYTES = 2 << 30
 
 
+def _pp_flags(flags, cfg: Config):
+    """(n_micro, schedule) of ``--pp``, with the JAX package's checks and
+    messages; ``--pp-micro`` and ``--pp-schedule`` without ``--pp`` are
+    rejected (the JAX package ignores them there)."""
+    if not common.presence_flag(flags, "pp"):
+        for f in ("pp-micro", "pp-schedule"):
+            if f in flags:
+                raise SystemExit(f"--{f} applies to --pp (the JAX package "
+                                 f"ignores it without --pp)")
+        return None
+    if common.presence_flag(flags, "tp"):
+        raise SystemExit("--pp cannot be combined with --tp on this CLI "
+                         "(use --pp --dp for the 2-D composition)")
+    n_micro = (common.positive_int_flag(flags, "pp-micro")
+               if "pp-micro" in flags else 4)
+    if cfg.batch_size % n_micro:
+        raise SystemExit(
+            f"--pp: batch size {cfg.batch_size} is not divisible by "
+            f"--pp-micro={n_micro} microbatches")
+    schedule = str(flags.get("pp-schedule") or "gpipe")
+    if schedule not in ("gpipe", "1f1b"):
+        raise SystemExit(
+            f"--pp-schedule must be gpipe or 1f1b, got {schedule!r}")
+    return n_micro, schedule
+
+
+def _parallel_mode(flags, cfg: Config):
+    """(kind, mesh, step) of the launch: "dp", "tp", "pp", or "single"
+    (one device, or too few ranks: the JAX package's "running unsharded"),
+    with the JAX CLI's rules and lines. The ranks are those of the launch
+    (``common.launch_world``); ``--tp``'s model axis is every rank, ``--pp``
+    takes the first 3 (3·n with ``--dp`` at 6 or more ranks). A rank
+    outside the pipeline's mesh gets kind "idle"."""
+    from big_linear_algebra_tpu_torch.parallel import make_mesh
+
+    pp = _pp_flags(flags, cfg)
+    mesh = None if pp else common.dp_mesh(flags, cfg.batch_size)
+    if mesh is not None:
+        if common.presence_flag(flags, "tp"):
+            raise SystemExit("--tp cannot be combined with --dp on this CLI "
+                             "(use the DP×TP API on a 2-D data×model mesh)")
+        return "dp", mesh, make_train_step_dp(mesh, cfg)
+    if common.presence_flag(flags, "tp"):
+        n = common.launch_world(flags)
+        if n <= 1:
+            print("--tp: single device, running unsharded")
+            return "single", None, None
+        mesh = make_mesh({"model": n})
+        if common.is_rank0():
+            print(f"--tp: conv kernels channel-sharded over {n} devices")
+        return "tp", mesh, None
+    if pp is None:
+        return "single", None, None
+    n_micro, schedule = pp
+    n = common.launch_world(flags)
+    say = print if common.is_rank0() else (lambda *a: None)
+    if common.presence_flag(flags, "dp") and n >= 6:
+        n_data = n // 3
+        if n_micro % n_data:
+            raise SystemExit(
+                f"--pp --dp: --pp-micro={n_micro} microbatches are not "
+                f"divisible by the {n_data} data shards (3 stages × "
+                f"{n_data} data on {n} devices)")
+        mesh = make_mesh({"stage": 3, "data": n_data},
+                         devices=range(3 * n_data))
+        say(f"--pp --dp: 3-stage pipeline × {n_data} data shards, "
+            f"{n_micro} global microbatches, {schedule} schedule")
+        data_axis = "data"
+    else:
+        if "dp" in flags:
+            say(f"--pp --dp needs >= 6 devices (3 stages × >=2 data "
+                f"shards), have {n}; running pure --pp")
+        if n < 3:
+            say("--pp: fewer than 3 devices, running unsharded")
+            return "single", None, None
+        mesh = make_mesh({"stage": 3}, devices=range(3))
+        say(f"--pp: 3-stage pipeline (down/mid/up), {n_micro} "
+            f"microbatches, {schedule} schedule")
+        data_axis = None
+    if mesh.coords is None:
+        return "idle", mesh, None
+    return "pp", mesh, make_train_step_pp(mesh, cfg, n_micro=n_micro,
+                                          data_axis=data_axis,
+                                          schedule=schedule)
+
+
 def train(num_epochs: int, *args, flags=None) -> int:
-    """Train for ``num_epochs`` epochs, resuming the newest train state."""
+    """Train for ``num_epochs`` epochs, resuming the newest train state.
+    Under ``--tp`` each rank holds its slices and the train state and the
+    CSV tree are written from the gathered tree; under ``--pp`` every rank
+    holds the whole tree. Rank 0 alone prints and writes."""
     flags = flags or {}
     cfg = _cfg_from_flags(flags)
     device = common.device_flag(flags)
@@ -919,9 +1448,8 @@ def train(num_epochs: int, *args, flags=None) -> int:
     max_steps = common.int_flag(flags, "max-steps", default=0, minimum=1)
     keep = common.int_flag(flags, "keep", default=3, minimum=0) or None
     best = common.presence_flag(flags, "keep-best")
-    mesh = common.dp_mesh(flags, cfg.batch_size)
-    dp = mesh is not None
-    if dp:
+    kind, mesh, step = _parallel_mode(flags, cfg)
+    if mesh is not None:
         device = mesh.device
     rank0 = common.is_rank0()
     data = Cifar10Batches(common.rank0_first(
@@ -930,16 +1458,19 @@ def train(num_epochs: int, *args, flags=None) -> int:
         raise SystemExit(
             f"batch size {cfg.batch_size} exceeds the dataset "
             f"({data.num_examples} examples): no full batch to train on")
-    # --dp: the replicated stream is a host generator (make_train_step_dp)
-    generator = torch.Generator(device="cpu" if dp else device).manual_seed(
-        cfg.seed)
+    if kind == "idle":  # a rank the pipeline's mesh leaves out: it leaves
+        return 0
+    chain = {"dp": "dp", "pp": "pp"}.get(kind, "device")
+    # --dp and --pp: the replicated stream is a host generator
+    generator = torch.Generator(
+        device="cpu" if chain != "device" else device).manual_seed(cfg.seed)
     step0 = ckpt_pytree.latest_step(state_dir())
     csv_file = ckpt_dir() / "output_conv.csv"
     epoch0 = 0
     if step0 is not None:
         params, opt_state, epoch0 = _resume(
             ckpt_pytree.restore_pytree(state_dir(), step0, device), generator,
-            cfg, device, dp)
+            cfg, device, chain)
         if rank0:
             print(f"resumed train state at step {opt_state.step} "
                   f"(epoch {epoch0})")
@@ -954,6 +1485,16 @@ def train(num_epochs: int, *args, flags=None) -> int:
                                  cfg)
         params = tree_map(lambda a: a.to(device), params)
         opt_state = adam_init(params)
+    layout = None
+    if kind == "tp":
+        layout = TPLayout(mesh, tp_param_specs(params, mesh.size("model")))
+        params, opt_state = place_tp(mesh, params, opt_state)
+        step = make_train_step_tp(mesh, layout.specs, cfg)
+
+    def full_state():
+        return ((params, opt_state) if layout is None
+                else gather_tp(layout, params, opt_state))
+
     # rank 0 alone writes the train states and the CSV tree, and logs
     manager = ckpt_pytree.TrainCheckpointer(
         state_dir(), max_to_keep=keep,
@@ -961,10 +1502,9 @@ def train(num_epochs: int, *args, flags=None) -> int:
     logger = common.MetricsLogger(flags.get("jsonl") or None, enabled=rank0)
     rng = np.random.default_rng([cfg.seed, epoch0])
     b, n_ex = cfg.batch_size, data.num_examples
-    step = (make_train_step_dp(mesh, cfg) if dp
-            else functools.partial(train_step, cfg=cfg))
-    # each rank's rows of every batch (all of them without --dp)
-    lo, hi = batch_sharding(mesh).bounds(b) if dp else (0, b)
+    step = step or functools.partial(train_step, cfg=cfg)
+    # each rank's rows of every batch (all of them outside --dp)
+    lo, hi = batch_sharding(mesh).bounds(b) if kind == "dp" else (0, b)
     # The JAX package's 2 GiB rule, applied to the copy the port keeps on
     # the device: the 32x32 records in f32 (each batch is upscaled after
     # it is drawn). A larger set streams through pinned host memory two
@@ -993,14 +1533,16 @@ def train(num_epochs: int, *args, flags=None) -> int:
         avg = float(losses.mean())
         logger.log(epoch=epoch, avg_loss=avg, epoch_seconds=dt,
                    images_per_sec=losses.size * b / dt, step=opt_state.step)
+        state = full_state()
         if rank0:
             manager.save(opt_state.step,
-                         _train_state(params, opt_state, generator,
-                                      epoch + 1, cfg, device, dp),
+                         _train_state(*state, generator, epoch + 1, cfg,
+                                      device, chain),
                          metrics={"loss": avg})
+    final = full_state()  # under --tp a collective: every rank gathers
     if rank0:
-        save_params_csv(params, cfg)
-    common.dp_done(mesh)
+        save_params_csv(final[0], cfg)
+    common.launch_done(mesh)
     logger.close()
     return 0
 
@@ -1034,21 +1576,21 @@ def main(argv=None) -> int:
         run_usage="run [<num samples> (default 1)]",
         extra_flags=("tiny", "image-size", "sample-seed", "bf16-params",
                      "layout", "batch", "max-steps", "keep", "keep-best",
-                     "jsonl", "fused-block", "dp"),
+                     "jsonl", "fused-block", "dp", "tp", "pp", "pp-micro",
+                     "pp-schedule"),
         unsupported_flags={
             "layout=NHWC": "the channels-last twins are not ported yet "
-                           "(ROADMAP: one code path on torch.channels_last)",
+                           "(ROADMAP Queue 1: one code path on "
+                           "torch.channels_last)",
             "prng": "the port draws from torch.Generator (Philox on the "
                     "GPU); rbg/threefry are JAX's generators",
             "remat": "torch.utils.checkpoint restores only the global RNG "
                      "states, not the explicit torch.Generator the dropout "
                      "masks come from, so recomputed masks would differ "
                      "from the forward's; it waits for a port that "
-                     "handles that",
+                     "handles that (ROADMAP Queue 1)",
             **{f: common.XLA_DISPATCH_MODE
                for f in ("scan-steps", "scan-unroll", "host-loop")},
-            **{f: common.PARALLEL_NOT_PORTED
-               for f in ("tp", "pp", "pp-micro", "pp-schedule")},
         })
 
 

@@ -109,12 +109,8 @@ def parse_flags(argv: List[str]):
 # a model ignores is worse than rejecting it.
 BASE_FLAGS = frozenset({"profile", "device", "debug-nans", "disable-jit"})
 
-# Reasons the model CLIs give for the flags of the JAX package's parallel
-# modes and XLA dispatch modes.
-PARALLEL_NOT_PORTED = ("the U-Net's tensor parallelism and the pipeline "
-                       "modes are not ported yet (ROADMAP Queue 1, the "
-                       "parallel-modes item: the U-Net TP and pipeline "
-                       "slice)")
+# The reason the model CLIs give for the flags of the JAX package's XLA
+# dispatch modes.
 XLA_DISPATCH_MODE = ("an XLA dispatch mode; the port runs one eager step per "
                      "batch (a CUDA graph over a step is later work)")
 # The JAX package accepts --jsonl on every program and ignores it where no
@@ -183,21 +179,45 @@ def presence_flag(flags, name: str) -> bool:
     return True
 
 
+def launch_world(flags) -> int:
+    """The ranks of the launch, the parallel modes' counterpart of the JAX
+    package's "all local devices": under a launcher (``torchrun``, or the
+    ranks ``run_cli`` spawns, one per visible card) the rank joins the
+    process group on its own device (``--device``); 1 without one."""
+    from big_linear_algebra_tpu_torch.parallel import mesh as pmesh
+
+    pmesh.distributed_init(device=(flags or {}).get("device") or "cuda")
+    return pmesh.world_size()
+
+
+def launch_done(mesh=None) -> None:
+    """The end of a verb in a launch: every rank of ``mesh`` (default: every
+    rank of the launch) waits until rank 0 has written (a verb run next in
+    the same group reads what it wrote). A rank the mesh leaves out returns
+    at once: it took no part in the run, and a barrier it joined would
+    wait out the whole run, past the process group's timeout."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return
+    if mesh is None:
+        dist.barrier()
+    elif mesh.coords is not None:
+        dist.barrier(group=mesh.whole)
+
+
 def dp_mesh(flags, batch_size: Optional[int] = None):
-    """``--dp``'s contract, the JAX package's "all local devices": under a
-    launcher (``torchrun``, or the ranks ``run_cli`` spawns, one per visible
-    card) the rank joins the process group and gets the mesh of every rank
-    on a ``data`` axis, on its own device; with one rank it prints the JAX
-    package's ``--dp: single device, running unsharded`` and returns None
-    (the normal path runs). A ``batch_size`` that does not divide over the
-    ranks raises. None without ``--dp``."""
+    """``--dp``'s contract: under a launcher (``launch_world``) the mesh of
+    every rank on a ``data`` axis, on this rank's device; with one rank it
+    prints the JAX package's ``--dp: single device, running unsharded`` and
+    returns None (the normal path runs). A ``batch_size`` that does not
+    divide over the ranks raises. None without ``--dp``."""
     flags = flags or {}
     if not presence_flag(flags, "dp"):
         return None
     from big_linear_algebra_tpu_torch.parallel import mesh as pmesh
 
-    pmesh.distributed_init(device=flags.get("device") or "cuda")
-    if pmesh.world_size() <= 1:
+    if launch_world(flags) <= 1:
         print("--dp: single device, running unsharded")
         return None
     mesh = pmesh.default_mesh()
@@ -231,24 +251,29 @@ def rank0_first(fn: Callable[[], Any]) -> Any:
     return fn()
 
 
-def dp_done(mesh) -> None:
-    """The end of a ``--dp`` verb: every rank waits until rank 0 has written
-    (a verb run next in the same group reads what it wrote)."""
-    if mesh is not None:
-        import torch.distributed as dist
-
-        dist.barrier()
+# The flags of the parallel modes, which apply to train only.
+_PARALLEL_FLAGS = {"dp": "data parallelism", "tp": "tensor parallelism",
+                   "pp": "pipeline parallelism",
+                   "pp-micro": "pipeline parallelism",
+                   "pp-schedule": "pipeline parallelism"}
 
 
-def _dp_ranks_to_spawn(flags) -> int:
-    """Ranks ``--dp`` spawns when launched plainly: one per visible card on
-    a node with several. None under a launcher, on the CPU or on one
-    card."""
+def _ranks_to_spawn(flags) -> int:
+    """Ranks a parallel mode spawns when launched plainly on a node with
+    several cards, one per card its mesh uses: every visible card for
+    ``--dp`` and ``--tp``; 3 for ``--pp``, or 3·⌊n/3⌋ for ``--pp --dp`` on
+    n ≥ 6, so that no rank is left out of the mesh. None under a launcher,
+    on the CPU, on one card, or for ``--pp`` on two (the one process then
+    runs unsharded)."""
     if any(v in os.environ for v in ("RANK", "WORLD_SIZE", "MASTER_ADDR")):
         return 0
     if (flags.get("device") or "cuda") != "cuda":
         return 0
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if "pp" in flags:
+        if n < 3:
+            return 0
+        return 3 * (n // 3) if "dp" in flags and n >= 6 else 3
     return n if n > 1 else 0
 
 
@@ -318,12 +343,13 @@ def run_cli(prog: str,
                   + " ".join(f"--{f}" for f in sorted(allowed)))
             return 1
     verb = pos[0]
-    if "dp" in flags and not verb.startswith("train"):
-        # the JAX package ignores --dp outside train; the port rejects a
-        # flag it would ignore
-        print(f"--dp is not supported by {prog} {verb}: data parallelism "
-              f"applies to train")
-        return 1
+    for f, what in _PARALLEL_FLAGS.items():
+        if f in flags and not verb.startswith("train"):
+            # the JAX package ignores these outside train; the port rejects
+            # a flag it would ignore
+            print(f"--{f} is not supported by {prog} {verb}: {what} "
+                  f"applies to train")
+            return 1
     try:
         if verb.startswith("run"):
             n = int(pos[1]) if len(pos) > 1 else -1
@@ -335,8 +361,9 @@ def run_cli(prog: str,
             if len(pos) < 2:
                 print(f"Please supply a number of epochs, usage:\n\t{train_usage}\n")
                 return 1
-            n_ranks = _dp_ranks_to_spawn(flags) if "dp" in flags else 0
-            if n_ranks:  # --dp on a node with several cards: one rank each
+            n_ranks = (_ranks_to_spawn(flags)
+                       if {"dp", "tp", "pp"} & set(flags) else 0)
+            if n_ranks:  # a parallel mode on a node with several cards
                 from big_linear_algebra_tpu_torch.parallel.mesh import (
                     spawn_ranks)
 

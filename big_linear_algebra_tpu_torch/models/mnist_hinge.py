@@ -203,7 +203,7 @@ def train(iterations: int, learn_rate: str = None, *args, flags=None):
     if rank0:
         save_weights(w)
         print("Finished training")
-    common.dp_done(mesh)
+    common.launch_done()
 
 
 def run(num: int = -1, log_update_every: int = 1, flags=None):

@@ -529,7 +529,7 @@ def train(num_epochs: int, *args, flags=None, cfg: Config = CONFIG) -> None:
                        images_per_sec=n / dt)
         if common.is_rank0():
             save_params_csv(model.params())
-        common.dp_done(mesh)
+        common.launch_done()
     finally:
         logger.close()
 

@@ -96,16 +96,21 @@ def _fmix32(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
-def stochastic_round_bf16(x32: torch.Tensor, seed) -> torch.Tensor:
+def stochastic_round_bf16(x32: torch.Tensor, seed,
+                          index: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """f32 → bf16 with stochastic rounding: dither the 16 low mantissa bits
     with a counter hash of the element index and ``seed``, then truncate,
     so E[rounded] = x (round-to-nearest bf16 writes lose updates below half
     an ulp of the weight). ``seed``: a uint32 value, as an int or an int64
-    tensor on x's device. Bit for bit the JAX package's function."""
+    tensor on x's device. ``index``: each element's index (int64, x's
+    shape) when x is a slice of a larger leaf, so that the slice rounds as
+    the whole leaf would; default ``arange``. Bit for bit the JAX package's
+    function."""
     x32 = x32.to(torch.float32).contiguous()
     u = x32.view(torch.int32).to(torch.int64) & _MASK32
-    idx = torch.arange(x32.numel(), dtype=torch.int64,
-                       device=x32.device).reshape(x32.shape)
+    idx = index if index is not None else torch.arange(
+        x32.numel(), dtype=torch.int64, device=x32.device).reshape(x32.shape)
     seed = torch.as_tensor(seed, dtype=torch.int64, device=x32.device)
     r = _fmix32(_mul32(idx, 2654435761) ^ (seed & _MASK32)) & 0xFFFF
     trunc = (u + r) & 0xFFFF0000
@@ -125,7 +130,8 @@ def leaf_seeds(base, n: int) -> List[Any]:
 
 def adam_update(params: Any, grads: Any, state: AdamState, lr,
                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                sr_seed: Optional[Any] = None):
+                sr_seed: Optional[Any] = None,
+                sr_index: Optional[Any] = None):
     """One Adam step with bias correction. Returns (params, state).
 
     Moment and update arithmetic run in the moment dtype (≥ f32); the new
@@ -133,7 +139,9 @@ def adam_update(params: Any, grads: Any, state: AdamState, lr,
     (a uint32 base, int or int64 tensor), bf16 leaves are written with
     stochastic rounding, one derived seed per leaf (``leaf_seeds``), leaf
     *i* in sorted key-path order as the JAX package numbers them, whatever
-    order the dict was built in; f32 and f64 leaves are untouched by it."""
+    order the dict was built in; f32 and f64 leaves are untouched by it.
+    ``sr_index``: a tree of element indices (or None leaves) for leaves that
+    are slices of larger ones (``stochastic_round_bf16``'s ``index``)."""
     step = state.step + 1
     t = torch.tensor(float(step), dtype=torch.float32)
     m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.to(m_.dtype),
@@ -144,10 +152,10 @@ def adam_update(params: Any, grads: Any, state: AdamState, lr,
     bc1 = (1 - torch.pow(b1, t)).to(device)
     bc2 = (1 - torch.pow(b2, t)).to(device)
 
-    def write(p, m_, v_, seed=None):
+    def write(p, m_, v_, seed=None, index=None):
         new = p.to(m_.dtype) - lr * (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
         if seed is not None and p.dtype == torch.bfloat16:
-            return stochastic_round_bf16(new, seed.to(new.device))
+            return stochastic_round_bf16(new, seed.to(new.device), index)
         return new.to(p.dtype)
 
     if sr_seed is None:
@@ -155,5 +163,7 @@ def adam_update(params: Any, grads: Any, state: AdamState, lr,
     else:
         seeds = iter(leaf_seeds(sr_seed, len(tree_leaves(params))))
         seed_tree = _sorted_tree_map(lambda _: next(seeds), params)
-        new_params = tree_map(write, params, m, v, seed_tree)
+        if sr_index is None:
+            sr_index = tree_map(lambda _: None, params)
+        new_params = tree_map(write, params, m, v, seed_tree, sr_index)
     return new_params, AdamState(step=step, m=m, v=v)

@@ -24,6 +24,7 @@ own line.
 
 from __future__ import annotations
 
+import datetime
 import os
 import socket
 from typing import Callable, Mapping, Optional, Sequence
@@ -97,13 +98,15 @@ def backend() -> Optional[str]:
 def distributed_init(init_method: Optional[str] = None,
                      world: Optional[int] = None,
                      rank_id: Optional[int] = None,
-                     device: str = "cuda") -> int:
+                     device: str = "cuda",
+                     timeout: Optional[float] = None) -> int:
     """Join the process group, with ``jax.distributed.initialize``'s
     single-host no-op: without launcher variables (``RANK``,
     ``WORLD_SIZE``, ``MASTER_ADDR``) and without ``init_method`` it does
     nothing. Safe to call twice. ``device``: "cuda" or "cpu", the kind of
-    this rank's device (``rank_device``). Returns this process's rank (0
-    when nothing was joined)."""
+    this rank's device (``rank_device``). ``timeout``: seconds a collective
+    may wait (default: the backend's). Returns this process's rank (0 when
+    nothing was joined)."""
     if dist.is_initialized():
         return dist.get_rank()
     launched = any(v in os.environ
@@ -117,8 +120,10 @@ def distributed_init(init_method: Optional[str] = None,
     name, why = select_backend(dev, ranks_on_node)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    extra = ({} if timeout is None
+             else {"timeout": datetime.timedelta(seconds=timeout)})
     dist.init_process_group(name, init_method=init_method or "env://",
-                            world_size=world, rank=rank_id)
+                            world_size=world, rank=rank_id, **extra)
     _state.update(device=dev, backend=name)
     if rank_id == 0:
         print(f"torch.distributed: {world} ranks, backend {name} ({why})",
@@ -131,10 +136,13 @@ class Mesh:
     grid of global ranks, ``shape`` maps each axis name to its size, and
     ``device`` is this rank's torch device. ``group(axis)`` is the
     subgroup of this rank's line along ``axis`` (None on a line of one rank
-    or outside a process group: collectives there are the identity)."""
+    or outside a process group: collectives there are the identity).
+    ``whole`` is the group of every rank of the mesh (None: the whole
+    process group)."""
 
     def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
-                 groups: Mapping[str, object], device: torch.device):
+                 groups: Mapping[str, object], device: torch.device,
+                 whole=None):
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, devices.shape))
@@ -144,6 +152,7 @@ class Mesh:
         self.coords = (dict(zip(self.axis_names, map(int, where[0])))
                        if len(where) else None)
         self._groups = dict(groups)
+        self.whole = whole
 
     def size(self, axis: str) -> int:
         return self.shape[axis]
@@ -175,7 +184,9 @@ def make_mesh(axes: Mapping[str, int],
     """A named mesh, e.g. ``make_mesh({"data": 4, "model": 2})``, over the
     ranks ``devices`` (default: every rank of the group, in order). Axis
     sizes must multiply to their count. Every rank of the group must call
-    it, in the same order: making the subgroups is collective."""
+    it, in the same order: making the subgroups is collective. A mesh over
+    fewer ranks than the group's also gets a group of its own
+    (``Mesh.whole``)."""
     names = tuple(axes.keys())
     shape = tuple(axes.values())
     if devices is None:
@@ -197,7 +208,9 @@ def make_mesh(axes: Mapping[str, int],
             group = dist.new_group([int(r) for r in line])
             if rank() in line:
                 groups[name] = group
-    return Mesh(grid, names, groups, current_device())
+    whole = (dist.new_group([int(r) for r in devices])
+             if dist.is_initialized() and n < world_size() else None)
+    return Mesh(grid, names, groups, current_device(), whole)
 
 
 def default_mesh(data_axis: str = "data") -> Mesh:

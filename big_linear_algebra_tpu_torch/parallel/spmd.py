@@ -15,9 +15,11 @@ the per-shard body itself, and its collectives are explicit calls.
   this rank's slice of the cotangent summed over the axis: JAX transposes
   ``all_gather`` into ``psum_scatter``. ``psum``'s backward is the
   identity, as JAX's transpose of ``psum`` under ``shard_map`` is.
-- ``hop``: each rank sends to the next rank of its line and receives from
-  the previous one (JAX's ``ppermute`` with ``i → i+1``), by
-  ``batch_isend_irecv``.
+- ``hop``: each rank sends to the rank ``direction`` steps along its line
+  and receives from the rank as far behind it (JAX's ``ppermute`` with
+  ``i → i+1``, or ``i → i−1``), by ``batch_isend_irecv``: around the ring,
+  or between neighbours only, with received shapes of their own (the
+  pipeline's stage boundaries).
 
 On the gloo backend, CUDA tensors go through host memory: each collective
 and each point-to-point send copies its buffer to the CPU, runs there and
@@ -26,9 +28,11 @@ this is how ranks that share one card exchange data). NCCL takes the
 device buffers. On a line of one rank, or outside a process group, every
 collective is the identity.
 
-``collective_calls`` and ``collective_seconds`` count every collective and
-the host wall time spent in it (copies included; under NCCL the time to
-enqueue, not to finish).
+``collective_calls`` counts every collective; ``collective_seconds`` and
+``collective_bytes`` give, for each kind ("all_reduce", "all_gather",
+"hop"), the host wall time spent in it (copies included; under NCCL the
+time to enqueue, not to finish) and the bytes this rank handed to it (the
+buffer summed, this rank's part gathered, the tensors sent).
 """
 
 from __future__ import annotations
@@ -42,17 +46,23 @@ import torch.distributed as dist
 from big_linear_algebra_tpu_torch.nn.optim import tree_leaves, tree_map
 
 collective_calls = 0
-collective_seconds = 0.0
+collective_seconds = {"all_reduce": 0.0, "all_gather": 0.0, "hop": 0.0}
+collective_bytes = {"all_reduce": 0, "all_gather": 0, "hop": 0}
 
 
 class _Timed:
+    def __init__(self, kind: str, tensors=()):
+        self.kind = kind
+        collective_bytes[kind] += sum(t.numel() * t.element_size()
+                                      for t in tensors if t is not None)
+
     def __enter__(self):
         self.t0 = time.perf_counter()
 
     def __exit__(self, *exc):
-        global collective_calls, collective_seconds
+        global collective_calls
         collective_calls += 1
-        collective_seconds += time.perf_counter() - self.t0
+        collective_seconds[self.kind] += time.perf_counter() - self.t0
 
 
 def _staged(x: torch.Tensor) -> bool:
@@ -61,7 +71,7 @@ def _staged(x: torch.Tensor) -> bool:
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """x summed over ``group`` (a new tensor; x itself is unchanged)."""
-    with _Timed():
+    with _Timed("all_reduce", [x]):
         buf = x.cpu().clone() if _staged(x) else x.clone()
         dist.all_reduce(buf, group=group)
         return buf.to(x.device)
@@ -121,7 +131,7 @@ class _AllGather(torch.autograd.Function):
         group = mesh.group(axis)
         if group is None:
             return x.clone()
-        with _Timed():
+        with _Timed("all_gather", [x]):
             src = x.cpu().contiguous() if _staged(x) else x.contiguous()
             parts = [torch.empty_like(src) for _ in range(mesh.size(axis))]
             dist.all_gather(parts, src, group=group)
@@ -132,8 +142,9 @@ class _AllGather(torch.autograd.Function):
         """psum_scatter: the cotangent summed over the axis, then this
         rank's slice of it."""
         group = ctx.mesh.group(ctx.axis)
-        if group is not None:
-            g = _all_reduce(g.contiguous(), group)
+        if group is not None:  # bf16 and f16 summed in f32, rounded once
+            g = _all_reduce(g.to(_reduce_dtype(g.dtype)).contiguous(),
+                            group).to(g.dtype)
         return (g.narrow(ctx.dim, ctx.index * ctx.width, ctx.width),
                 None, None, None)
 
@@ -149,7 +160,9 @@ class _Psum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
         group = mesh.group(axis)
-        return x.clone() if group is None else _all_reduce(x, group)
+        if group is None:
+            return x.clone()
+        return _all_reduce(x.to(_reduce_dtype(x.dtype)), group).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -157,27 +170,49 @@ class _Psum(torch.autograd.Function):
 
 
 def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """``x`` summed over ``axis``, differentiable (backward: identity)."""
+    """``x`` summed over ``axis`` (bf16 and f16 in f32, rounded once),
+    differentiable (backward: identity)."""
     return _Psum.apply(x, mesh, axis)
 
 
-def hop(tensors, mesh, axis: str):
-    """Each rank's ``tensors`` sent to the next rank of its line along
-    ``axis`` (ring order), and the previous rank's received: JAX's
-    ``ppermute`` with the permutation ``i → (i+1) mod n``. Returns new
-    tensors of the same shapes, dtypes and device."""
-    group = mesh.group(axis)
-    if group is None:
-        return [t.clone() for t in tensors]
+def hop(tensors, mesh, axis: str, direction: int = 1, like=None,
+        wrap: bool = True):
+    """Each rank's ``tensors`` sent to the rank ``direction`` steps along its
+    line of ``axis``, and those of the rank ``direction`` steps behind it
+    received: JAX's ``ppermute`` with ``i → i+1`` (``direction=1``) or
+    ``i → i−1`` (``direction=-1``). The received tensors take the shapes,
+    dtypes and device of ``like`` (default: ``tensors``).
+
+    ``wrap=True``: around the ring, every rank sends and receives.
+    ``wrap=False``: between neighbours only, as a pipeline's stages hop:
+    a rank with no rank ahead sends nothing (its ``tensors`` may be None),
+    and one with no rank behind receives nothing (returns None).
+
+    Every rank posts its sends, then its receives, in list order, so that
+    two ranks never wait on each other's second message."""
     line = mesh.line(axis)
-    i = mesh.index(axis)
-    nxt, prev = line[(i + 1) % len(line)], line[(i - 1) % len(line)]
-    with _Timed():
-        staged = _staged(tensors[0])
-        sends = [(t.cpu() if staged else t).contiguous() for t in tensors]
-        recvs = [torch.empty_like(t) for t in sends]
-        ops = ([dist.P2POp(dist.isend, t, nxt, group) for t in sends]
-               + [dist.P2POp(dist.irecv, t, prev, group) for t in recvs])
+    n, i = len(line), mesh.index(axis)
+    dst, src = i + direction, i - direction
+    if wrap:
+        dst, src = dst % n, src % n
+    to = line[dst] if 0 <= dst < n else None
+    frm = line[src] if 0 <= src < n else None
+    like = tensors if like is None else like
+    group = mesh.group(axis)
+    if group is None:  # a line of one rank
+        return [t.clone() for t in tensors] if wrap else None
+    sends = [] if to is None else tensors
+    recvs = [] if frm is None else like
+    with _Timed("hop", sends):
+        staged = _staged((sends or recvs)[0])
+        bufs = [(t.cpu() if staged else t).contiguous() for t in sends]
+        got = [torch.empty(t.shape, dtype=t.dtype,
+                           device="cpu" if staged else t.device)
+               for t in recvs]
+        ops = ([dist.P2POp(dist.isend, t, to, group) for t in bufs]
+               + [dist.P2POp(dist.irecv, t, frm, group) for t in got])
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-        return [r.to(t.device) for r, t in zip(recvs, tensors)]
+        if frm is None:
+            return None
+        return [r.to(t.device) for r, t in zip(got, recvs)]

@@ -96,9 +96,31 @@ Phases, one line each (or a few), in the order 1–4, 22, 23, 24, 5–7,
    bounds in f32 of the plain flash over the whole sequence); then each
    rank's host wall, busy share and collective time per step or call
    (``tools/parallel_check.py`` runs it alone);
+25. the U-Net's tensor parallelism and the pipeline modes (run after 24,
+   with its launcher; ``tools/pipeline_check.py`` runs it alone), in fresh
+   temporary data directories, full width: on 2 ranks ``cifar_unet train
+   1 --tp --image-size=64 --max-steps=5`` (K2, K2c and K2d 4 each per rank
+   per step), an f32 TP step's gathered gradient and a DP×TP step's first
+   moment on (data 1 x model 2) against the single-device step on the same
+   card at the same conditioned parameters, draws and masks
+   (``PARALLEL_GRAD_RTOL_OF_MAX`` per leaf; the gradient from TF32-
+   truncated operands must fail it); on 3 ranks ``train 1 --pp
+   --pp-micro=4 --image-size=64 --max-steps=5`` under GPipe and under 1F1B
+   resuming it (K2, K2c and K2d per stage derived from the flash sites it
+   holds, 1F1B's recompute running K2 again; the replicas bit-equal), and
+   ``--pp --fused-block`` at 32x32 (K5a/K5b per stage as many as the gate's
+   blocks there at microbatch 4, all on the tensor cores), one f32 step's
+   GPipe and 1F1B gradients against the sequential run of the stages with
+   the same folds (the same bound and control); on 6 ranks ``train 1 --pp
+   --dp --pp-micro=4 --fused-block --max-steps=3`` (stage 3 x data 2; K5
+   per rank, the replicas bit-equal); each rank's step wall, collective
+   time and bytes, and its stage's share of a pipeline step in its units
+   beside ``hetero_stats``' utilizations;
 5. K2 against plain, on the card: f32/bf16 x d in {16, 64} x (B, N) in
    {(1, 1024) the U-Net's shape, (2, 300) ragged, (1, 4096), (1, 16384),
-   (8, 1024) and (4, 1024) a U-Net DP rank's at 2 and 4 ranks},
+   (8, 1024) and (4, 1024) a U-Net DP rank's at 2 and 4 ranks (and a
+   pipeline stage's at microbatch 4), (16, 1024) a train step's and a TP
+   rank's},
    and the other head dims the kernel takes at (2, 300); o and lse against
    ``_plain_flash``, and bf16 operands that are views one element past an
    aligned buffer; two bf16 runs bit-equal at (1, 1024, 16) and at (16,
@@ -436,7 +458,7 @@ TPU_KERNEL = "big_linear_algebra_tpu/ops/matmul.py:220"
 K2_TPU_KERNEL = "big_linear_algebra_tpu/nn/attention.py:545"
 # B, N; then a U-Net DP rank's flash sites at 64x64 (batch 8 and 4 a rank)
 K2_SHAPES = [(1, 1024), (2, 300), (1, 4096), (1, 16384), (8, 1024),
-             (4, 1024)]
+             (4, 1024), (16, 1024)]
 K2_MAIN = (1, 1024, 16)  # B, N, d at the U-Net's four flash sites, 64x64
 K2_TRAIN = (16, 1024, 16)  # B, N, d at the flash sites of a train step
 K2_TIMED = [K2_MAIN, K2_TRAIN, (4, 4096, 64)]
@@ -1921,15 +1943,15 @@ def _score_overshoot(at, q, k, lse):
             (s_pallas - lse2).max().item())
 
 
-def _condition_attention(cu, params, x0, tt, noise, cfg):
-    """A copy of ``params`` with each attention site's q and k projections
-    scaled by f = min(1, sqrt(GRAD_SCORE_RANGE / w)), w the widest row of
-    its scores q.k^T/sqrt(d) in an f32 forward on the given draws. A site's
-    factor is applied in that forward before the sites after it are
-    measured. Returns (params, {site: (w, f)})."""
+def _condition_attention(cu, params, x0, tt, noise, cfg, device="cuda"):
+    """A copy of ``params`` on ``device`` with each attention site's q and k
+    projections scaled by f = min(1, sqrt(GRAD_SCORE_RANGE / w)), w the
+    widest row of its scores q.k^T/sqrt(d) in an f32 forward on the given
+    draws. A site's factor is applied in that forward before the sites
+    after it are measured. Returns (params, {site: (w, f)})."""
     import math
 
-    params = cu.tree_map(lambda a: a.to("cuda", torch.float32), params)
+    params = cu.tree_map(lambda a: a.to(device, torch.float32), params)
     real = cu.self_attention_block
     factors = {}  # id of a site's q → (w, f)
 
@@ -1945,7 +1967,8 @@ def _condition_attention(cu, params, x0, tt, noise, cfg):
     cu.self_attention_block = block
     try:
         with torch.no_grad():
-            cu.loss_fn(params, x0.cuda(), tt.cuda(), noise.cuda(), cfg)
+            cu.loss_fn(params, x0.to(device), tt.to(device),
+                       noise.to(device), cfg)
     finally:
         cu.self_attention_block = real
     sites = {}
@@ -4502,7 +4525,7 @@ def _wrapped(module, name: str, wrap):
 def _collectives():
     from big_linear_algebra_tpu_torch.parallel import spmd
 
-    return spmd.collective_calls, spmd.collective_seconds
+    return spmd.collective_calls, sum(spmd.collective_seconds.values())
 
 
 def _profile(fn, device: str, n_calls_timed: int = 3) -> dict:
@@ -4965,13 +4988,14 @@ def _phase24_rank(tmp: str, device: str) -> int:
     return 0
 
 
-def _run_ranks(tmp: str, device: str, n: int) -> tuple:
+def _run_ranks(tmp: str, device: str, n: int, args=None,
+               phase: str = "phase 24") -> tuple:
     """``python3 -m torch.distributed.run --standalone --nproc-per-node=N
-    chip_smoke.py --phase24-rank TMP DEVICE`` in its own process group
-    (killed whole on the time limit): (stdout, seconds)."""
+    chip_smoke.py ARGS`` (default ``--phase24-rank TMP DEVICE``) in its own
+    process group (killed whole on the time limit): (stdout, seconds)."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc-per-node={n}", os.path.abspath(__file__),
-           "--phase24-rank", tmp, device]
+           *(args or ["--phase24-rank", tmp, device])]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True,
@@ -4981,10 +5005,10 @@ def _run_ranks(tmp: str, device: str, n: int) -> tuple:
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, 9)
         stdout, stderr = proc.communicate()
-        fail(f"phase 24: the ranks did not end within {P24_TIMEOUT_S} s:\n"
+        fail(f"{phase}: the ranks did not end within {P24_TIMEOUT_S} s:\n"
              f"{stdout[-4000:]}\n{stderr[-8000:]}")
     if proc.returncode != 0:
-        fail(f"phase 24: torch.distributed.run exited {proc.returncode}:\n"
+        fail(f"{phase}: torch.distributed.run exited {proc.returncode}:\n"
              f"{stdout[-6000:]}\n{stderr[-10000:]}")
     return stdout, time.perf_counter() - t0
 
@@ -5431,6 +5455,707 @@ def phase_parallel(smi_line: str = "", device: str = "cuda",
         print(line, flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the U-Net's tensor parallelism (P25_TP_RANKS ranks) and the
+# pipeline modes (3 ranks; PP×DP on 6), under torch.distributed.run, after
+# phase 24 and with its launcher.
+# ---------------------------------------------------------------------------
+
+P25_TP_RANKS, P25_PP_RANKS, P25_PPDP_RANKS = 2, 3, 6
+# train steps of each CLI run: --tp and --pp at 64x64, --fused-block --pp
+# at 32x32, --pp --dp --fused-block at 32x32
+P25_TP_STEPS, P25_PP_STEPS, P25_FUSED_STEPS, P25_PPDP_STEPS = 5, 5, 5, 3
+P25_MICRO = 4
+# The f32 gradient of a TP step (gathered) against the single-device one,
+# and of a pipeline step (GPipe, 1F1B) against the sequential run of its
+# stages with the same folds, each on the card at the same parameters,
+# draws and masks: max|err| / max|ref| per leaf. Fixed before the first
+# run: these change only the order of f32 sums (TP: the input gradient of
+# a sharded conv summed over the ranks; the pipeline: the microbatches'
+# parameter gradients), as phase 10's K2c/K2d-vs-plain backward does,
+# whose worst leaf reads 1.3e-4 of its max|ref| on the conditioned net
+# (GRAD_SHARE_RTOL_OF_MAX, the same bound; NVIDIA H100 80GB HBM3, 700 W).
+# The control, the single-device (sequential) gradient from parameters and
+# inputs truncated to TF32's 10-bit mantissa, must fail it: phase 10 reads
+# f32 against f64 at 1.4e-2 there, the amplified f32 rounding, and TF32
+# rounds 2**13 times coarser.
+PARALLEL_GRAD_RTOL_OF_MAX = GRAD_SHARE_RTOL_OF_MAX
+P25_TIMEOUT_S = 900
+
+
+def _p25_cfg(device: str, **kw):
+    """Full width at 64x64 (TINY at batch 4 on the CPU rehearsal)."""
+    import dataclasses
+
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+
+    base = (dataclasses.replace(cu.TINY, batch_size=4) if device == "cpu"
+            else cu.CONFIG)
+    return dataclasses.replace(base, **{"image_size": 64, **kw})
+
+
+def _tiny(device: str) -> list:
+    return ["--tiny", "--batch=4"] if device == "cpu" else []
+
+
+@contextlib.contextmanager
+def _p25_masks(cu, seed: int):
+    """The U-Net's dropout with call i's mask drawn on the CPU from a
+    generator of (seed, i): the same masks on every rank and in the
+    single-device or sequential reference."""
+    calls = [0]
+
+    def dropout(x, rate, generator, deterministic=False):
+        if deterministic or rate == 0.0:
+            return x
+        gen = torch.Generator().manual_seed(seed * 1000 + calls[0])
+        calls[0] += 1
+        mask = (torch.rand(x.shape, generator=gen) < 1.0 - rate).to(x.device)
+        return torch.where(mask, x / (1.0 - rate), 0.0).to(x.dtype)
+
+    with _wrapped(cu, "dropout", lambda real: dropout):
+        yield calls
+
+
+def _p25_inputs(cu, cfg, mesh, batch: int, seed: int):
+    """(params, x0, t, noise) on this rank's device, alike on every rank:
+    the initial parameters with each attention site conditioned
+    (``_condition_attention``), as rank 0 holds them."""
+    import dataclasses
+
+    from big_linear_algebra_tpu_torch.parallel import replicate
+
+    gen = torch.Generator().manual_seed(seed)
+    x0 = torch.rand(batch, 3, cfg.image_size, cfg.image_size,
+                    generator=gen) * 2 - 1
+    tt = torch.randint(0, cfg.timesteps, (batch,), generator=gen)
+    noise = torch.randn(x0.shape, generator=gen)
+    params = cu.init_params(torch.Generator().manual_seed(seed), cfg)
+    dev = mesh.device
+    params, _ = _condition_attention(
+        cu, params, x0, tt, noise, dataclasses.replace(cfg, dropout_rate=0.0),
+        dev)
+    return replicate(mesh, params), x0.to(dev), tt.to(dev), noise.to(dev)
+
+
+def _grad_errors(got: dict, want: dict) -> tuple:
+    """(worst leaf max|got − want| / its max|want|, its path)."""
+    from big_linear_algebra_tpu_torch.nn.optim import tree_leaves
+
+    worst, where = 0.0, ""
+    for i, (a, b) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        scale = b.double().abs().max().item()
+        err = (a.double() - b.double()).abs().max().item()
+        ratio = err / scale if scale > 0 else err
+        if ratio > worst:
+            worst, where = ratio, i
+    return worst, where
+
+
+def _tf32_tree(cu, tree):
+    return cu.tree_map(lambda a: _tf32(a.float()), tree)
+
+
+def _flash_counts(at) -> tuple:
+    return at.launch_count, at.bwd_dq_launch_count, at.bwd_dkv_launch_count
+
+
+def _zero_flash_counts(at) -> None:
+    at.launch_count = at.bwd_dq_launch_count = at.bwd_dkv_launch_count = 0
+
+
+def _spy_steps(cu, name: str, record: dict):
+    """``cu.<name>`` (a step factory) wrapped so that every step's loss and
+    the last step's parameters land in ``record``."""
+    def make(real):
+        def factory(*a, **kw):
+            step = real(*a, **kw)
+
+            def wrapped(*args, **kwargs):
+                params, opt, loss = step(*args, **kwargs)
+                record.setdefault("losses", []).append(loss)
+                record["params"] = params
+                return params, opt, loss
+            return wrapped
+        return factory
+    return _wrapped(cu, name, make)
+
+
+def _run_cli_counted(cu, at, fb, args, where, device, spy: str) -> dict:
+    """One CLI run with the flash and fused counts read around it, its
+    step losses, and a hash of this rank's parameters after it."""
+    record = {}
+    _zero_flash_counts(at)
+    _zero_fused_counts(fb)
+    with _spy_steps(cu, spy, record):
+        text, secs = _cli(cu, args, where, device)
+    return {"flash": _flash_counts(at),
+            "fused": (fb.launch_count, fb.tc_launch_count,
+                      fb.bwd_launch_count, fb.bwd_tc_launch_count,
+                      fb.wgrad_launch_count, fb.wgrad_tc_launch_count),
+            "text": text, "seconds": secs,
+            "losses": torch.stack(record["losses"]).float().cpu(),
+            "hash": _params_hash(record["params"])}
+
+
+def _profile_step(fn, device: str, n_timed: int = 2) -> dict:
+    """``_profile`` of ``fn`` plus, for one call after it (warm), the bytes
+    each kind of collective moved and its host time (ms)."""
+    from big_linear_algebra_tpu_torch.parallel import spmd
+
+    out = _profile(fn, device, n_calls_timed=n_timed)
+    b0 = dict(spmd.collective_bytes)
+    s0 = dict(spmd.collective_seconds)
+    fn()
+    _sync(device)
+    out.update(
+        bytes={k: v - b0[k] for k, v in spmd.collective_bytes.items()},
+        kind_ms={k: (v - s0[k]) * 1e3 for k, v in
+                 spmd.collective_seconds.items()})
+    return out
+
+
+def _unit_timer(seconds: list, device: str):
+    """A wrap for ``_wrapped`` that adds each call's host time between two
+    device synchronizations to ``seconds[0]``: a pipeline stage's units
+    (``_Stage.run``, a forward or a recompute, and ``_Stage.vjp``)."""
+    def wrap(real):
+        def timed(*args, **kwargs):
+            _sync(device)
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            _sync(device)
+            seconds[0] += time.perf_counter() - t0
+            return out
+        return timed
+    return wrap
+
+
+def _p25_tp(tmp: str, device: str) -> dict:
+    """One TP rank: ``train 1 --tp --image-size=64`` (K2/K2c/K2d around
+    it); the f32 gradient of a TP step on (data 1 x model 2), gathered,
+    and a DP×TP step's Adam moments, each against the single-device step on
+    the same card (rank 0, with a TF32 control); a bf16 TP step profiled."""
+    import dataclasses
+
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn import attention as at
+    from big_linear_algebra_tpu_torch.nn import fused_block as fb
+    from big_linear_algebra_tpu_torch.nn.optim import adam_init
+    from big_linear_algebra_tpu_torch.parallel import make_mesh
+
+    out = {"cli": _run_cli_counted(
+        cu, at, fb, ["train", "1", "--tp", "--image-size=64",
+                     f"--max-steps={P25_TP_STEPS}", *_tiny(device)],
+        os.path.join(tmp, "tp"), device, "make_train_step_tp")}
+    del os.environ["BLA_DATA_DIR"]
+    mesh = make_mesh({"data": 1, "model": P25_TP_RANKS})
+    rank0 = mesh.rank == 0
+    cfg = _p25_cfg(device, compute_dtype="float32")
+    params, x0, tt, noise = _p25_inputs(cu, cfg, mesh, 4, 25)
+    specs = cu.tp_param_specs(params, P25_TP_RANKS)
+    layout = cu.TPLayout(mesh, specs)
+    draws = (tt, noise)
+    with _p25_masks(cu, 1):
+        loss_tp, grads = cu._loss_and_grads(layout.place(params), x0, None,
+                                            cfg, draws, layout)
+    grads = layout.gather(grads)
+    with _p25_masks(cu, 2):
+        step = cu.make_train_step_tp(mesh, specs, cfg, data_axis="data")
+        p, opt = cu.place_dp_tp(mesh, params, adam_init(params))
+        p, opt, loss_dptp = step(p, opt, x0, torch.Generator().manual_seed(3),
+                                 draws=draws)
+    p, opt = cu.gather_tp(layout, p, opt)
+    if rank0:
+        with _p25_masks(cu, 1):
+            loss_1, want = cu._loss_and_grads(params, x0, None, cfg, draws)
+        with _p25_masks(cu, 1):
+            _, ctl = cu._loss_and_grads(_tf32_tree(cu, params), _tf32(x0),
+                                        None, cfg, draws)
+        with _p25_masks(cu, 2):
+            p1, opt1, loss_1s = cu.train_step(params, adam_init(params), x0,
+                                              None, cfg, draws=draws)
+        out["grad"] = {
+            "tp": _grad_errors(grads, want), "control": _grad_errors(ctl,
+                                                                     want),
+            "dptp m": _grad_errors(opt.m, opt1.m),
+            "dptp params": max((a - b).abs().max().item() for a, b in zip(
+                cu.tree_leaves(p), cu.tree_leaves(p1))),
+            "losses": (loss_tp.item(), loss_1.item(), loss_dptp.item(),
+                       loss_1s.item()),
+            "leaves": len(cu.tree_leaves(want))}
+    del params, grads, p, opt
+    # one bf16 TP step at the CLI's shapes, profiled
+    cfg16 = _p25_cfg(device)
+    full = cu.tree_map(lambda a: a.to(mesh.device),
+                       cu.init_params(torch.Generator().manual_seed(0),
+                                      cfg16))
+    p, opt = cu.place_tp(mesh, full, adam_init(full))
+    step = cu.make_train_step_tp(mesh, specs, cfg16)
+    gen = torch.Generator(device=mesh.device).manual_seed(5)
+    xb = torch.rand((cfg16.batch_size, 3, 64, 64), generator=gen,
+                    device=mesh.device) * 2 - 1
+    out["profile"] = _profile_step(lambda: step(p, opt, xb, gen), device)
+    return out
+
+
+def _stage_fused_blocks(cfg, mb: int) -> list:
+    """The fused blocks of each pipeline stage at microbatch ``mb`` under
+    ``--fused-block`` (the gate's, as ``_unet_fused_blocks`` lists them):
+    [down, mid, up]."""
+    import dataclasses
+
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn import fused_block as fb
+
+    cfg = dataclasses.replace(cfg, fused_block=True,
+                              compute_dtype="bfloat16")
+    counts = [0]
+
+    def block(x, td, w1, *a, **kw):
+        counts[0] += 1
+        return x.new_zeros(x.shape[0], w1.shape[0], *x.shape[2:])
+
+    def conv(x, k, stride=1):
+        return x.new_zeros(x.shape[0], k.shape[0], -(-x.shape[2] // stride),
+                           -(-x.shape[3] // stride))
+
+    real = cu.conv2d, cu.self_attention_block, fb.fused_resnet_block
+    cu.conv2d, cu.self_attention_block = conv, (lambda h, p: h)
+    fb.fused_resnet_block = block
+    per_stage = []
+    try:
+        stages = cu.split_params_stages(
+            cu.init_params(torch.Generator().manual_seed(0), cfg))
+        b = (torch.zeros(mb, cfg.in_channels, cfg.image_size,
+                         cfg.image_size), torch.zeros(mb))
+        with torch.inference_mode():
+            for fn, p in zip(cu.unet_pipeline_stages(cfg), stages):
+                counts[0] = 0
+                b = fn(p, b)
+                per_stage.append(counts[0])
+    finally:
+        cu.conv2d, cu.self_attention_block, fb.fused_resnet_block = real
+    return per_stage
+
+
+def _p25_pp(tmp: str, device: str) -> dict:
+    """One pipeline rank (3 ranks, one stage each): ``train 1 --pp
+    --pp-micro=4 --image-size=64`` under GPipe, then under 1F1B resuming
+    it, then ``--fused-block --pp`` at 32x32 (the kernels' counts around
+    each, a hash of the parameters after each); one f32 step's gradients,
+    GPipe and 1F1B, against the sequential run of the stages with the same
+    folds on the card (rank 0, with a TF32 control); then a bf16 step of
+    each schedule profiled, the stage units timed."""
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn import attention as at
+    from big_linear_algebra_tpu_torch.nn import fused_block as fb
+    from big_linear_algebra_tpu_torch.nn.optim import adam_init
+    from big_linear_algebra_tpu_torch.parallel import make_mesh
+    from big_linear_algebra_tpu_torch.parallel import pipeline as pl
+
+    where = os.path.join(tmp, "pp")
+    out = {}
+    for schedule in ("gpipe", "1f1b"):
+        out[schedule] = _run_cli_counted(
+            cu, at, fb, ["train", "1", "--pp", f"--pp-micro={P25_MICRO}",
+                         f"--pp-schedule={schedule}", "--image-size=64",
+                         f"--max-steps={P25_PP_STEPS}", *_tiny(device)],
+            where, device, "make_train_step_pp")
+    out["fused"] = _run_cli_counted(
+        cu, at, fb, ["train", "1", "--pp", f"--pp-micro={P25_MICRO}",
+                     "--fused-block", f"--max-steps={P25_FUSED_STEPS}",
+                     *_tiny(device)],
+        os.path.join(tmp, "pp_fused"), device, "make_train_step_pp")
+    del os.environ["BLA_DATA_DIR"]
+    mesh = make_mesh({"stage": 3})
+    cfg = _p25_cfg(device, compute_dtype="float32")
+    batch = 4
+    params, x0, tt, noise = _p25_inputs(cu, cfg, mesh, batch, 26)
+    seed = 2025
+    grads = {}
+    for schedule in ("gpipe", "1f1b"):
+        fn = cu.make_pp_loss_and_grads(mesh, cfg, n_micro=P25_MICRO,
+                                       schedule=schedule)
+        grads[schedule] = fn(params, x0, tt, noise, seed)
+    if mesh.rank == 0:
+        want = _pp_sequential(cu, pl, params, x0, tt, noise, seed, cfg)
+        ctl = _pp_sequential(cu, pl, _tf32_tree(cu, params), _tf32(x0), tt,
+                             noise, seed, cfg)
+        out["grad"] = {
+            "gpipe": _grad_errors(grads["gpipe"][1], want[1]),
+            "1f1b": _grad_errors(grads["1f1b"][1], want[1]),
+            "1f1b vs gpipe": _grad_errors(grads["1f1b"][1],
+                                          grads["gpipe"][1]),
+            "control": _grad_errors(ctl[1], want[1]),
+            "losses": (grads["gpipe"][0].item(), grads["1f1b"][0].item(),
+                       want[0].item())}
+    del params, grads
+    cfg16 = _p25_cfg(device)
+    full = cu.tree_map(lambda a: a.to(mesh.device),
+                       cu.init_params(torch.Generator().manual_seed(0),
+                                      cfg16))
+    opt = adam_init(full)
+    xb = torch.rand((cfg16.batch_size, 3, 64, 64),
+                    generator=torch.Generator().manual_seed(6)).to(
+        mesh.device) * 2 - 1
+    gen = torch.Generator().manual_seed(7)
+    out["profile"] = {}
+    for schedule in ("gpipe", "1f1b"):
+        step = cu.make_train_step_pp(mesh, cfg16, n_micro=P25_MICRO,
+                                     schedule=schedule)
+        prof = _profile_step(lambda: step(full, opt, xb, gen), device)
+        units = [0.0]
+        timer = _unit_timer(units, device)
+        with _wrapped(pl._Stage, "run", timer), \
+                _wrapped(pl._Stage, "vjp", timer):
+            _sync(device)
+            t0 = time.perf_counter()
+            step(full, opt, xb, gen)
+            _sync(device)
+        prof["unit_share"] = units[0] / (time.perf_counter() - t0)
+        out["profile"][schedule] = prof
+    return out
+
+
+def _pp_sequential(cu, pl, params, x0, tt, noise, seed, cfg):
+    """(loss, grads) of the pipeline's step run sequentially on this rank:
+    the stage functions one after the other on each microbatch, stage s on
+    microbatch m drawing from ``fold_generator(seed, s·n_micro + m)``."""
+    from big_linear_algebra_tpu_torch.nn.optim import tree_leaves
+
+    leaves = cu.tree_map(lambda p: p.detach().requires_grad_(), params)
+    fns = cu.unet_pipeline_stages(cfg, train=True)
+    stages = cu.split_params_stages(leaves)
+    mb = x0.shape[0] // P25_MICRO
+    xs = cu._noised(x0, tt, noise, cfg).reshape(P25_MICRO, mb,
+                                                *x0.shape[1:])
+    ts = tt.reshape(P25_MICRO, mb).to(x0.dtype)
+    preds = []
+    with torch.enable_grad():
+        for m in range(P25_MICRO):
+            b = (xs[m], ts[m])
+            for s, (fn, p) in enumerate(zip(fns, stages)):
+                b = fn(p, b, pl.fold_generator(seed, s * P25_MICRO + m,
+                                               x0.device))
+            preds.append(b)
+        loss = cu.mse_loss(torch.stack(preds).reshape(x0.shape).float(),
+                           noise.float()) / x0.numel()
+        grads = iter(torch.autograd.grad(loss, tree_leaves(leaves),
+                                         allow_unused=True))
+    return loss.detach(), cu.tree_map(
+        lambda p: cu._zero_if_none(next(grads), p), leaves)
+
+
+def _p25_ppdp(tmp: str, device: str) -> dict:
+    """One rank of ``train 1 --pp --dp --pp-micro=4 --fused-block`` at 32x32
+    on a stage 3 x data 2 mesh: the fused kernels' counts around it, its
+    step losses and a hash of the parameters after it."""
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn import attention as at
+    from big_linear_algebra_tpu_torch.nn import fused_block as fb
+
+    out = {"cli": _run_cli_counted(
+        cu, at, fb, ["train", "1", "--pp", "--dp", f"--pp-micro={P25_MICRO}",
+                     "--fused-block", f"--max-steps={P25_PPDP_STEPS}",
+                     *_tiny(device)],
+        os.path.join(tmp, "ppdp"), device, "make_train_step_pp")}
+    del os.environ["BLA_DATA_DIR"]
+    return out
+
+
+def _phase25_rank(tmp: str, device: str, part: str) -> int:
+    """One rank of phase 25 (``chip_smoke.py --phase25-rank TMP DEVICE
+    PART`` under ``torch.distributed.run``, PART tp, pp or ppdp): joins the
+    group, runs its part and writes ``TMP/<part>_rank<r>.pt``."""
+    from big_linear_algebra_tpu_torch.parallel import mesh as pmesh
+
+    rank = pmesh.distributed_init(device=device)
+    dev = pmesh.current_device()
+    out = {"rank": rank, "device": str(dev), "backend": pmesh.backend(),
+           "why": pmesh.select_backend(dev, pmesh.local_world_size())[1]}
+    out.update({"tp": _p25_tp, "pp": _p25_pp, "ppdp": _p25_ppdp}[part](
+        tmp, device))
+    torch.save(out, os.path.join(tmp, f"{part}_rank{rank}.pt"))
+    return 0
+
+
+def _p25_launch(tmp: str, device: str, part: str, n: int) -> tuple:
+    """The ranks of one part: (their results in rank order, the launch's
+    wall seconds)."""
+    _, seconds = _run_ranks(tmp, device, n, ["--phase25-rank", tmp, device,
+                                             part], "phase 25")
+    return [torch.load(os.path.join(tmp, f"{part}_rank{r}.pt"),
+                       weights_only=False) for r in range(n)], seconds
+
+
+def _p25_prepare(tmp: str) -> None:
+    """The synthesized CIFAR batches, once, linked into each run's data
+    directory."""
+    from big_linear_algebra_tpu_torch.data import synth
+
+    data = os.path.join(tmp, "data")
+    with contextlib.redirect_stdout(io.StringIO()):
+        synth.ensure_cifar(data)
+    for run in ("tp", "pp", "pp_fused", "ppdp"):
+        os.makedirs(os.path.join(tmp, run))
+        os.symlink(os.path.join(data, "cifar"),
+                   os.path.join(tmp, run, "cifar"))
+
+
+def _p25_same(ranks, part: str, what: str) -> None:
+    """The replicas of ``part`` bit-equal, their losses equal."""
+    if len({r[part]["hash"] for r in ranks}) != 1:
+        fail(f"{what}: the replicas' parameters differ after the run")
+    for r, rank in enumerate(ranks):
+        if not torch.equal(rank[part]["losses"], ranks[0][part]["losses"]):
+            fail(f"{what}: rank {r}'s losses differ from rank 0's")
+        if r and rank[part]["text"]:
+            fail(f"{what}: rank {r} printed")
+
+
+def _p25_grad_line(tag: str, errs: dict, what: str) -> str:
+    ctl = errs["control"][0]
+    for name, (err, leaf) in errs.items():
+        if name == "control":
+            if not ctl > PARALLEL_GRAD_RTOL_OF_MAX:
+                fail(f"{what}: the TF32-truncated control is within the "
+                     f"bound ({ctl:.3e}): the check cannot see precision")
+        elif not err <= PARALLEL_GRAD_RTOL_OF_MAX:
+            fail(f"{what}, {name}: worst leaf (#{leaf}) {err:.3e} of its "
+                 f"max|ref| (tol {PARALLEL_GRAD_RTOL_OF_MAX})")
+    return (f"[25 {tag}] {what}: worst leaf of its max|ref| "
+            + ", ".join(f"{k} {v[0]:.3e}" for k, v in errs.items())
+            + f" (tol {PARALLEL_GRAD_RTOL_OF_MAX}; the control must fail)")
+
+
+def _p25_check_tp(ranks, device) -> list:
+    cli = [r["cli"] for r in ranks]
+    if len({tuple(c["losses"].tolist()) for c in cli}) != 1:
+        fail("train --tp: the ranks' step losses differ")
+    per = 4 * P25_TP_STEPS if device == "cuda" else 0
+    for r, c in enumerate(cli):
+        if c["flash"] != (per,) * 3:
+            fail(f"train --tp --image-size=64 on rank {r}: K2/K2c/K2d "
+                 f"launched {c['flash']}, expected {per} each (4 flash "
+                 f"sites at the full batch on every rank x {P25_TP_STEPS} "
+                 f"steps)")
+        if r and c["text"]:
+            fail(f"train --tp: rank {r} printed")
+    if f"--tp: conv kernels channel-sharded over {P25_TP_RANKS} devices" \
+            not in cli[0]["text"]:
+        fail(f"train --tp did not shard:\n{cli[0]['text']}")
+    losses = cli[0]["losses"]
+    if not (len(losses) == P25_TP_STEPS and torch.isfinite(losses).all()):
+        fail(f"train --tp: {losses.tolist()}")
+    g = ranks[0]["grad"]
+    ep = _epoch_line(cli[0]["text"], 0)
+    lines = [
+        f"[25 tp] train 1 --tp --image-size=64 --max-steps={P25_TP_STEPS} "
+        f"on {len(ranks)} ranks ("
+        f"{'TINY, f32' if device == 'cpu' else 'full width, bf16'} compute, "
+        f"batch {4 if device == 'cpu' else 16} on every rank): K2/K2c/K2d "
+        f"per rank "
+        f"{cli[0]['flash']} (4 each a step), losses "
+        f"{[round(x, 5) for x in losses.tolist()]} on every rank; epoch "
+        f"{ep['epoch_seconds']} s; {cli[0]['seconds']:.1f} s with the CSV "
+        f"tree",
+        _p25_grad_line("tp grad", {"tp": g["tp"], "dptp m": g["dptp m"],
+                                   "control": g["control"]},
+                       f"f32 64x64 batch-4 gradient ({g['leaves']} leaves, "
+                       f"conditioned net, masks and draws alike) of the TP "
+                       f"step on (data 1 x model {len(ranks)}), gathered, "
+                       f"and the DP×TP step's first moment, against the "
+                       f"single-device step on the same card; losses "
+                       f"{[round(x, 6) for x in g['losses']]}; DP×TP "
+                       f"params max|diff| {g['dptp params']:.3e}")]
+    return lines
+
+
+def _p25_check_pp(ranks, device) -> tuple:
+    """The pipeline part's checks; returns (lines, per-rank flash counts of
+    one GPipe step)."""
+    import dataclasses
+
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+
+    lines = []
+    cuda = device == "cuda"
+    # K2 at 64x64: 2 sites a microbatch on the down rank (down_2) and on
+    # the up rank (up_3); the mid rank's 8x8 maps take the dense path
+    sites = [2, 0, 2]
+    for schedule, fwd in (("gpipe", 1), ("1f1b", 2)):
+        _p25_same(ranks, schedule, f"train --pp ({schedule})")
+        for s, rank in enumerate(ranks):
+            k = sites[s] * P25_MICRO * P25_PP_STEPS if cuda else 0
+            want = (fwd * k, k, k)
+            if rank[schedule]["flash"] != want:
+                fail(f"train --pp --pp-schedule={schedule} on stage {s}: "
+                     f"K2/K2c/K2d launched {rank[schedule]['flash']}, "
+                     f"expected {want}")
+    mb = (cu.CONFIG.batch_size if cuda else 4) // P25_MICRO
+    blocks = _stage_fused_blocks(cu.CONFIG, mb) if cuda else [0, 0, 0]
+    _p25_same(ranks, "fused", "train --pp --fused-block")
+    for s, rank in enumerate(ranks):
+        n = blocks[s] * P25_MICRO * P25_FUSED_STEPS
+        if rank["fused"]["fused"] != (n,) * 6:
+            fail(f"train --pp --fused-block on stage {s}: K5a/tc/K5b data/"
+                 f"tc/K5b weights/tc launched {rank['fused']['fused']}, "
+                 f"expected {n} each ({blocks[s]} fused blocks a "
+                 f"microbatch of {mb} x {P25_MICRO} x {P25_FUSED_STEPS})")
+    r0 = ranks[0]
+    for part, what in (("gpipe", "gpipe schedule"), ("1f1b", "1f1b schedule"),
+                       ("fused", "gpipe schedule")):
+        if f"--pp: 3-stage pipeline (down/mid/up), {P25_MICRO} " \
+                f"microbatches, {what}" not in r0[part]["text"]:
+            fail(f"train --pp ({part}) did not take the pipeline:\n"
+                 f"{r0[part]['text']}")
+    resumed = f"resumed train state at step {P25_PP_STEPS} (epoch 1)"
+    if resumed not in r0["1f1b"]["text"]:
+        fail(f"the 1F1B run did not resume the GPipe run:\n"
+             f"{r0['1f1b']['text']}")
+    for part in ("gpipe", "1f1b", "fused"):
+        if not torch.isfinite(r0[part]["losses"]).all():
+            fail(f"train --pp ({part}): losses {r0[part]['losses']}")
+    lines.append(
+        f"[25 pp] train 1 --pp --pp-micro={P25_MICRO} --image-size=64 "
+        f"--max-steps={P25_PP_STEPS}, GPipe then 1F1B resuming it, on 3 "
+        f"ranks (one stage each; batch 16 in microbatches of "
+        f"{16 // P25_MICRO}): K2/K2c/K2d per stage (down, mid, up) GPipe "
+        f"{[r['gpipe']['flash'] for r in ranks]}, 1F1B "
+        f"{[r['1f1b']['flash'] for r in ranks]} (the 1F1B recompute runs K2 "
+        f"again); losses GPipe {[round(x, 5) for x in r0['gpipe']['losses'].tolist()]}, "
+        f"1F1B {[round(x, 5) for x in r0['1f1b']['losses'].tolist()]}; "
+        f"replicas bit-equal after each. --fused-block --pp at 32x32: fused "
+        f"blocks a microbatch per stage {blocks}, K5a/tc/K5b data/tc/K5b "
+        f"weights/tc per stage {[r['fused']['fused'] for r in ranks]} (all "
+        f"on the tensor-core route); replicas bit-equal")
+    lines.append(_p25_grad_line(
+        "pp grad", {k: v for k, v in r0["grad"].items() if k != "losses"},
+        f"f32 64x64 batch-4 gradient ({P25_MICRO} "
+        f"microbatches, dropout on, the folds of one seed, conditioned net) "
+        f"of the pipeline step against the sequential run of the stages "
+        f"with the same folds on the same card; losses GPipe, 1F1B, "
+        f"sequential {[round(x, 6) for x in r0['grad']['losses']]}"))
+    return lines, blocks
+
+
+def _p25_check_ppdp(ranks, device, blocks) -> list:
+    cuda = device == "cuda"
+    _p25_same(ranks, "cli", "train --pp --dp --fused-block")
+    n_data = len(ranks) // 3
+    per = P25_MICRO // n_data
+    text = ranks[0]["cli"]["text"]
+    if f"--pp --dp: 3-stage pipeline × {n_data} data shards" not in text:
+        fail(f"train --pp --dp did not take the 2-D mesh:\n{text}")
+    for r, rank in enumerate(ranks):
+        s = r // n_data
+        n = blocks[s] * per * P25_PPDP_STEPS if cuda else 0
+        if rank["cli"]["fused"] != (n,) * 6:
+            fail(f"train --pp --dp --fused-block on rank {r} (stage {s}): "
+                 f"K5a/tc/K5b data/tc/K5b weights/tc launched "
+                 f"{rank['cli']['fused']}, expected {n} each")
+    losses = ranks[0]["cli"]["losses"]
+    if not (len(losses) == P25_PPDP_STEPS and torch.isfinite(losses).all()):
+        fail(f"train --pp --dp: losses {losses.tolist()}")
+    return [f"[25 pp dp] train 1 --pp --dp --pp-micro={P25_MICRO} "
+            f"--fused-block --max-steps={P25_PPDP_STEPS} (32x32) on "
+            f"{len(ranks)} ranks (stage 3 x data {n_data}, {per} "
+            f"microbatches a data coordinate): K5a/tc/K5b data/tc/K5b "
+            f"weights/tc per rank {[r['cli']['fused'] for r in ranks]}; "
+            f"losses {[round(x, 5) for x in losses.tolist()]} on every rank; "
+            f"the {len(ranks)} replicas bit-equal"]
+
+
+def _p25_profile_lines(tp, pp, smi_line: str) -> list:
+    import dataclasses
+
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.parallel import pipeline as pl
+
+    cfg = dataclasses.replace(cu.CONFIG, image_size=64)
+    xs = (torch.zeros(P25_MICRO, cfg.batch_size // P25_MICRO, 3, 64, 64),
+          torch.zeros(P25_MICRO, cfg.batch_size // P25_MICRO))
+    stats = pl.hetero_stats(
+        cu.unet_pipeline_stages(cfg, train=True),
+        cu.split_params_stages(cu.init_params(
+            torch.Generator().manual_seed(0), cfg)), xs, key=1)
+    lines = []
+
+    def fmt(what, r, rank, p):
+        busy = ("" if p["busy_ms"] is None else
+                f"; device busy {p['busy_ms']:.3f} ms = "
+                f"{p['busy_ms'] / p['host_ms']:.1%} of the host time")
+        moved = ", ".join(f"{k} {v / 2 ** 20:.1f} MiB in "
+                          f"{p['kind_ms'][k]:.3f} ms"
+                          for k, v in p["bytes"].items() if v)
+        return (f"[25 profile] {what}, rank {r} ({rank['device']}, "
+                f"{rank['backend']}): host wall {p['host_ms']:.3f} ms"
+                f"{busy}; collectives {p['coll_ms']:.3f} ms of host time "
+                f"({p['coll_calls']:.1f} calls), moved {moved or 'nothing'}")
+
+    for r, rank in enumerate(tp):
+        lines.append(fmt("bf16 TP step, 64x64, batch 16", r, rank,
+                         rank["profile"]) + f" | {smi_line}")
+    for schedule, util in (("gpipe", "utilization"),
+                           ("1f1b", "utilization_1f1b")):
+        for s, rank in enumerate(pp):
+            p = rank["profile"][schedule]
+            lines.append(
+                fmt(f"bf16 PP {schedule} step, 64x64, batch 16 in "
+                    f"{P25_MICRO} microbatches", s, rank, p)
+                + f"; the stage's units {p['unit_share']:.1%} of a step "
+                f"(hetero_stats' {util} {stats[util]:.3f}) | {smi_line}")
+    lines.append(
+        f"[25 hetero_stats] full width 64x64, microbatches of "
+        f"{cfg.batch_size // P25_MICRO}: boundary widths "
+        f"{stats['boundary_widths']} ({stats['boundary_dtype']} padded in "
+        f"JAX; the port sends each at its own width and dtype), "
+        f"utilization {stats['utilization']:.3f}, 1F1B "
+        f"{stats['utilization_1f1b']:.3f}, JAX's padded ring bytes a step "
+        f"{stats['ring_bytes_total'] / 2 ** 20:.1f} MiB")
+    return lines
+
+
+def phase_tp_pp(smi_line: str = "", device: str = "cuda") -> None:
+    """Phase 25: the U-Net's tensor parallelism on P25_TP_RANKS ranks, the
+    pipeline on 3 and PP×DP on 6, each launched with ``python3 -m
+    torch.distributed.run --standalone`` (``_phase25_rank``), the ranks
+    sharing the card over gloo (a card each over NCCL where there are as
+    many): ``cifar_unet train 1 --tp --image-size=64`` (K2/K2c/K2d 4 each
+    per rank per step), the f32 TP gradient and a DP×TP step's first
+    moment against the single-device step (``PARALLEL_GRAD_RTOL_OF_MAX``,
+    a TF32 control failing it); ``train 1 --pp --pp-micro=4
+    --image-size=64`` under GPipe and under 1F1B resuming it (per-stage
+    K2/K2c/K2d derived from the sites a stage holds; replicas bit-equal),
+    ``--fused-block --pp`` at 32x32 (K5a/K5b per stage as many as the
+    gate's blocks there), the f32 GPipe and 1F1B gradients against the
+    sequential run of the stages on the same folds; ``train 1 --pp --dp
+    --pp-micro=4 --fused-block`` on a stage 3 x data 2 mesh (replicas
+    bit-equal); each rank's step wall, collective time and bytes, and the
+    share of a pipeline step in its stage's units beside
+    ``hetero_stats``' utilizations."""
+    with tempfile.TemporaryDirectory(prefix="bla_smoke_") as tmp:
+        _p25_prepare(tmp)
+        tp, tp_s = _p25_launch(tmp, device, "tp", P25_TP_RANKS)
+        pp, pp_s = _p25_launch(tmp, device, "pp", P25_PP_RANKS)
+        ppdp, ppdp_s = _p25_launch(tmp, device, "ppdp", P25_PPDP_RANKS)
+        lines = [f"[25 launch] python3 -m torch.distributed.run --standalone"
+                 f" --nproc-per-node=N, N = {P25_TP_RANKS} (TP), "
+                 f"{P25_PP_RANKS} (PP), {P25_PPDP_RANKS} (PP x DP): backend "
+                 f"{tp[0]['backend']} ({tp[0]['why']}; {ppdp[0]['why']}); "
+                 f"{tp_s:.1f} s, {pp_s:.1f} s and {ppdp_s:.1f} s of wall for "
+                 f"the launches"]
+        lines += _p25_check_tp(tp, device)
+        pp_lines, blocks = _p25_check_pp(pp, device)
+        lines += pp_lines
+        lines += _p25_check_ppdp(ppdp, device, blocks)
+        lines += _p25_profile_lines(tp, pp, smi_line)
+    for line in lines:
+        print(line if smi_line in line else f"{line} | {smi_line}",
+              flush=True)
+
+
 def main() -> int:
     smi_line, exp2_per_s = phase_environment()
     phase_build()
@@ -5446,6 +6171,7 @@ def main() -> int:
     phase_legacy_programs(p22)
     del p22
     phase_parallel(smi_line)
+    phase_tp_pp(smi_line)
     k2_err = phase_k2_vs_plain()
     phase_k2_bitequal()
     phase_k2_build_info()
@@ -5628,4 +6354,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase24-rank"]:  # one rank of phase 24
         raise SystemExit(_phase24_rank(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--phase25-rank"]:  # one rank of phase 25
+        raise SystemExit(_phase25_rank(*sys.argv[2:5]))
     raise SystemExit(main())

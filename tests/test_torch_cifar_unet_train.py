@@ -344,7 +344,6 @@ def test_cli_train_flags(tmp_path, monkeypatch, capsys):
                "--scan-steps=2": "dispatch mode",
                "--scan-unroll=2": "dispatch mode",
                "--host-loop": "dispatch mode", "--prng=rbg": "Philox",
-               "--tp": "U-Net TP and pipeline slice",
                "--layout=NHWC": "channels-last"}
     for flag, reason in reasons.items():
         assert cu.main(["train", "1", "--tiny", flag]) == 1, flag
@@ -358,3 +357,8 @@ def test_cli_train_flags(tmp_path, monkeypatch, capsys):
     synth.ensure_cifar(str(tmp_path), n_batches=5, per_batch=1)
     with pytest.raises(SystemExit, match="exceeds the dataset"):
         cu.main(["train", "1", "--tiny", "--device=cpu", "--batch=6"])
+    # --tp is ported: one process is one device, which runs unsharded
+    assert cu.main(["train", "1", "--tiny", "--device=cpu", "--tp",
+                    "--max-steps=1"]) == 0
+    assert "--tp: single device, running unsharded" in \
+        capsys.readouterr().out

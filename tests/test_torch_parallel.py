@@ -23,8 +23,8 @@ shapes. Every case holds the same numpy inputs:
 - the CLIs: ``torchrun --standalone --nproc-per-node=2 ... mnist_nn train
   1 --dp --device=cpu`` against the single-process ``train 1``, mnist_hinge
   ``train --dp`` printing what the single-process run prints, a batch that
-  does not divide over the ranks, and cifar_unet's ``--tp``/``--pp``
-  rejections.
+  does not divide over the ranks, and cifar_unet's rejections of the
+  flags it does not port.
 """
 
 import dataclasses
@@ -445,14 +445,28 @@ def test_mesh_single_process():
 
 def test_dryrun_multichip(capsys):
     """The twin of ``__graft_entry__.dryrun_multichip`` on 4 gloo CPU ranks:
-    the U-Net DP step, the mnist_nn DP×TP step and ring attention's
-    gradient run and are finite; the sections of the next slice say so."""
+    every section JAX's prints at 4 devices runs and is finite (the U-Net
+    DP, TP and DP×TP steps, the mnist_nn DP×TP step, ring attention's
+    gradient, gpipe, the hetero U-Net stages, the PP step and its 1F1B
+    schedule); the PP×DP sections say "skipped" with JAX's note, as JAX's
+    do below 6 devices."""
     line = dryrun_multichip(4)
-    assert line in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert line in out
+    assert ("dryrun_multichip(4): <6 devices — no 3×N stage×data "
+            "factorization, skipping the PPxDP section") in out
     assert line.startswith("dryrun_multichip(4): U-Net DP loss=")
     assert "mnist_nn DPxTP ce=" in line and "ce=skipped" not in line
     assert "SP ring-attn grad ok" in line
-    assert "U-Net TP loss=waiting for the U-Net TP and pipeline slice" in line
+    assert "waiting" not in line
+    for section in ("U-Net TP loss=", "U-Net DPxTP loss=",
+                    "PP U-Net train step loss=",
+                    "PP 1F1B train step loss="):
+        value = line.split(section)[1].split(",")[0]
+        assert np.isfinite(float(value)), section
+    assert "PP gpipe ok, PP hetero U-Net stages ok" in line
+    assert "PPxDP U-Net train step loss=skipped" in line
+    assert "PPxDP 1F1B train step loss=skipped" in line
 
 
 def _torchrun(argv, data_dir):
@@ -515,13 +529,20 @@ def test_cli_hinge_train_dp_prints_what_one_process_prints(ranks,
 
 def test_cli_dp_batch_must_divide_and_unet_rejections(ranks, capsys):
     """A batch that does not divide over the ranks raises with JAX's
-    message; cifar_unet's ``--tp``, ``--pp``, ``--pp-micro`` and
-    ``--pp-schedule`` stay rejected, naming the slice they wait for."""
+    message; cifar_unet rejects the flags it does not port, each with its
+    reason (``--layout=NHWC``, ``--remat``, ``--prng``, the XLA dispatch
+    modes), and the parallel flags outside train."""
     for r in ranks["two"]:
         rc, _ = r["batch"]
         assert rc == "--dp: batch size 63 is not divisible by 2 devices"
-    for flag in ("--tp", "--pp", "--pp-micro=4", "--pp-schedule=1f1b"):
+    for flag, reason in (("--layout=NHWC", "channels-last"),
+                         ("--remat", "torch.utils.checkpoint"),
+                         ("--prng=rbg", "torch.Generator"),
+                         ("--scan-steps=2", "XLA dispatch mode"),
+                         ("--host-loop", "XLA dispatch mode")):
         assert cu.main(["train", "1", "--tiny", flag]) == 1
         out = capsys.readouterr().out
-        assert "not supported by cifar_unet" in out
-        assert "the U-Net TP and pipeline slice" in out
+        assert "not supported by cifar_unet" in out and reason in out
+    for flag in ("--tp", "--pp", "--pp-micro=4", "--pp-schedule=1f1b"):
+        assert cu.main(["run", "1", "--tiny", flag]) == 1
+        assert "applies to train" in capsys.readouterr().out

@@ -34,9 +34,9 @@ def _t(x):
     return torch.from_numpy(np.array(x, copy=True))
 
 
-def run(cases_path: str, out_dir: str) -> int:
+def run(cases_path: str, out_dir: str, timeout=None) -> int:
     torch.set_num_threads(1)
-    rank = pmesh.distributed_init(device="cpu")
+    rank = pmesh.distributed_init(device="cpu", timeout=timeout)
     with open(cases_path, "rb") as f:
         cases = pickle.load(f)
     results = {name: globals()[fn](**kwargs) for name, fn, kwargs in cases}
@@ -45,15 +45,16 @@ def run(cases_path: str, out_dir: str) -> int:
     return 0
 
 
-def spawn(world: int, cases) -> list:
-    """Run ``cases`` in one launch of ``world`` gloo CPU ranks; returns
-    each rank's {case name: result}, in rank order."""
+def spawn(world: int, cases, timeout=None) -> list:
+    """Run ``cases`` in one launch of ``world`` gloo CPU ranks (``timeout``:
+    the process group's, in seconds); returns each rank's {case name:
+    result}, in rank order."""
     with tempfile.TemporaryDirectory(prefix="bla_ranks_") as tmp:
         path = os.path.join(tmp, "cases.pkl")
         with open(path, "wb") as f:
             pickle.dump(cases, f)
         with contextlib.redirect_stdout(io.StringIO()):
-            spawn_ranks(run, world, path, tmp)
+            spawn_ranks(run, world, path, tmp, timeout)
         out = []
         for r in range(world):
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
@@ -306,3 +307,201 @@ def ring(q, k, v, g):
     o.backward(rows(_t(g), dim=1))
     return {"o": _np(o), "dq": _np(q.grad), "dk": _np(k.grad),
             "dv": _np(v.grad)}
+
+
+# ---------------------------------------------------------------------------
+# cifar_unet tensor parallelism
+# ---------------------------------------------------------------------------
+
+
+def _unet_cfg(cfg_kwargs):
+    import dataclasses
+
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+
+    return dataclasses.replace(cu.TINY, **cfg_kwargs)
+
+
+@contextlib.contextmanager
+def _schedule(schedule):
+    """The U-Net's ``ddpm_schedule`` replaced by ``schedule`` (the JAX
+    package's (betas, alphas, alpha_bars): its f32 cumprod may round
+    otherwise) when given."""
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+
+    real = cu.ddpm_schedule
+    if schedule is not None:
+        fixed = tuple(_t(a) for a in schedule)
+        cu.ddpm_schedule = lambda cfg: fixed
+    try:
+        yield
+    finally:
+        cu.ddpm_schedule = real
+
+
+@contextlib.contextmanager
+def _masks(mask_seed, data_index):
+    """The U-Net's dropout replaced by ``injected_dropout``: call i's mask
+    from ``default_rng([mask_seed, data_index, i])``, the same on every
+    rank of one model line."""
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+
+    dropout, calls = injected_dropout(
+        lambda i, shape, keep: torch.from_numpy(
+            np.random.default_rng([mask_seed, data_index, i]).random(shape)
+            < keep))
+    real = cu.dropout
+    cu.dropout = dropout
+    try:
+        yield calls
+    finally:
+        cu.dropout = real
+
+
+def unet_tp_step(params, x0, t, noise, mask_seed, cfg_kwargs, dp,
+                 schedule=None):
+    """One TINY TP step on the (data 2 × model 2) mesh of a world of 4:
+    with ``dp`` the DP×TP step (x0, t, noise cut over "data", masks per
+    data index), else every model line runs the TP step on the whole batch.
+    ``schedule``: the DDPM schedule to use (``_schedule``). Returns the
+    loss and the gathered params and Adam moments."""
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn.optim import adam_init
+    from big_linear_algebra_tpu_torch.parallel import make_mesh
+
+    cfg = _unet_cfg(cfg_kwargs)
+    mesh = make_mesh({"data": 2, "model": 2})
+    full = _t(params)
+    specs = cu.tp_param_specs(full, 2)
+    p, opt = cu.place_dp_tp(mesh, full, adam_init(full))
+    shard = (cu.dp_tp_batch_sharding(mesh) if dp
+             else (lambda x: x))
+    step = cu.make_train_step_tp(mesh, specs, cfg,
+                                 data_axis="data" if dp else None)
+    with _masks(mask_seed, mesh.index("data") if dp else 0) as calls, \
+            _schedule(schedule):
+        p, opt, loss = step(p, opt, shard(_t(x0)),
+                            torch.Generator().manual_seed(3),
+                            draws=(shard(_t(t)), shard(_t(noise))))
+    p, opt = cu.gather_tp(cu.TPLayout(mesh, specs), p, opt)
+    return {"loss": float(loss), "params": _np(p), "m": _np(opt.m),
+            "v": _np(opt.v), "calls": calls}
+
+
+def unet_tp_place(params):
+    """``place_tp`` over a model axis of 2 (of the (data 2 × model 2) mesh)
+    and of 4, each followed by ``gather_tp``: the tree back, its leaves'
+    local shapes; and one ``--bf16-params`` Adam write of each rank's
+    slices with ``TPLayout.sr_index``, with the slices of a full gradient
+    tree."""
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn.optim import (adam_init,
+                                                       adam_update, tree_map)
+    from big_linear_algebra_tpu_torch.parallel import make_mesh
+
+    full = _t(params)
+    out = {}
+    for name, axes in (("model 2", {"data": 2, "model": 2}),
+                       ("model 4", {"model": 4})):
+        mesh = make_mesh(axes)
+        layout = cu.TPLayout(mesh, cu.tp_param_specs(full, axes["model"]))
+        local, opt = cu.place_tp(mesh, full, adam_init(full))
+        back, opt_back = cu.gather_tp(layout, local, opt)
+        out[name] = {"back": _np(back), "index": mesh.index("model"),
+                     "shapes": tree_map(lambda x: tuple(x.shape), local),
+                     "opt": _np(opt_back.m)}
+        p16 = tree_map(lambda x: x.to(torch.bfloat16), full)
+        grads = tree_map(lambda x: torch.sin(3.0 * x + 1.0), full)
+        new, _ = adam_update(layout.place(p16), layout.place(grads),
+                             adam_init(layout.place(p16)), 1e-2,
+                             sr_seed=1234567, sr_index=layout.sr_index(
+                                 layout.place(p16)))
+        out[name]["sr"] = _np(layout.gather(new))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# pipelines
+# ---------------------------------------------------------------------------
+
+
+def _stage_mesh():
+    from big_linear_algebra_tpu_torch.parallel import make_mesh
+
+    return make_mesh({"stage": 3})
+
+
+def gpipe_toy(ws, xs):
+    """``gpipe`` of ``tanh(x @ p)`` over the 3 ranks: the output and the
+    gradient of sum(out²) with respect to the stacked params; and a stage
+    that is not total on zeros (x/‖x‖): its output and gradient."""
+    from big_linear_algebra_tpu_torch.parallel import gpipe
+
+    mesh = _stage_mesh()
+    out = {}
+
+    def nontotal(p, x):
+        x = x / torch.sqrt(torch.sum(x * x))  # NaN at x = 0
+        return torch.tanh(x @ p)
+
+    for name, fn in (("tanh", lambda p, x: torch.tanh(x @ p)),
+                     ("nontotal", nontotal)):
+        w = _t(ws).requires_grad_()
+        o = gpipe(fn, w, _t(xs), mesh)
+        torch.sum(o ** 2).backward()
+        out[name] = {"out": _np(o), "grad": _np(w.grad)}
+    return out
+
+
+def unet_hetero(params, xs, ts, cfg_kwargs, key):
+    """``gpipe_hetero`` over the TINY U-Net's three stages: inference mode,
+    train mode with ``key``, and the two key/train mismatches' errors."""
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.parallel.pipeline import gpipe_hetero
+
+    cfg = _unet_cfg(cfg_kwargs)
+    mesh = _stage_mesh()
+    sp = cu.split_params_stages(_t(params))
+    boundary = (_t(xs), _t(ts))
+    out = {"inference": _np(gpipe_hetero(cu.unet_pipeline_stages(cfg), sp,
+                                         boundary, mesh)),
+           "train": _np(gpipe_hetero(cu.unet_pipeline_stages(cfg, True), sp,
+                                     boundary, mesh, key=key))}
+    for name, train, k in (("no key", True, None), ("key", False, key)):
+        try:
+            gpipe_hetero(cu.unet_pipeline_stages(cfg, train), sp, boundary,
+                         mesh, key=k)
+        except ValueError as e:
+            out[f"error {name}"] = str(e)
+    return out
+
+
+def unet_pp_step(params, x0, t, noise, cfg_kwargs, n_micro, schedule,
+                 data=1, ddpm=None):
+    """One TINY PP step (``make_train_step_pp``) with (t, noise) injected,
+    on the 3 ranks, or with ``data`` > 1 on a (stage 3 × data) mesh;
+    the generator of seed 3 gives its step seed; ``ddpm``: the DDPM
+    schedule to use (``_schedule``). Returns the loss, the params and the
+    Adam moments, and a hash of this rank's params."""
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn.optim import adam_init, tree_leaves
+    from big_linear_algebra_tpu_torch.parallel import make_mesh, spmd
+
+    cfg = _unet_cfg(cfg_kwargs)
+    axes = {"stage": 3} if data == 1 else {"stage": 3, "data": data}
+    mesh = make_mesh(axes)
+    p = _t(params)
+    bytes0 = dict(spmd.collective_bytes)
+    step = cu.make_train_step_pp(mesh, cfg, n_micro=n_micro,
+                                 schedule=schedule,
+                                 data_axis=None if data == 1 else "data")
+    with _schedule(ddpm):
+        p, opt, loss = step(p, adam_init(p), _t(x0),
+                            torch.Generator().manual_seed(3),
+                            draws=(_t(t), _t(noise)))
+    digest = hashlib.sha256()
+    for leaf in tree_leaves(p):
+        digest.update(leaf.contiguous().view(torch.uint8).numpy().tobytes())
+    return {"loss": float(loss), "params": _np(p), "m": _np(opt.m),
+            "v": _np(opt.v), "hash": digest.hexdigest(),
+            "hop bytes": spmd.collective_bytes["hop"] - bytes0["hop"]}
