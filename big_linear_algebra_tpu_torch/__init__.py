@@ -11,10 +11,15 @@ Ported so far: the five model programs' ``init | train | run`` CLIs
 (``models/``: mnist_nn, cifar_unet, my_first_model, the legacy mnist,
 mnist_hinge) and the smoke program, with every Pallas kernel of the JAX
 package as a CUDA kernel (``csrc/``), and the debug helpers
-(``utils/debug.py``), and the data- and sequence-parallel modes on
-``torch.distributed`` (``parallel/``: the mesh, DP for the three
-trainable programs, mnist_nn's DP×TP step, ring attention). The U-Net's
-tensor parallelism and the pipeline modes are not ported yet.
+(``utils/debug.py``), the parallel modes on ``torch.distributed``
+(``parallel/``: the mesh, DP for the three trainable programs, mnist_nn's
+DP×TP step, ring attention, the U-Net's tensor parallelism and the
+pipeline modes), and the U-Net's ``--layout=NHWC`` (the channels-last
+twins ``conv2d_nhwc``, ``group_norm_nhwc``, ``self_attention_block_nhwc``)
+and ``--remat`` (per-block recompute that replays the block's draws). Not
+ported: the XLA dispatch modes (``--scan-steps``, ``--scan-unroll``,
+``--host-loop``) and ``--prng`` (the port draws from
+``torch.Generator``).
 
 This package imports ``torch`` and numpy, never ``jax`` and never the JAX
 package. Importing it switches TF32 off (``ops/precision.py``).

@@ -38,9 +38,15 @@ Verbs:
   down, mid and up stages on three ranks (``make_train_step_pp``,
   ``parallel/pipeline.py``), n microbatches a batch; with ``--dp`` at six
   or more ranks a ``stage 3 × data n`` mesh.
-  Not ported: ``--layout=NHWC``, ``--remat``, ``--prng`` and the XLA
-  dispatch modes (``--scan-steps``, ``--scan-unroll``, ``--host-loop``);
-  ``main`` rejects each with its reason.
+- ``--layout=NHWC`` (``Config.layout``): every map channels-last inside
+  the net (``conv2d_nhwc``, ``group_norm_nhwc``,
+  ``self_attention_block_nhwc``), one transpose at entry and one at exit;
+  ``--remat`` (``Config.remat``): each resnet block recomputed in the
+  backward from its inputs, its draws replayed (``_recomputed``). Both
+  reach ``run``, ``train`` and every parallel mode.
+  Not ported: ``--prng`` and the XLA dispatch modes (``--scan-steps``,
+  ``--scan-unroll``, ``--host-loop``); ``main`` rejects each with its
+  reason.
 Every draw (DDPM noise and timesteps, dropout masks, sampling noise, the
 stochastic-rounding seeds of ``--bf16-params``) comes from one
 ``torch.Generator`` on the model's device (Philox on a GPU); JAX's
@@ -55,8 +61,9 @@ fused block (K5a forward, K5b recompute backward, ``csrc/fused_block.cu``):
 at 32×32 the blocks of down_3, down_4, mid, up_1 and up_2. Its dropout bits
 come from a seed the block draws from the generator where the unfused block
 draws its mask. Everything else is plain torch (cuDNN convs, cuBLAS
-products), as the JAX package leaves it to XLA. Activations are NCHW and
-parameters the JAX package's nested dict, with the same keys and layouts.
+products), as the JAX package leaves it to XLA. Activations are NCHW (NHWC
+inside the net under ``--layout=NHWC``) and parameters the JAX package's
+nested dict, with the same keys and layouts.
 """
 
 from __future__ import annotations
@@ -71,6 +78,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from big_linear_algebra_tpu_torch.ckpt import pytree as ckpt_pytree
 from big_linear_algebra_tpu_torch.data import bmp as bmp_io
@@ -86,13 +94,16 @@ from big_linear_algebra_tpu_torch.data.csv import (
 )
 from big_linear_algebra_tpu_torch.data.prefetch import prefetch_to_device
 from big_linear_algebra_tpu_torch.models import common
-from big_linear_algebra_tpu_torch.nn.attention import self_attention_block
-from big_linear_algebra_tpu_torch.nn.conv import conv2d
+from big_linear_algebra_tpu_torch.nn.attention import (
+    self_attention_block,
+    self_attention_block_nhwc,
+)
+from big_linear_algebra_tpu_torch.nn.conv import conv2d, conv2d_nhwc
 from big_linear_algebra_tpu_torch.nn import fused_block
 from big_linear_algebra_tpu_torch.nn.dropout import dropout
 from big_linear_algebra_tpu_torch.nn.init import he_uniform, xavier_uniform
 from big_linear_algebra_tpu_torch.nn.losses import mse_loss
-from big_linear_algebra_tpu_torch.nn.norm import group_norm
+from big_linear_algebra_tpu_torch.nn.norm import group_norm, group_norm_nhwc
 from big_linear_algebra_tpu_torch.nn.optim import (
     AdamState,
     adam_init,
@@ -144,6 +155,13 @@ class Config:
     param_dtype: str = "float32"
     # --fused-block: the resnet blocks at H·W ≤ 64 as one fused block (K5)
     fused_block: bool = False
+    # --layout: the maps inside the net, "NCHW" or "NHWC" (channels-last,
+    # transposed once at entry and exit; inputs, outputs and parameters
+    # keep their layouts either way)
+    layout: str = "NCHW"
+    # --remat: each resnet block recomputed in the backward from its
+    # inputs (its activations are not kept), its draws replayed
+    remat: bool = False
 
 
 CONFIG = Config()
@@ -415,10 +433,11 @@ def time_embedding(t: torch.Tensor, cfg: Config) -> torch.Tensor:
     return relu(torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1))
 
 
-def _gn_relu(x: torch.Tensor, cfg: Config) -> torch.Tensor:
+def _gn_relu(x: torch.Tensor, cfg: Config, nhwc: bool = False
+             ) -> torch.Tensor:
     """The GN→ReLU pair every reference block opens with
     (model/cifar_unet.c:1046-1047)."""
-    return relu(group_norm(x, cfg.group_size))
+    return relu((group_norm_nhwc if nhwc else group_norm)(x, cfg.group_size))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -447,32 +466,84 @@ def _full(w):
     return w.gather(w.local, w.dim) if isinstance(w, _Shard) else w
 
 
-def _conv(x: torch.Tensor, w, stride: int, add=None) -> torch.Tensor:
-    """``conv2d`` plus ``add[:, :, None, None]`` when given. A sharded
-    kernel computes this rank's output channels (and ``add`` is their
-    slice); the full activation is then gathered along the channels, so
-    everything after it sees whole activations (the column-parallel GEMM
-    GSPMD makes of JAX's conv)."""
-    y = conv2d(x, _local(w), stride)
+def _conv(x: torch.Tensor, w, stride: int, add=None,
+          nhwc: bool = False) -> torch.Tensor:
+    """``conv2d`` (``conv2d_nhwc`` with ``nhwc``) plus ``add`` (B, F) on
+    every position when given. A sharded kernel computes this rank's
+    output channels (and ``add`` is their slice); the full activation is
+    then gathered along the channels, so everything after it sees whole
+    activations (the column-parallel GEMM GSPMD makes of JAX's conv)."""
+    y = (conv2d_nhwc if nhwc else conv2d)(x, _local(w), stride)
     if add is not None:
-        y = y + add[:, :, None, None]
-    return w.gather(y, 1) if isinstance(w, _Shard) else y
+        y = y + (add[:, None, None, :] if nhwc else add[:, :, None, None])
+    return w.gather(y, -1 if nhwc else 1) if isinstance(w, _Shard) else y
 
 
-def _resnet_block(x, temb, p, cfg: Config, generator, train: bool):
+def _dropout(h: torch.Tensor, cfg: Config, generator, train: bool,
+             nhwc: bool) -> torch.Tensor:
+    """The block's dropout. An NHWC map's mask is drawn in the logical
+    NCHW order and permuted, so that both layouts consume ``generator``
+    alike and drop the same elements (the JAX package draws in the
+    activation's own layout, so its two layouts drop different ones)."""
+    if nhwc:
+        return dropout(h.permute(0, 3, 1, 2), cfg.dropout_rate, generator,
+                       deterministic=not train).permute(0, 2, 3, 1)
+    return dropout(h, cfg.dropout_rate, generator, deterministic=not train)
+
+
+def _recomputed(body, generator, *args):
+    """``body(*args, generator)`` under ``torch.utils.checkpoint``: its
+    activations are dropped after the forward and recomputed from ``args``
+    when the backward reaches them. That restores only the global RNG
+    states, so the recompute draws from a new generator set to
+    ``generator``'s state at entry: the same masks (and fused-block seeds)
+    as the forward, while ``generator`` itself advances only as the plain
+    forward advances it. The graph is the plain one, so the step is
+    bit-equal to the step without recompute. The recompute runs the whole
+    body (no early stop), so under TP every rank replays every gather."""
+    state = None if generator is None else generator.get_state()
+    calls = 0
+
+    def run(*a):
+        nonlocal calls
+        gen = generator
+        if calls and generator is not None:
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(state)
+        calls += 1
+        return body(*a, gen)
+
+    with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+        return torch.utils.checkpoint.checkpoint(
+            run, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def _resnet_block(x, temb, p, cfg: Config, generator, train: bool,
+                  nhwc: bool = False):
     """GN→ReLU→conv3×3 → +time → GN→ReLU→dropout→conv3×3 + residual
     (``_forward_resnet``, model/cifar_unet.c:1044-1072). In train mode the
     dropout mask is drawn from ``generator``, so the blocks draw in the JAX
     package's key order (down 0–7, mid 8–9, up 10–17). With
     ``cfg.fused_block`` a block at H·W ≤ 64 that the gate admits is one
-    fused block (the JAX package's dispatch), which draws its dropout seed
-    from ``generator`` in place of the mask. Under TP the time dense
-    computes this rank's channels of ``td``, added to the conv's own
-    channels; a fused block gathers its kernels and ``td`` and runs whole
-    on every rank (GSPMD has no partitioning rule for a ``pallas_call``)."""
+    fused block (the JAX package's dispatch; NCHW only, as there), which
+    draws its dropout seed from ``generator`` in place of the mask. Under
+    TP the time dense computes this rank's channels of ``td``, added to the
+    conv's own channels; a fused block gathers its kernels and ``td`` and
+    runs whole on every rank (GSPMD has no partitioning rule for a
+    ``pallas_call``). With ``cfg.remat``, while autograd records, the block
+    is recomputed in the backward (``_recomputed``)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return _recomputed(_resnet_block_body, generator, x, temb, p, cfg,
+                           train, nhwc)
+    return _resnet_block_body(x, temb, p, cfg, train, nhwc, generator)
+
+
+def _resnet_block_body(x, temb, p, cfg: Config, train: bool, nhwc: bool,
+                       generator):
     td = temb @ _local(p["time_w"]) + _local(p["time_b"])  # (B, out)
-    in_ch, out_ch = x.shape[1], p["conv_1"].shape[0]
-    if (cfg.fused_block and x.shape[2] * x.shape[3] <= 64
+    in_ch = x.shape[-1] if nhwc else x.shape[1]
+    out_ch = p["conv_1"].shape[0]
+    if (cfg.fused_block and not nhwc and x.shape[2] * x.shape[3] <= 64
             and fused_block.supported(x.shape, in_ch, out_ch,
                                       p["conv_1"].shape[-1], cfg.group_size,
                                       x.dtype)):
@@ -486,95 +557,116 @@ def _resnet_block(x, temb, p, cfg: Config, generator, train: bool):
         return fused_block.fused_resnet_block(
             x, td, _full(p["conv_1"]), _full(p["conv_2"]), w3, seed,
             cfg.group_size, cfg.dropout_rate, train)
-    h = _conv(_gn_relu(x, cfg), p["conv_1"], 1, add=td)
-    h = _gn_relu(h, cfg)
-    h = dropout(h, cfg.dropout_rate, generator, deterministic=not train)
-    h = _conv(h, p["conv_2"], 1)
-    return h + (x if in_ch == out_ch else _conv(x, p["conv_3"], 1))
+    h = _conv(_gn_relu(x, cfg, nhwc), p["conv_1"], 1, add=td, nhwc=nhwc)
+    h = _gn_relu(h, cfg, nhwc)
+    h = _dropout(h, cfg, generator, train, nhwc)
+    h = _conv(h, p["conv_2"], 1, nhwc=nhwc)
+    return h + (x if in_ch == out_ch
+                else _conv(x, p["conv_3"], 1, nhwc=nhwc))
 
 
-def _upsample(x: torch.Tensor, stride: int) -> torch.Tensor:
+def _upsample(x: torch.Tensor, stride: int, nhwc: bool = False
+              ) -> torch.Tensor:
     """Nearest-neighbour ×stride (``_nearest_neighbours``,
     model/cifar_unet.c:1074-1086)."""
-    return x.repeat_interleave(stride, dim=2).repeat_interleave(stride, dim=3)
+    h, w = (1, 2) if nhwc else (2, 3)
+    return x.repeat_interleave(stride, dim=h).repeat_interleave(stride, dim=w)
 
 
-def _down_stage(params, x, temb, cfg: Config, generator, train: bool):
+def _down_stage(params, x, temb, cfg: Config, generator, train: bool,
+                nhwc: bool = False):
     """Down path (model/cifar_unet.c:1103-1118): the four skip activations
-    (skip_4 is also the mid stage's input)."""
+    (skip_4 is also the mid stage's input), in the net's layout."""
     s = cfg.resize_stride
+    attn = self_attention_block_nhwc if nhwc else self_attention_block
 
     def block(h, p):
-        return _resnet_block(h, temb, p, cfg, generator, train)
+        return _resnet_block(h, temb, p, cfg, generator, train, nhwc)
+
+    def down(h, w):
+        return _conv(h, w, s, nhwc=nhwc)
 
     h = block(x, params["down_1"]["resnet_1"])
     skip_1 = block(h, params["down_1"]["resnet_2"])
-    h = _conv(skip_1, params["down_1"]["conv"], s)
+    h = down(skip_1, params["down_1"]["conv"])
 
     h = block(h, params["down_2"]["resnet_1"])
-    h = self_attention_block(h, params["down_2"]["attn_1"])
+    h = attn(h, params["down_2"]["attn_1"])
     h = block(h, params["down_2"]["resnet_2"])
-    skip_2 = self_attention_block(h, params["down_2"]["attn_2"])
-    h = _conv(skip_2, params["down_2"]["conv"], s)
+    skip_2 = attn(h, params["down_2"]["attn_2"])
+    h = down(skip_2, params["down_2"]["conv"])
 
     h = block(h, params["down_3"]["resnet_1"])
     skip_3 = block(h, params["down_3"]["resnet_2"])
-    h = _conv(skip_3, params["down_3"]["conv"], s)
+    h = down(skip_3, params["down_3"]["conv"])
 
     h = block(h, params["down_4"]["resnet_1"])
     skip_4 = block(h, params["down_4"]["resnet_2"])
     return skip_1, skip_2, skip_3, skip_4
 
 
-def _mid_stage(params, skip_4, temb, cfg: Config, generator, train: bool):
+def _mid_stage(params, skip_4, temb, cfg: Config, generator, train: bool,
+               nhwc: bool = False):
     """Mid: resnet → attention → resnet (model/cifar_unet.c:1121-1123)."""
+    attn = self_attention_block_nhwc if nhwc else self_attention_block
     h = _resnet_block(skip_4, temb, params["mid"]["resnet_1"], cfg,
-                      generator, train)
-    h = self_attention_block(h, params["mid"]["attn"])
+                      generator, train, nhwc)
+    h = attn(h, params["mid"]["attn"])
     return _resnet_block(h, temb, params["mid"]["resnet_2"], cfg, generator,
-                         train)
+                         train, nhwc)
 
 
-def _up_stage(params, h, skips, temb, cfg: Config, generator, train: bool):
+def _up_stage(params, h, skips, temb, cfg: Config, generator, train: bool,
+              nhwc: bool = False):
     """Up path + output head (model/cifar_unet.c:1126-1165): ``[h, skip]``
     concatenated along channels (:1088-1097), the channel-matching conv only
     when dims differ, the §7.2 up_3 wiring fixed."""
     skip_1, skip_2, skip_3, skip_4 = skips
     s = cfg.resize_stride
     d1, d2, d3, d4 = cfg.embed_dims
+    attn = self_attention_block_nhwc if nhwc else self_attention_block
+    ch = -1 if nhwc else 1
 
     def block(h, p):
-        return _resnet_block(h, temb, p, cfg, generator, train)
+        return _resnet_block(h, temb, p, cfg, generator, train, nhwc)
 
-    h = torch.cat([h, skip_4], dim=1)
+    def up(h, w, d_in, d_out):
+        h = _upsample(h, s, nhwc)
+        return _conv(h, w, 1, nhwc=nhwc) if d_in != d_out else h
+
+    h = torch.cat([h, skip_4], dim=ch)
     h = block(h, params["up_1"]["resnet_1"])
     h = block(h, params["up_1"]["resnet_2"])
-    h = _upsample(h, s)
-    if d4 != d3:
-        h = _conv(h, params["up_1"]["conv"], 1)
+    h = up(h, params["up_1"]["conv"], d4, d3)
 
-    h = torch.cat([h, skip_3], dim=1)
+    h = torch.cat([h, skip_3], dim=ch)
     h = block(h, params["up_2"]["resnet_1"])
     h = block(h, params["up_2"]["resnet_2"])
-    h = _upsample(h, s)
-    if d3 != d2:
-        h = _conv(h, params["up_2"]["conv"], 1)
+    h = up(h, params["up_2"]["conv"], d3, d2)
 
-    h = torch.cat([h, skip_2], dim=1)
+    h = torch.cat([h, skip_2], dim=ch)
     h = block(h, params["up_3"]["resnet_1"])
-    h = self_attention_block(h, params["up_3"]["attn_1"])
+    h = attn(h, params["up_3"]["attn_1"])
     h = block(h, params["up_3"]["resnet_2"])
-    h = self_attention_block(h, params["up_3"]["attn_2"])  # §7.2 fixed
-    h = _upsample(h, s)
-    if d2 != d1:
-        h = _conv(h, params["up_3"]["conv"], 1)
+    h = attn(h, params["up_3"]["attn_2"])  # §7.2 fixed
+    h = up(h, params["up_3"]["conv"], d2, d1)
 
-    h = torch.cat([h, skip_1], dim=1)
+    h = torch.cat([h, skip_1], dim=ch)
     h = block(h, params["up_4"]["resnet_1"])
     h = block(h, params["up_4"]["resnet_2"])
 
     # Output (:1163-1165)
-    return _conv(_gn_relu(h, cfg), params["output_conv"], 1)
+    return _conv(_gn_relu(h, cfg, nhwc), params["output_conv"], 1, nhwc=nhwc)
+
+
+def _to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) → a contiguous (B, H, W, C): channels-last memory."""
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def _to_nchw(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) → its (B, C, H, W) view (no copy)."""
+    return x.permute(0, 3, 1, 2)
 
 
 def forward(params: Params, x: torch.Tensor, t: torch.Tensor,
@@ -587,16 +679,20 @@ def forward(params: Params, x: torch.Tensor, t: torch.Tensor,
     compute); the output is in the compute dtype. ``train`` switches
     dropout on, its masks drawn from ``generator``. ``tp``: a ``TPLayout``
     when ``params`` are this rank's TP slices (``place_tp``); the sharded
-    convs then compute their own channels and gather them."""
+    convs then compute their own channels and gather them. Under
+    ``cfg.layout == "NHWC"`` x is transposed once at entry and the output
+    is a (B, 3, H, W) view of the channels-last result."""
     dt = getattr(torch, cfg.compute_dtype)
     params = tree_map(lambda p: p if p.dtype == dt else p.to(dt), params)
     if tp is not None:
         params = tp.mark(params)
-    x = x.to(dt)
+    nhwc = cfg.layout == "NHWC"
+    x = _to_nhwc(x.to(dt)) if nhwc else x.to(dt)
     temb = time_embedding(t, cfg).to(dt)
-    skips = _down_stage(params, x, temb, cfg, generator, train)
-    h = _mid_stage(params, skips[3], temb, cfg, generator, train)
-    return _up_stage(params, h, skips, temb, cfg, generator, train)
+    skips = _down_stage(params, x, temb, cfg, generator, train, nhwc)
+    h = _mid_stage(params, skips[3], temb, cfg, generator, train, nhwc)
+    out = _up_stage(params, h, skips, temb, cfg, generator, train, nhwc)
+    return _to_nchw(out) if nhwc else out
 
 
 # ---------------------------------------------------------------------------
@@ -950,12 +1046,16 @@ def unet_pipeline_stages(cfg: Config = CONFIG, train: bool = False) -> list:
     """The U-Net as three stages for ``gpipe_hetero`` (the same
     ``_down_stage``/``_mid_stage``/``_up_stage`` ``forward`` runs).
     Boundary 0 is ``(x, t as a float)``; the skips and the time embedding
-    travel in the boundaries. ``train=False``: ``(p, boundary)``, dropout
+    travel in the boundaries. Under ``cfg.layout == "NHWC"`` the down stage
+    transposes x at entry and the up stage its output at exit, as
+    ``forward`` does: boundary 0 and the output are NCHW, the boundaries
+    between the stages carry channels-last maps. ``train=False``: ``(p, boundary)``, dropout
     off. ``train=True``: ``(p, boundary, generator)``, the masks from the
     per-(stage, microbatch) generator ``gpipe_hetero(key=...)`` makes. A
     mismatch raises, as in JAX: stages that silently ignored a generator
     would run deterministic where the caller believes dropout is on."""
     dt = getattr(torch, cfg.compute_dtype)
+    nhwc = cfg.layout == "NHWC"
 
     def _check(generator):
         if train and generator is None:
@@ -973,19 +1073,22 @@ def unet_pipeline_stages(cfg: Config = CONFIG, train: bool = False) -> list:
         _check(generator)
         x, t = boundary
         temb = time_embedding(t, cfg).to(dt)
-        skips = _down_stage(_cast(p), x.to(dt), temb, cfg, generator, train)
+        x = _to_nhwc(x.to(dt)) if nhwc else x.to(dt)
+        skips = _down_stage(_cast(p), x, temb, cfg, generator, train, nhwc)
         return skips + (temb,)
 
     def stage_mid(p, boundary, generator=None):
         _check(generator)
         s1, s2, s3, s4, temb = boundary
-        h = _mid_stage(_cast(p), s4, temb, cfg, generator, train)
+        h = _mid_stage(_cast(p), s4, temb, cfg, generator, train, nhwc)
         return h, (s1, s2, s3, s4), temb
 
     def stage_up(p, boundary, generator=None):
         _check(generator)
         h, skips, temb = boundary
-        return _up_stage(_cast(p), h, skips, temb, cfg, generator, train)
+        out = _up_stage(_cast(p), h, skips, temb, cfg, generator, train,
+                        nhwc)
+        return _to_nchw(out) if nhwc else out
 
     return [stage_down, stage_mid, stage_up]
 
@@ -1264,10 +1367,14 @@ def _cfg_from_flags(flags) -> Config:
     if "batch" in flags:
         cfg = dataclasses.replace(
             cfg, batch_size=common.positive_int_flag(flags, "batch"))
-    if "layout" in flags and str(flags["layout"]).upper() != "NCHW":
-        # NHWC is rejected by main() with its reason
-        raise ValueError(
-            f"--layout must be NCHW or NHWC, got {flags['layout']!r}")
+    if "layout" in flags:
+        layout = str(flags["layout"]).upper()
+        if layout not in ("NCHW", "NHWC"):
+            raise ValueError(
+                f"--layout must be NCHW or NHWC, got {flags['layout']!r}")
+        cfg = dataclasses.replace(cfg, layout=layout)
+    if common.presence_flag(flags, "remat"):
+        cfg = dataclasses.replace(cfg, remat=True)
     if "image-size" in flags:
         size = common.positive_int_flag(flags, "image-size")
         if size % 32:
@@ -1577,18 +1684,10 @@ def main(argv=None) -> int:
         extra_flags=("tiny", "image-size", "sample-seed", "bf16-params",
                      "layout", "batch", "max-steps", "keep", "keep-best",
                      "jsonl", "fused-block", "dp", "tp", "pp", "pp-micro",
-                     "pp-schedule"),
+                     "pp-schedule", "remat"),
         unsupported_flags={
-            "layout=NHWC": "the channels-last twins are not ported yet "
-                           "(ROADMAP Queue 1: one code path on "
-                           "torch.channels_last)",
             "prng": "the port draws from torch.Generator (Philox on the "
                     "GPU); rbg/threefry are JAX's generators",
-            "remat": "torch.utils.checkpoint restores only the global RNG "
-                     "states, not the explicit torch.Generator the dropout "
-                     "masks come from, so recomputed masks would differ "
-                     "from the forward's; it waits for a port that "
-                     "handles that (ROADMAP Queue 1)",
             **{f: common.XLA_DISPATCH_MODE
                for f in ("scan-steps", "scan-unroll", "host-loop")},
         })

@@ -403,6 +403,15 @@ def self_attention_block(x: torch.Tensor,
     return out.transpose(1, 2).reshape(b, c, h, w)
 
 
+def self_attention_block_nhwc(x: torch.Tensor,
+                              params: Mapping[str, torch.Tensor]
+                              ) -> torch.Tensor:
+    """(B, H, W, C) → (B, H, W, C), the channels-last twin: the tokens are
+    a reshape (C already trails), no transpose either way."""
+    b, h, w, c = x.shape
+    return _attention_core(x.reshape(b, h * w, c), params).reshape(b, h, w, c)
+
+
 def _attention_core(tokens: torch.Tensor,
                     params: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """(B, N, C) → (B, N, C): projections → attention → output dense with

@@ -4,7 +4,8 @@
 Inverted dropout as in the JAX package: survivors are scaled by 1/(1−p), so
 eval needs no scaling. The mask comes from an explicit ``torch.Generator`` on
 x's device; its bits differ from the JAX package's keys, the distribution is
-the same.
+the same. The output keeps x's memory layout (a channels-last view stays
+channels-last).
 """
 
 from __future__ import annotations
@@ -20,5 +21,6 @@ def dropout(x: torch.Tensor, rate: float,
     if deterministic or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+    drop = torch.rand(x.shape, generator=generator, device=x.device) >= keep
+    # in x's layout (torch.where would lay its output out as the mask)
+    return (x / keep).masked_fill_(drop, 0.0).to(x.dtype)

@@ -16,7 +16,9 @@ package:
   / denom``, with the forward's group means (ragged mask included).
 
 The JAX package leaves this op to XLA, so the port writes it as plain torch
-ops inside a ``torch.autograd.Function``.
+ops inside a ``torch.autograd.Function``. ``group_norm_nhwc`` is the
+channels-last twin, (..., H, W, C), whose groups are reduced where they lie
+(over H·W and the group's channels), so its maps stay channels-last.
 """
 
 from __future__ import annotations
@@ -30,31 +32,63 @@ def _stat_dtype(dtype: torch.dtype) -> torch.dtype:
     return dtype if dtype.itemsize >= 4 else torch.float32
 
 
-def _group_reduce(x: torch.Tensor, group_size: int, with_var: bool):
+def _group_reduce(x: torch.Tensor, group_size: int, with_var: bool,
+                  nhwc: bool = False):
     """Per-group (mean, var) of x (..., C, H, W), broadcast back per channel
-    as (..., C, 1, 1); var is None without ``with_var``. The one place the
-    group formulas live, for the forward's statistics and the backward's
-    means alike."""
-    *lead, c, h, w = x.shape
+    as (..., C, 1, 1); with ``nhwc`` of x (..., H, W, C) as (..., 1, 1, C).
+    var is None without ``with_var``. The one place the group formulas
+    live, for the forward's statistics and the backward's means alike, in
+    either layout."""
+    if nhwc:
+        *lead, h, w, c = x.shape
+    else:
+        *lead, c, h, w = x.shape
     n_groups = -(-c // group_size)
     pad_c = n_groups * group_size - c
-    # (..., groups, group_size·H·W): one group's elements on the last axis
-    xp = F.pad(x, (0, 0, 0, 0, 0, pad_c)) if pad_c else x
-    xg = xp.reshape(*lead, n_groups, group_size * h * w)
+    if nhwc:
+        # (..., H·W, groups, group_size)
+        xp = F.pad(x, (0, pad_c)) if pad_c else x
+        xg = xp.reshape(*lead, h * w, n_groups, group_size)
+        mask_shape = (n_groups, group_size)
+    else:
+        # (..., groups, group_size·H·W): one group's elements on the last axis
+        xp = F.pad(x, (0, 0, 0, 0, 0, pad_c)) if pad_c else x
+        xg = xp.reshape(*lead, n_groups, group_size * h * w)
+        mask_shape = (n_groups, group_size * h * w)
+
+    def group_sum(t):
+        if not nhwc:
+            return t.sum(dim=-1, keepdim=True)
+        # over the group's channels, then over H·W along the contiguous
+        # axis of the (..., groups, H·W) partial sums (1/group_size of the
+        # map): a strided sum over H·W adds its terms one by one on the CPU,
+        # with several times the f32 rounding of the NCHW layout's sum
+        part = t.sum(dim=-1).transpose(-1, -2).contiguous()
+        return part.sum(dim=-1)[..., None, :, None]
+
     if pad_c:
         real = torch.arange(n_groups * group_size, device=x.device) < c
         mask = real.to(x.dtype).reshape(n_groups, group_size, 1).expand(
-            n_groups, group_size, h * w).reshape(n_groups, -1)
+            n_groups, group_size, 1 if nhwc else h * w).reshape(mask_shape)
         counts = mask.sum(dim=-1, keepdim=True)
-        mean = (xg * mask).sum(dim=-1, keepdim=True) / counts
-        var = ((((xg - mean) ** 2) * mask).sum(dim=-1, keepdim=True) / counts
-               if with_var else None)
+        if nhwc:
+            counts = counts * (h * w)
+        mean = group_sum(xg * mask) / counts
+        var = (group_sum(((xg - mean) ** 2) * mask) / counts if with_var
+               else None)
+    elif nhwc:
+        n = group_size * h * w
+        mean = group_sum(xg) / n
+        var = group_sum((xg - mean) ** 2) / n if with_var else None
     else:
         mean = xg.mean(dim=-1, keepdim=True)
         var = ((xg - mean) ** 2).mean(dim=-1, keepdim=True) if with_var \
             else None
 
     def per_channel(stat):
+        if nhwc:  # (..., 1, groups, 1) → (..., 1, 1, C)
+            return stat.expand(*lead, 1, n_groups, group_size).reshape(
+                *lead, 1, 1, n_groups * group_size)[..., :c]
         out = stat.expand(*lead, n_groups, group_size).reshape(
             *lead, n_groups * group_size)[..., :c]
         return out[..., None, None]
@@ -69,31 +103,40 @@ def _denom(var, eps, reference_compat):
 
 class _GroupNorm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group_size, eps, reference_compat):
-        # contiguous NCHW out, whatever x's strides (the attention block
-        # hands over channels-last views): the convs that follow would take
-        # other algorithms, and round otherwise, on a channels-last map
+    def forward(ctx, x, group_size, eps, reference_compat, nhwc):
+        # contiguous out in x's own layout, whatever x's strides (the NCHW
+        # attention block hands over channels-last views): the convs that
+        # follow would take other algorithms, and round otherwise. An NHWC
+        # map's contiguous order is channels-last memory.
         xs = x.to(_stat_dtype(x.dtype)).contiguous()
-        mean, var = _group_reduce(xs, group_size, True)
+        mean, var = _group_reduce(xs, group_size, True, nhwc)
         ctx.save_for_backward(x, mean, var)
-        ctx.args = (group_size, eps, reference_compat)
+        ctx.args = (group_size, eps, reference_compat, nhwc)
         return ((xs - mean) / _denom(var, eps, reference_compat)).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        """The JAX package's ``_group_norm_bwd``."""
+        """The JAX package's ``_group_norm_bwd`` (``_group_norm_nhwc_bwd``
+        with ``nhwc``)."""
         x, mean, var = ctx.saved_tensors
-        group_size, eps, reference_compat = ctx.args
+        group_size, eps, reference_compat, nhwc = ctx.args
         g = g.to(_stat_dtype(x.dtype))
         denom = _denom(var, eps, reference_compat)
         xhat = (x.to(g.dtype) - mean) / denom
-        g_mean = _group_reduce(g, group_size, False)[0]
-        gx_mean = _group_reduce(g * xhat, group_size, False)[0]
+        g_mean = _group_reduce(g, group_size, False, nhwc)[0]
+        gx_mean = _group_reduce(g * xhat, group_size, False, nhwc)[0]
         dx = (g - g_mean - xhat * gx_mean) / denom
-        return dx.to(x.dtype), None, None, None
+        return dx.to(x.dtype), None, None, None, None
 
 
 def group_norm(x: torch.Tensor, group_size: int, eps: float = 1e-8,
                reference_compat: bool = False) -> torch.Tensor:
     """x: (..., C, H, W) → same shape. ≈ ``group_norm`` (lib/norm.c:5)."""
-    return _GroupNorm.apply(x, group_size, eps, reference_compat)
+    return _GroupNorm.apply(x, group_size, eps, reference_compat, False)
+
+
+def group_norm_nhwc(x: torch.Tensor, group_size: int, eps: float = 1e-8,
+                    reference_compat: bool = False) -> torch.Tensor:
+    """x: (..., H, W, C) → same shape, contiguous (channels-last memory):
+    ``group_norm`` channels-last."""
+    return _GroupNorm.apply(x, group_size, eps, reference_compat, True)

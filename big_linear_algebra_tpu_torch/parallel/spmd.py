@@ -70,9 +70,13 @@ def _staged(x: torch.Tensor) -> bool:
 
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """x summed over ``group`` (a new tensor; x itself is unchanged)."""
+    """x summed over ``group`` (a new tensor; x itself is unchanged). The
+    buffer is contiguous whatever x's strides: the ranks sum their buffers
+    in memory order, so a channels-last x on one rank and a contiguous one
+    on another would add unlike elements."""
     with _Timed("all_reduce", [x]):
-        buf = x.cpu().clone() if _staged(x) else x.clone()
+        buf = (x.cpu() if _staged(x) else x).clone(
+            memory_format=torch.contiguous_format)
         dist.all_reduce(buf, group=group)
         return buf.to(x.device)
 

@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases, one line each (or a few), in the order 1–4, 22, 23, 24, 5–7,
-16–18, 11–15, 8–10, 19–21; any failure exits non-zero:
+16–18, 11–15, 8–10, 26, 19–21; any failure exits non-zero:
 1. environment: the card's name and power limit, torch and CUDA versions;
    fails when no CUDA device is available;
 2. build: compiles the kernels from ``big_linear_algebra_tpu_torch/csrc/``
@@ -243,7 +243,30 @@ Phases, one line each (or a few), in the order 1–4, 22, 23, 24, 5–7,
    the dq workspace; K3a beside K2c + K2d in f32 at (16, 1024, 16);
 21. K3 at the U-Net's sites: phase 10's four flash sites through
    ``flash_attention(..., stream=False)`` (K3a, then the two-pass route),
-   with the launches read around them, against the plain backward.
+   with the launches read around them, against the plain backward;
+26. ``--layout=NHWC`` and ``--remat`` (run after 10, in its data
+   directory; ``tools/layout_remat_check.py`` runs it alone): the
+   channels-last twins against the NCHW ops on the same values, forward
+   and backward, f32 (bounds that scale with the longest sum; a TF32 conv
+   must fail its bound) and bf16 (``BF16_RTOL_OF_MAX``), at the net's
+   shapes (conv 3x3 at (16, 128, 64, 64) and the stride-2 downsample, GN
+   at (16, 256, 32, 32), the attention block at 32x32 tokens through K2
+   and K2c/K2d), the conv's output and dx and GN's output in channels-last
+   memory; ``run 1 --image-size=64 --layout=NHWC`` from phase 10's tree
+   (K2 as often as phase 6's NCHW run, a 64x64 BMP) and one bf16 forward
+   against NCHW's (``P26_BF16_FACTOR`` times NCHW's distance from f64);
+   ``train 1 --image-size=64 --layout=NHWC --max-steps=50`` from the
+   seed's init (K2, K2c and K2d 4 each a step, a falling loss), then
+   ``train 1 --fused-block --layout=NHWC`` at 32x32 (no fused block); the
+   f32 NHWC gradient against NCHW's on phase 10's conditioned net, leaf by
+   leaf within max(``P26_GRAD_FLOOR``, twice NCHW's own distance from
+   f64), the TF32 control failing it; a ``--remat`` step at 64x64, batch
+   16, bf16, bit-equal to the plain step, with each one's peak of
+   allocated memory (and NHWC's); NCHW, NHWC and ``--remat`` steps in
+   turns (host wall, device busy); one launch of ``train 1 --dp
+   --layout=NHWC --remat --max-steps=2`` on two ranks (the replicas
+   bit-equal after each step, 18 blocks recomputed a step, K2, K2c and
+   K2d 4 each a step per rank).
 Then a JSON line of per-kernel results (K1's launches: phase 4's ``run``
 and phase 22's train epoch), the ``nvidia-smi`` name/power-limit line, and
 as the last line ``{"ok": true, "device": {...}}``.
@@ -1880,14 +1903,14 @@ def phase_unet_train(tmp: str) -> dict:
     return launches
 
 
-def _unet_grad(cu, params, x0, tt, noise, cfg):
-    """(loss, {path: gradient}) of ``cu.loss_fn`` on the card with the
+def _unet_grad(cu, params, x0, tt, noise, cfg, device="cuda"):
+    """(loss, {path: gradient}) of ``cu.loss_fn`` on ``device`` with the
     draws given, the parameters cast to the compute dtype first."""
     dt = getattr(torch, cfg.compute_dtype)
     leaves = cu.tree_map(
-        lambda a: a.to("cuda", dt).requires_grad_(), params)
-    loss = cu.loss_fn(leaves, x0.to("cuda", dt), tt.cuda(),
-                      noise.to("cuda", dt), cfg)
+        lambda a: a.to(device, dt).requires_grad_(), params)
+    loss = cu.loss_fn(leaves, x0.to(device, dt), tt.to(device),
+                      noise.to(device, dt), cfg)
     flat = cu.tree_leaves(leaves)
     grads = torch.autograd.grad(loss, flat, allow_unused=True)
     return loss.item(), [torch.zeros_like(p) if g is None else g.double()
@@ -6156,6 +6179,619 @@ def phase_tp_pp(smi_line: str = "", device: str = "cuda") -> None:
               flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: --layout=NHWC and --remat on the U-Net (run after 10, in phase
+# 9/10's data directory: its trained CSV tree and its CIFAR batches)
+# ---------------------------------------------------------------------------
+
+# The channels-last twins against the NCHW ops on the same values, forward
+# and backward, at the full-width net's shapes: the 3x3 conv at (16, 128,
+# 64, 64) → 128 and the stride-2 downsample → 256 (B, C, H, W, F, stride);
+# GN at (16, 256, 32, 32), groups of 32 channels; the attention block at
+# 32x32 tokens, C 256, key_dim 16 (K2, K2c/K2d). TINY-sized on the CPU
+# rehearsal.
+P26_CONVS = [(16, 128, 64, 64, 128, 1), (16, 128, 64, 64, 256, 2)]
+P26_GN = (16, 256, 32, 32, 32)          # B, C, H, W, group size
+P26_ATTN = (16, 256, 32, 32, 16)        # B, C, H, W, key_dim
+P26_CPU = {"convs": [(2, 8, 16, 16, 8, 1), (2, 8, 16, 16, 12, 2)],
+           "gn": (2, 12, 8, 8, 4), "attn": (2, 12, 8, 8, 4)}
+# f32 bounds, fixed before the first run. Both sides are true f32 (TF32
+# off) and differ in the order of their sums only, so each bound scales
+# with the longest sum behind an output, as K1's (F32_ULPS):
+# - conv: F32_ULPS * K * max|a| * max|b| * 2**-24, K the contraction (C*k*k
+#   forward, F*k*k for dx, B*oh*ow for dk); a TF32 conv (operands cut to
+#   10 bits) errs by ~sqrt(K) * |a||b| * 2**-11 and must fail it;
+# - GN over n = group_size*H*W elements: the mean errs by up to
+#   n*max|x|*2**-24 and the standard deviation by n*max|y|**2/2 of itself,
+#   so |dy| <= F32_ULPS * n * 2**-24 * (max|x|/min sigma + max|y|**3), and
+#   the backward likewise with max|g|*(1 + max|y|)**2/min sigma added;
+# - the attention block: its sums run over C (projections), N (the
+#   softmax and P*V) and key_dim (the output dense), and a score's error
+#   moves the softmax by its own size: F32_ULPS * (C + N + key_dim) *
+#   2**-24 * (1 + max|s|) * max|ref|, s the scaled scores.
+# bf16: BF16_RTOL_OF_MAX of max|ref| (the same bf16 operands; cuDNN and
+# cuBLAS pick other kernels for the two layouts).
+# The NHWC sampling forward (bf16, t=500) against the NCHW one: within
+# P26_BF16_FACTOR times the NCHW forward's own distance from the f64
+# forward (two bf16 evaluations whose roundings differ; the bound of
+# phase 14's fused-vs-unfused forward).
+P26_BF16_FACTOR = 2.0
+# The f32 NHWC gradient against the NCHW one on phase 10's conditioned net
+# (batch 2, fixed draws, dropout off), leaf by leaf, max|err| / max|ref|:
+# within max(P26_GRAD_FLOOR, 2 * that leaf's NCHW f32 distance from the
+# f64 gradient). Every conv and GN of the net sums in another order (and
+# cuDNN takes other algorithms) under NHWC, so the difference is that of
+# two f32 evaluations of the net, each as far from f64 as f32 rounding
+# amplified by the net takes it. The CPU rehearsal
+# (tools/layout_remat_check.py --device=cpu: TINY, whose oneDNN
+# channels-last f32 conv rounds several times coarser than its NCHW one)
+# read 1.55 of that bound with a floor of GRAD_SHARE_RTOL_OF_MAX: the
+# floor is twice that; phase 26 alone on the card (the seed's init, these
+# draws) then read 0.156 of it. The control, the NCHW gradient from
+# parameters and inputs cut to TF32, must fail it (there: 59.8x).
+P26_GRAD_FLOOR = 2 * GRAD_SHARE_RTOL_OF_MAX
+P26_TRAIN_STEPS = 50   # NHWC train 1 from the seed's init (phase 9's count)
+P26_FUSED_STEPS = 2    # train 1 --fused-block --layout=NHWC at 32x32
+P26_TIMED_STEPS = 3    # train steps per turn of the step timings
+P26_DP_RANKS, P26_DP_STEPS = 2, 2
+
+
+def _p26_gn_bounds(x, y, g, dx, n: int, group: int):
+    """(forward bound, backward bound) of the f32 GN twin (see P26's
+    comment), from the NCHW reference's x (B, C, H, W), y, g and dx."""
+    b, c = x.shape[:2]
+    sigma = x.double().reshape(b, c // group, -1).std(-1, unbiased=False)
+    s_min = sigma.min().item()
+    u = F32_ULPS * n * 2.0 ** -24
+    ymax, xmax = y.abs().max().item(), x.abs().max().item()
+    fwd = u * (xmax / s_min + ymax ** 3)
+    bwd = u * (g.abs().max().item() * (1 + ymax) ** 2 / s_min
+               + dx.abs().max().item() * ymax ** 2)
+    return fwd, bwd
+
+
+def _p26_compare(name, got, want, bound, lines, dtype):
+    """max|got - want| against ``bound`` (f32) or BF16_RTOL_OF_MAX of
+    max|want| (bf16): fails beyond it; appends the reading to ``lines``;
+    returns err / bound."""
+    err = (got.double() - want.double()).abs().max().item()
+    if dtype == torch.bfloat16:
+        bound = BF16_RTOL_OF_MAX * want.double().abs().max().item()
+    ratio = err / bound if bound > 0 else (0.0 if err == 0 else math.inf)
+    if not ratio <= 1.0:
+        fail(f"phase 26 twins, {name} ({dtype}): max|NHWC - NCHW| {err:.3e}"
+             f" > bound {bound:.3e}")
+    lines.append(f"{name} {err:.2e}/{bound:.2e}")
+    return ratio
+
+
+def _p26_grads(fn, inputs, g):
+    leaves = [x.detach().clone().requires_grad_() for x in inputs]
+    out = fn(*leaves)
+    return out.detach(), torch.autograd.grad(out, leaves, g)
+
+
+def _p26_twins(device: str) -> list:
+    """The twins against the NCHW ops on the same values (see P26_*):
+    forward and backward, f32 and bf16; the TF32 control on the 3x3
+    conv's forward and dx; channels-last memory of the conv's output and
+    dx and of GN's output. Returns the report lines."""
+    from big_linear_algebra_tpu_torch.nn import attention as at
+    from big_linear_algebra_tpu_torch.nn import conv, norm
+
+    shapes = (P26_CPU if device == "cpu" else
+              {"convs": P26_CONVS, "gn": P26_GN, "attn": P26_ATTN})
+    gen = torch.Generator(device=device).manual_seed(26)
+    lines, worst = [], 0.0
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    def nhwc(t):
+        return t.permute(0, 2, 3, 1).contiguous()
+
+    def nchw(t):  # the NCHW ops' cotangent, contiguous NCHW
+        return t.permute(0, 3, 1, 2).contiguous()
+
+    def channels_last(what, t):
+        # a contiguous (B, H, W, C) map is a channels-last NCHW tensor
+        if not t.permute(0, 3, 1, 2).is_contiguous(
+                memory_format=torch.channels_last):
+            fail(f"phase 26 twins: {what} is not in channels-last memory "
+                 f"(strides {t.stride()} of shape {tuple(t.shape)})")
+
+    counts0 = _flash_counts(at)
+    for dtype in (torch.float32, torch.bfloat16):
+        row = []
+        for b, c, h, w, f, s in shapes["convs"]:
+            x = randn(b, c, h, w, dtype=dtype)
+            k = randn(f, c, 3, 3, dtype=dtype) / math.sqrt(9 * c)
+            oh, ow = conv.out_size(h, s), conv.out_size(w, s)
+            g = randn(b, oh, ow, f, dtype=dtype)
+            y, (dx, dk) = _p26_grads(lambda a, kk: conv.conv2d(a, kk, s),
+                                     [x, k], nchw(g))
+            yt, (dxt, dkt) = _p26_grads(
+                lambda a, kk: conv.conv2d_nhwc(a, kk, s), [nhwc(x), k], g)
+            channels_last(f"conv2d_nhwc's output at {(b, c, h, w, f, s)}",
+                          yt)
+            channels_last(f"conv2d_nhwc's dx at {(b, c, h, w, f, s)}", dxt)
+            tag = f"conv {c}->{f} s{s}"
+            for name, got, want, bound in (
+                    ("fwd", yt, nhwc(y), f32_bound(x, k, c * 9)),
+                    ("dx", dxt, nhwc(dx), f32_bound(g, k, f * 9)),
+                    ("dk", dkt, dk, f32_bound(x, g, b * oh * ow))):
+                worst = max(worst, _p26_compare(f"{tag} {name}", got, want,
+                                                bound, row, dtype))
+            if dtype == torch.float32 and s == 1:
+                # the control: the NHWC conv on operands cut to TF32
+                yc, (dxc, _) = _p26_grads(
+                    lambda a, kk: conv.conv2d_nhwc(a, kk, s),
+                    [_tf32(nhwc(x)), _tf32(k)], _tf32(g))
+                for name, got, want, bound in (
+                        ("fwd", yc, nhwc(y), f32_bound(x, k, c * 9)),
+                        ("dx", dxc, nhwc(dx), f32_bound(g, k, f * 9))):
+                    err = (got - want).abs().max().item()
+                    if not err > bound:
+                        fail(f"phase 26 TF32 control: a TF32 conv's {name} "
+                             f"is within the f32 bound ({err:.3e} <= "
+                             f"{bound:.3e})")
+                    row.append(f"TF32 control {tag} {name} {err:.2e} "
+                               f"(fails, {err / bound:.0f}x)")
+        b, c, h, w, grp = shapes["gn"]
+        x = randn(b, c, h, w, dtype=dtype) * 2 + 0.5
+        g = randn(b, h, w, c, dtype=dtype)
+        y, (dx,) = _p26_grads(lambda a: norm.group_norm(a, grp), [x],
+                              nchw(g))
+        yt, (dxt,) = _p26_grads(lambda a: norm.group_norm_nhwc(a, grp),
+                                [nhwc(x)], g)
+        channels_last("group_norm_nhwc's output", yt)
+        fwd_b, bwd_b = _p26_gn_bounds(x.float(), y.float(), g.float(),
+                                      dx.float(), grp * h * w, grp)
+        for name, got, want, bound in (("fwd", yt, nhwc(y), fwd_b),
+                                       ("dx", dxt, nhwc(dx), bwd_b)):
+            worst = max(worst, _p26_compare(f"GN {name}", got, want, bound,
+                                            row, dtype))
+        b, c, h, w, kd = shapes["attn"]
+        x = randn(b, c, h, w, dtype=dtype)
+        p = {"q": randn(c, kd, dtype=dtype) / math.sqrt(c),
+             "k": randn(c, kd, dtype=dtype) / math.sqrt(c),
+             "v": randn(c, kd, dtype=dtype) / math.sqrt(c),
+             "w": randn(kd, c, dtype=dtype) / math.sqrt(kd),
+             "b": randn(c, dtype=dtype)}
+        names = list(p)
+        g = randn(b, h, w, c, dtype=dtype)
+        y, grads = _p26_grads(
+            lambda a, *ws: at.self_attention_block(a, dict(zip(names, ws))),
+            [x, *p.values()], nchw(g))
+        yt, grads_t = _p26_grads(
+            lambda a, *ws: at.self_attention_block_nhwc(
+                a, dict(zip(names, ws))), [nhwc(x), *p.values()], g)
+        tokens = x.float().flatten(2).transpose(1, 2)
+        scores = ((tokens @ p["q"].float())
+                  @ (tokens @ p["k"].float()).transpose(-1, -2)) \
+            / math.sqrt(kd)
+        u = F32_ULPS * (c + h * w + kd) * 2.0 ** -24 * (
+            1 + scores.abs().max().item())
+        pairs = [("fwd", yt, nhwc(y)), ("dx", grads_t[0], nhwc(grads[0]))]
+        pairs += [(f"d{n}", gt, gw) for n, gt, gw in
+                  zip(names, grads_t[1:], grads[1:])]
+        for name, got, want in pairs:
+            worst = max(worst, _p26_compare(
+                f"attention {name}", got, want,
+                u * want.double().abs().max().item(), row, dtype))
+        lines.append(f"{str(dtype).replace('torch.', '')}: "
+                     + ", ".join(row))
+    counts = tuple(a - b for a, b in zip(_flash_counts(at), counts0))
+    want = (0, 0, 0) if device == "cpu" else (4, 4, 4)
+    if counts != want:
+        fail(f"phase 26 twins: the attention blocks launched K2/K2c/K2d "
+             f"{counts} times, expected {want} (both layouts, f32 and bf16)")
+    lines.insert(0, f"worst err/bound {worst:.3e}; K2/K2c/K2d {counts} "
+                 "(each layout's f32 and bf16 block)")
+    return lines
+
+
+def _p26_data_dir(tmp: str, name: str) -> str:
+    """A fresh data directory under ``tmp`` with ``tmp``'s CIFAR batches
+    linked in (no CSV tree, no train state)."""
+    where = os.path.join(tmp, name)
+    os.makedirs(where)
+    os.symlink(os.path.join(tmp, "cifar"), os.path.join(where, "cifar"))
+    return where
+
+
+def _p26_run(tmp: str, device: str, nchw_run_k2: int):
+    """``run 1 --image-size=64 --layout=NHWC`` in ``tmp`` (K2's launches
+    against phase 6's NCHW run's); returns (line, the parameters ``run``
+    loaded)."""
+    from big_linear_algebra_tpu_torch.data import bmp
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn import attention as at
+
+    loaded = {}
+    tiny = ["--tiny"] if device == "cpu" else []
+    with _wrapped(cu, "_params_for_run",
+                  lambda real: lambda cfg: loaded.setdefault("p", real(cfg))):
+        at.launch_count = 0
+        text, secs = _cli(cu, ["run", "1", "--image-size=64",
+                               "--sample-seed=0", "--layout=NHWC", *tiny],
+                          tmp, device)
+        launches = at.launch_count
+    if launches != nchw_run_k2:
+        fail(f"run 1 --layout=NHWC launched K2 {launches} times, NCHW's run "
+             f"{nchw_run_k2}")
+    path = os.path.join(tmp, "cifar_unet", "samples", "sample_0.bmp")
+    planes = bmp.read_bmp(path)
+    if any(p.shape != (64, 64) for p in planes):
+        fail(f"{path}: planes of shape {[p.shape for p in planes]}")
+    lo = min(int(p.min()) for p in planes)
+    hi = max(int(p.max()) for p in planes)
+    if lo == hi:
+        fail(f"{path}: constant image (every byte {lo})")
+    return (f"run 1 --image-size=64 --layout=NHWC {secs:.2f} s wall: K2 "
+            f"launches {launches} (NCHW's run: {nchw_run_k2}); "
+            f"samples/sample_0.bmp 64x64, bytes {lo}..{hi}"), loaded["p"]
+
+
+def _p26_forward(params, device: str) -> str:
+    """One bf16 forward at t=500 in both layouts against the f64 NCHW
+    forward (dense attention): NHWC within P26_BF16_FACTOR times NCHW's
+    distance."""
+    import dataclasses
+
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+
+    cfg = _p25_cfg(device)
+    x = torch.randn(1, 3, 64, 64, generator=torch.Generator().manual_seed(0))
+    x, t = x.to(device), torch.tensor([min(500, cfg.timesteps - 1)],
+                                      device=device)
+    outs = {}
+    with torch.inference_mode():
+        for name, dt, layout in (("f64", "float64", "NCHW"),
+                                 ("nchw", "bfloat16", "NCHW"),
+                                 ("nhwc", "bfloat16", "NHWC")):
+            c = dataclasses.replace(cfg, compute_dtype=dt, layout=layout)
+            p = cu.tree_map(lambda a: a.to(device, getattr(torch, dt)),
+                            params)
+            outs[name] = cu.forward(p, x, t, c).double()
+    if not all(torch.isfinite(o).all() for o in outs.values()):
+        fail("phase 26: a U-Net forward is not finite")
+    scale = outs["f64"].abs().max().item()
+    nchw = (outs["nchw"] - outs["f64"]).abs().max().item() / scale
+    nhwc = (outs["nhwc"] - outs["f64"]).abs().max().item() / scale
+    diff = (outs["nhwc"] - outs["nchw"]).abs().max().item() / scale
+    if not diff <= P26_BF16_FACTOR * nchw:
+        fail(f"phase 26: the bf16 NHWC forward differs from the NCHW one by "
+             f"{diff:.3e} of max|f64|, beyond {P26_BF16_FACTOR} x NCHW's own "
+             f"distance from f64 ({nchw:.3e})")
+    return (f"bf16 forward at t={int(t)}, /max|f64 ref|: NHWC vs NCHW "
+            f"{diff:.3e} (bound {P26_BF16_FACTOR} x {nchw:.3e}, NCHW vs "
+            f"f64); NHWC vs f64 {nhwc:.3e}")
+
+
+def _p26_train(tmp: str, device: str) -> tuple:
+    """``train 1 --image-size=64 --layout=NHWC --max-steps=P26_TRAIN_STEPS``
+    from the seed's init in a fresh directory (K2/K2c/K2d 4 each a step, a
+    falling loss), then ``train 1 --fused-block --layout=NHWC`` at 32x32
+    resuming it (no fused block). Returns (line, the directory)."""
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn import attention as at
+    from big_linear_algebra_tpu_torch.nn import fused_block as fb
+
+    where = _p26_data_dir(tmp, "p26_nhwc")
+    tiny = ["--tiny"] if device == "cpu" else []
+    losses = []
+
+    def spy(real):
+        def step(*a, **kw):
+            out = real(*a, **kw)
+            losses.append(out[2])
+            return out
+        return step
+
+    with _wrapped(cu, "train_step", spy):
+        _zero_flash_counts(at)
+        text, secs = _cli(cu, ["train", "1", "--image-size=64",
+                               "--layout=NHWC",
+                               f"--max-steps={P26_TRAIN_STEPS}", *tiny],
+                          where, device)
+        counts = _flash_counts(at)
+        vals = torch.stack(losses).float().cpu()
+        losses.clear()
+        _zero_fused_counts(fb)
+        fused_text, fused_s = _cli(
+            cu, ["train", "1", "--fused-block", "--layout=NHWC",
+                 f"--max-steps={P26_FUSED_STEPS}", *tiny], where, device)
+    fused = (fb.launch_count, fb.tc_launch_count, fb.bwd_launch_count,
+             fb.bwd_tc_launch_count, fb.wgrad_launch_count,
+             fb.wgrad_tc_launch_count)
+    per = 0 if device == "cpu" else 4 * P26_TRAIN_STEPS
+    if counts != (per,) * 3:
+        fail(f"train 1 --layout=NHWC launched K2/K2c/K2d {counts} times in "
+             f"{P26_TRAIN_STEPS} steps, expected {per} each (4 flash sites "
+             "per step, as NCHW)")
+    if len(vals) != P26_TRAIN_STEPS or not torch.isfinite(vals).all():
+        fail(f"train 1 --layout=NHWC: {len(vals)} steps, losses {vals}")
+    head, tail = vals[:10].mean().item(), vals[-10:].mean().item()
+    if not tail < head:
+        fail(f"train 1 --layout=NHWC: the loss did not fall (mean of steps "
+             f"1-10 {head}, of the last 10 {tail})")
+    if any(fused) or len(losses) != P26_FUSED_STEPS:
+        fail(f"train 1 --fused-block --layout=NHWC launched K5a (tc)/K5b "
+             f"data (tc)/weights (tc) {fused} times in {len(losses)} steps, "
+             "expected none (JAX's dispatch: fused_block and not nhwc)")
+    ep = _epoch_line(text, 0)
+    return (f"train 1 --image-size=64 --layout=NHWC --max-steps="
+            f"{P26_TRAIN_STEPS} from the seed's init {secs:.2f} s wall, epoch"
+            f" {ep['epoch_seconds']} s ({ep['images_per_sec']} images/s): "
+            f"K2/K2c/K2d {counts}; loss mean of steps 1-10 {head:.5f}, of "
+            f"the last 10 {tail:.5f}; then train 1 --fused-block "
+            f"--layout=NHWC at 32x32 ({P26_FUSED_STEPS} steps, {fused_s:.2f}"
+            f" s): K5a/K5b launches {fused} (none)"), where
+
+
+def _p26_grad(params, device: str) -> str:
+    """Phase 10's conditioned net (the same draws): the f32 NHWC gradient
+    against the NCHW one, leaf by leaf, within max(P26_GRAD_FLOOR, 2 x the
+    leaf's NCHW f32 distance from f64); the TF32 control fails."""
+    import dataclasses
+
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn import attention as at
+
+    cfg = dataclasses.replace(_p25_cfg(device), dropout_rate=0.0)
+    gen = torch.Generator().manual_seed(7)
+    x0 = torch.rand(2, 3, 64, 64, generator=gen) * 2 - 1
+    tt = torch.randint(0, cfg.timesteps, (2,), generator=gen)
+    noise = torch.randn(2, 3, 64, 64, generator=gen)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    conditioned, _ = _condition_attention(cu, params, x0, tt, noise, f32,
+                                          device)
+    grads, counts = {}, {}
+    for name, tree, dt, layout in (
+            ("nchw", conditioned, "float32", "NCHW"),
+            ("nhwc", conditioned, "float32", "NHWC"),
+            ("f64", conditioned, "float64", "NCHW"),
+            ("tf32", _tf32_tree(cu, conditioned), "float32", "NCHW")):
+        _zero_flash_counts(at)
+        c = dataclasses.replace(cfg, compute_dtype=dt, layout=layout)
+        xin = _tf32(x0.float()) if name == "tf32" else x0
+        grads[name] = [g.double() for g in _unet_grad(
+            cu, tree, xin, tt, noise, c, device)[1]]
+        counts[name] = _flash_counts(at)
+    want = (0, 0, 0) if device == "cpu" else (4, 4, 4)
+    if counts["nchw"] != want or counts["nhwc"] != want:
+        fail(f"phase 26 gradients launched K2/K2c/K2d {counts}")
+    def of_max(got, ref):
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        return err / scale if scale else err
+
+    worst, worst_ctl, where = 0.0, 0.0, None
+    for i, (a, b, f, ctl) in enumerate(zip(grads["nhwc"], grads["nchw"],
+                                           grads["f64"], grads["tf32"])):
+        bound = max(P26_GRAD_FLOOR, 2 * of_max(b, f))
+        if of_max(a, b) / bound > worst:
+            worst, where = of_max(a, b) / bound, i
+        worst_ctl = max(worst_ctl, of_max(ctl, b) / bound)
+    if not worst <= 1.0:
+        fail(f"phase 26: the f32 NHWC gradient exceeds its bound at leaf "
+             f"{where} by {worst:.3f}x")
+    if not worst_ctl > 1.0:
+        fail(f"phase 26 TF32 control: the TF32 gradient stays within the "
+             f"bound (worst leaf {worst_ctl:.3f} of it)")
+    share = _leaf_errors(grads["nhwc"], grads["nchw"])
+    own = _leaf_errors(grads["nchw"], grads["f64"])
+    return (f"f32 gradient on phase 10's conditioned net (batch 2, t="
+            f"{tt.tolist()}, dropout off), NHWC vs NCHW: worst leaf "
+            f"{share[0]:.3e} of its max|ref| (median {share[2]:.3e}), worst "
+            f"err/bound {worst:.3f} (leaf {where}); NCHW f32 vs f64 worst "
+            f"leaf {own[0]:.3e}; TF32 control worst err/bound "
+            f"{worst_ctl:.1f} (fails)")
+
+
+def _p26_steps(params, device: str) -> tuple:
+    """The bf16 train step at 64x64, batch 16 (TINY at 4 on the CPU), from
+    the loaded parameters: ``--remat`` bit-equal to the plain step (loss,
+    parameters, both moments, the generator's state after it), each one's
+    peak of allocated memory above the step's inputs; then host wall and
+    (on the card) device busy per step of NCHW, NHWC and ``--remat`` in
+    turns, each turn ``_host_and_trace`` (the lower host time of each kept).
+    Returns (lines, {mode: (host ms, busy ms)})."""
+    import dataclasses
+
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn.optim import tree_leaves
+
+    cfg = _p25_cfg(device)
+    modes = {"nchw": cfg, "nhwc": dataclasses.replace(cfg, layout="NHWC"),
+             "remat": dataclasses.replace(cfg, remat=True)}
+    p = cu.tree_map(lambda a: a.to(device), params)
+    opt = cu.adam_init(p)
+    x = (torch.rand(cfg.batch_size, 3, 64, 64,
+                    generator=torch.Generator().manual_seed(26)) * 2 - 1
+         ).to(device)
+
+    def one(c, seed=3):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        out = cu.train_step(p, opt, x, gen, c)
+        return out, gen.get_state()
+
+    runs, peaks = {}, {}
+    for name in ("nchw", "remat", "nhwc"):
+        one(modes[name])  # warm
+        _sync(device)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        runs[name] = one(modes[name])
+        _sync(device)
+        if device == "cuda":
+            peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    (pa, oa, la), ga = runs["nchw"]
+    (pb, ob, lb), gb = runs["remat"]
+    same = (torch.equal(la, lb) and torch.equal(ga, gb) and all(
+        torch.equal(u, v) for u, v in zip(
+            tree_leaves({"p": pa, "m": oa.m, "v": oa.v}),
+            tree_leaves({"p": pb, "m": ob.m, "v": ob.v}))))
+    if not same:
+        fail("phase 26: the --remat step is not bit-equal to the plain step")
+    del runs, pa, oa, pb, ob
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def step(name):
+        return lambda: cu.train_step(p, opt, x, gen, modes[name])
+
+    times = {name: [] for name in modes}
+    for name in ("nchw", "nhwc", "remat", "remat", "nhwc", "nchw"):
+        if device == "cuda":
+            host, busy, _, _ = _host_and_trace(step(name), 1, warmup=1,
+                                               timed=P26_TIMED_STEPS)
+        else:
+            step(name)()
+            t0 = time.perf_counter()
+            step(name)()
+            host, busy = (time.perf_counter() - t0) * 1e3, None
+        times[name].append((host, busy))
+    best = {name: min(v) for name, v in times.items()}
+    mem = (f"peak allocated above the step's inputs {peaks['nchw']:.1f} "
+           f"MiB NCHW, {peaks['remat']:.1f} MiB --remat, {peaks['nhwc']:.1f}"
+           f" MiB NHWC" if peaks else "no device memory on the CPU")
+    lines = [f"--remat step ({cfg.compute_dtype}, batch {cfg.batch_size}, "
+             f"64x64) "
+             f"bit-equal to the plain step (loss {float(la):.6f}, every "
+             f"parameter and moment, the generator's state); {mem}"]
+
+    def fmt(name):
+        host, busy = best[name]
+        return (f"{name} {host:.3f} ms host" + (
+            f", busy {busy:.3f} ms ({busy / host:.1%})" if busy else ""))
+
+    lines.append(f"train step in turns (nchw, nhwc, remat, remat, nhwc, "
+                 f"nchw; the lower host time of each): {fmt('nchw')}; "
+                 f"{fmt('nhwc')}; {fmt('remat')}; remat's recompute "
+                 f"{best['remat'][0] - best['nchw'][0]:+.3f} ms host a step")
+    return lines, best, peaks
+
+
+def _p26_dp_rank(tmp: str, device: str) -> int:
+    """One rank of phase 26's launch (``chip_smoke.py --phase26-rank TMP
+    DEVICE``): ``cifar_unet train 1 --dp --layout=NHWC --remat
+    --max-steps=P26_DP_STEPS --image-size=64`` in ``TMP`` with each step's
+    loss and parameter hash, the recomputed blocks and K2/K2c/K2d's
+    launches; written to ``TMP/rank<r>.pt``."""
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn import attention as at
+    from big_linear_algebra_tpu_torch.parallel import mesh as pmesh
+
+    rank = pmesh.distributed_init(device=device)
+    hashes, losses, blocks = [], [], [0]
+
+    def spy(real):
+        def make(*a, **kw):
+            step = real(*a, **kw)
+
+            def wrapped(*args, **kwargs):
+                params, opt, loss = step(*args, **kwargs)
+                losses.append(loss.float().cpu())
+                hashes.append(_params_hash(params))
+                return params, opt, loss
+            return wrapped
+        return make
+
+    def count(real):
+        def recomputed(*a):
+            blocks[0] += 1
+            return real(*a)
+        return recomputed
+
+    tiny = ["--tiny", "--batch=4"] if device == "cpu" else []
+    _zero_flash_counts(at)
+    with _wrapped(cu, "make_train_step_dp", spy), \
+            _wrapped(cu, "_recomputed", count):
+        text, secs = _cli(cu, ["train", "1", "--dp", "--layout=NHWC",
+                               "--remat", "--image-size=64",
+                               f"--max-steps={P26_DP_STEPS}", *tiny],
+                          tmp, device)
+    torch.save({"rank": rank, "hashes": hashes, "losses": losses,
+                "blocks": blocks[0], "flash": _flash_counts(at),
+                "seconds": secs, "text": text},
+               os.path.join(tmp, f"rank{rank}.pt"))
+    return 0
+
+
+def _p26_dp(tmp: str, device: str) -> str:
+    """The launch of ``_p26_dp_rank`` on P26_DP_RANKS ranks: the replicas
+    bit-equal after every step, the losses finite and alike, 18 blocks
+    recomputed a step, K2/K2c/K2d 4 each a step per rank."""
+    where = _p26_data_dir(tmp, "p26_dp")
+    _, seconds = _run_ranks(where, device, P26_DP_RANKS,
+                            ["--phase26-rank", where, device], "phase 26")
+    ranks = [torch.load(os.path.join(where, f"rank{r}.pt"),
+                        weights_only=False) for r in range(P26_DP_RANKS)]
+    r0 = ranks[0]
+    if len(r0["hashes"]) != P26_DP_STEPS:
+        fail(f"phase 26 --dp: {len(r0['hashes'])} steps:\n{r0['text']}")
+    for r in ranks[1:]:
+        if r["hashes"] != r0["hashes"]:
+            fail("phase 26 --dp --layout=NHWC --remat: the replicas' "
+                 "parameters differ")
+        if not all(torch.equal(a, b) for a, b in zip(r["losses"],
+                                                     r0["losses"])):
+            fail("phase 26 --dp: the ranks' pmean'd losses differ")
+    per = 0 if device == "cpu" else 4 * P26_DP_STEPS
+    for r in ranks:
+        if r["blocks"] != 18 * P26_DP_STEPS:
+            fail(f"phase 26 --dp --remat: rank {r['rank']} recomputed "
+                 f"{r['blocks']} blocks, expected {18 * P26_DP_STEPS}")
+        if r["flash"] != (per,) * 3:
+            fail(f"phase 26 --dp: rank {r['rank']} launched K2/K2c/K2d "
+                 f"{r['flash']} times, expected {per} each")
+    vals = torch.stack(r0["losses"])
+    if not torch.isfinite(vals).all():
+        fail(f"phase 26 --dp: non-finite losses {vals.tolist()}")
+    epoch = _epoch_line(r0["text"], 0)["epoch_seconds"]
+    cli_s = ", ".join(f"{r['seconds']:.1f}" for r in ranks)
+    return (f"python3 -m torch.distributed.run --nproc-per-node="
+            f"{P26_DP_RANKS}: train 1 --dp --layout=NHWC --remat "
+            f"--image-size=64 --max-steps={P26_DP_STEPS} from the seed's "
+            f"init, {seconds:.1f} s of wall for the launch (the CLI "
+            f"{cli_s} s on the ranks, rank 0's {P26_DP_STEPS} steps "
+            f"{epoch} s): "
+            f"replicas bit-equal after each step, losses {vals.tolist()}, "
+            f"{r0['blocks']} blocks recomputed and K2/K2c/K2d {r0['flash']} "
+            "per rank")
+
+
+def phase_nhwc_remat(tmp: str, nchw_run_k2: int, smi_line: str = "",
+                     device: str = "cuda") -> dict:
+    """Phase 26 (run after 10, in its data directory ``tmp``): the
+    channels-last twins against the NCHW ops (``_p26_twins``); ``run 1
+    --image-size=64 --layout=NHWC`` (K2 as often as NCHW's run,
+    ``nchw_run_k2``) and its bf16 forward against NCHW's; ``train 1
+    --layout=NHWC`` from the seed's init and ``--fused-block
+    --layout=NHWC`` (``_p26_train``); the f32 NHWC gradient on phase 10's
+    conditioned net (``_p26_grad``); ``--remat`` bit-equal, its memory
+    and time beside NCHW's and NHWC's steps (``_p26_steps``); one launch
+    of ``train 1 --dp --layout=NHWC --remat`` on two ranks (``_p26_dp``).
+    Returns the step readings."""
+    t0 = time.perf_counter()
+    lines = [f"[26 twins] {line}" for line in _p26_twins(device)]
+    line, params = _p26_run(tmp, device, nchw_run_k2)
+    lines.append(f"[26 nhwc run] {line}; {_p26_forward(params, device)}")
+    line, _ = _p26_train(tmp, device)
+    lines.append(f"[26 nhwc train] {line}")
+    lines.append(f"[26 nhwc grad] {_p26_grad(params, device)}")
+    step_lines, best, peaks = _p26_steps(params, device)
+    lines += [f"[26 steps] {line}" for line in step_lines]
+    del params
+    lines.append(f"[26 dp] {_p26_dp(tmp, device)}")
+    lines.append(f"[26 total] {time.perf_counter() - t0:.1f} s")
+    for line in lines:
+        print(f"{line} | {smi_line}" if smi_line else line, flush=True)
+    return {"steps": best, "peaks": peaks}
+
+
 def main() -> int:
     smi_line, exp2_per_s = phase_environment()
     phase_build()
@@ -6205,6 +6841,7 @@ def main() -> int:
         os.environ["BLA_DATA_DIR"] = tmp
         train_launches = phase_unet_train(tmp)
         flash_sites = phase_grad_oracle()
+        phase_nhwc_remat(tmp, k2_launches, smi_line)
         del os.environ["BLA_DATA_DIR"]
     k3_err = phase_k3_vs_plain()
     phase_k3_build_info()
@@ -6356,4 +6993,6 @@ if __name__ == "__main__":
         raise SystemExit(_phase24_rank(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--phase25-rank"]:  # one rank of phase 25
         raise SystemExit(_phase25_rank(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--phase26-rank"]:  # one rank of phase 26's launch
+        raise SystemExit(_p26_dp_rank(*sys.argv[2:4]))
     raise SystemExit(main())

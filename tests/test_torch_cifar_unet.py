@@ -211,11 +211,10 @@ def test_bmp_and_pixel_conversions_match_jax(tmp_path, rng, monkeypatch):
 
 def test_cli_flags(tmp_path, monkeypatch, capsys):
     monkeypatch.setenv("BLA_DATA_DIR", str(tmp_path))
-    reasons = {"--layout=nhwc": "channels-last", "--prng=threefry": "Philox",
+    reasons = {"--prng=threefry": "Philox",
                "--dp": "applies to train", "--tp": "parallel",
                "--pp": "parallel", "--pp-micro=2": "parallel",
                "--pp-schedule=1f1b": "parallel",
-               "--remat": "torch.utils.checkpoint",
                "--scan-steps=2": "dispatch mode",
                "--host-loop": "dispatch mode",
                "--scan-unroll=2": "dispatch mode",
@@ -240,6 +239,10 @@ def test_cli_flags(tmp_path, monkeypatch, capsys):
         bmps.append((tmp_path / "cifar_unet" / "samples" /
                      "sample_0.bmp").read_bytes())
     assert bmps[0] == bmps[1]
+    # --layout=NHWC and --remat are accepted (sampling records no autograd,
+    # so --remat recomputes nothing there)
+    assert cu.main(["run", "1", "--tiny", "--device=cpu", "--layout=nhwc",
+                    "--remat"]) == 0
     if not torch.cuda.is_available():
         for verb in (["run", "1"], ["train", "1"]):
             with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -592,12 +592,19 @@ def test_cli_fused_block_train_resume_run(tmp_path, monkeypatch, capsys):
 
 def test_cli_fused_block_flag(tmp_path, monkeypatch, capsys):
     """``--fused-block`` is accepted and sets ``Config.fused_block``; with
-    ``--layout=NHWC`` the NHWC twin's rejection still stands."""
+    ``--layout=NHWC`` it runs with no fused block, as JAX's dispatch
+    (``cfg.fused_block and not nhwc``) does."""
     monkeypatch.setenv("BLA_DATA_DIR", str(tmp_path))
     assert cu._cfg_from_flags({"fused-block": ""}).fused_block
     assert not cu._cfg_from_flags({}).fused_block
-    assert cu.main(["run", "1", "--tiny", "--fused-block",
-                    "--layout=NHWC"]) == 1
-    assert "channels-last" in capsys.readouterr().out
+    fused = []
+    real = fb.fused_resnet_block
+    monkeypatch.setattr(fb, "fused_resnet_block",
+                        lambda *a: fused.append(1) or real(*a))
+    assert cu.main(["init", "--tiny"]) == 0
+    assert cu.main(["run", "1", "--tiny", "--fused-block", "--device=cpu",
+                    "--layout=NHWC"]) == 0
+    assert "sample_0.bmp" in capsys.readouterr().out
+    assert not fused
     with pytest.raises(ValueError, match="takes no value"):
         cu.main(["run", "1", "--tiny", "--fused-block=yes"])

@@ -46,7 +46,7 @@ from big_linear_algebra_tpu_torch.data import synth
 from big_linear_algebra_tpu_torch.models import cifar_unet as cu
 from big_linear_algebra_tpu_torch.models import mnist_hinge as hinge
 from big_linear_algebra_tpu_torch.models import mnist_nn
-from big_linear_algebra_tpu_torch.nn.optim import adam_init
+from big_linear_algebra_tpu_torch.nn.optim import AdamState, adam_init
 from big_linear_algebra_tpu_torch.parallel import (distributed_init,
                                                    local_device_count,
                                                    make_hybrid_mesh,
@@ -54,6 +54,8 @@ from big_linear_algebra_tpu_torch.parallel import (distributed_init,
 from big_linear_algebra_tpu_torch.parallel.dryrun import dryrun_multichip
 from tests import torch_ranks
 from tests.test_torch_legacy_models import assert_same_stdout
+from tests.test_torch_unet_tp import (assert_bit_equal_step,
+                                      assert_step_matches_jax)
 from tests.torch_parity import n, t
 
 REPO = Path(__file__).resolve().parents[1]
@@ -142,6 +144,16 @@ def ranks(tmp_path_factory):
         ("unet", "unet_dp_step", dict(params=unet_p, x0=x0, t=tt,
                                       noise=noise, mask_seed=9,
                                       cfg_kwargs=UNET_F64)),
+        ("unet drawn", "unet_dp_step", dict(
+            params=unet_p, x0=x0, t=tt, noise=noise, mask_seed=9,
+            cfg_kwargs=UNET_F64, inject=False)),
+        ("unet nhwc remat", "unet_dp_step", dict(
+            params=unet_p, x0=x0, t=tt, noise=noise, mask_seed=9,
+            cfg_kwargs={**UNET_F64, "layout": "NHWC", "remat": True},
+            inject=False)),
+        ("unet remat", "unet_dp_step", dict(
+            params=unet_p, x0=x0, t=tt, noise=noise, mask_seed=9,
+            cfg_kwargs={**UNET_F64, "remat": True}, inject=False)),
         ("bf16", "unet_bf16_replicas", dict(x0=x0.astype(np.float32),
                                             n_steps=2)),
         ("hinge cli", "cli", dict(module="mnist_hinge",
@@ -349,6 +361,26 @@ def test_unet_dp_step_equals_single_step_on_the_draws(ranks):
                                            err_msg=f"{name} {k}")
 
 
+def test_unet_dp_step_nhwc_remat_equals_plain_dp_step(ranks):
+    """The DP step under ``--layout=NHWC --remat`` against the DP step
+    without the flags, each rank's masks from its rank generator (the NHWC
+    mask drawn in the logical NCHW order, each block's draws replayed in
+    its recompute): under ``--remat`` alone bit-equal, and the two ranks'
+    replicas bit-equal; with NHWC too the loss within 1e-9, the moments
+    within 1e-7 of each leaf's max|ref| (the layouts sum in other orders,
+    which the net amplifies to ~1e-8 of the gradient; JAX's own NHWC test
+    allows 1e-6), the parameters within Adam's
+    response."""
+    (want, _), (remat, other), (got, _) = (
+        [r[case] for r in ranks["two"]]
+        for case in ("unet drawn", "unet remat", "unet nhwc remat"))
+    assert_bit_equal_step(remat, want)
+    assert_bit_equal_step(other, remat)
+    assert_step_matches_jax(got, want["params"],
+                            AdamState(step=1, m=want["m"], v=want["v"]),
+                            want["loss"], moments_of_max=1e-7)
+
+
 def test_unet_bf16_params_dp_replicas_bit_equal(ranks):
     """Two ``--bf16-params`` DP steps, each rank drawing its own t, noise
     and masks: the stochastic-rounding seed comes from the replicated
@@ -530,14 +562,12 @@ def test_cli_hinge_train_dp_prints_what_one_process_prints(ranks,
 def test_cli_dp_batch_must_divide_and_unet_rejections(ranks, capsys):
     """A batch that does not divide over the ranks raises with JAX's
     message; cifar_unet rejects the flags it does not port, each with its
-    reason (``--layout=NHWC``, ``--remat``, ``--prng``, the XLA dispatch
-    modes), and the parallel flags outside train."""
+    reason (``--prng``, the XLA dispatch modes), and the parallel flags
+    outside train."""
     for r in ranks["two"]:
         rc, _ = r["batch"]
         assert rc == "--dp: batch size 63 is not divisible by 2 devices"
-    for flag, reason in (("--layout=NHWC", "channels-last"),
-                         ("--remat", "torch.utils.checkpoint"),
-                         ("--prng=rbg", "torch.Generator"),
+    for flag, reason in (("--prng=rbg", "torch.Generator"),
                          ("--scan-steps=2", "XLA dispatch mode"),
                          ("--host-loop", "XLA dispatch mode")):
         assert cu.main(["train", "1", "--tiny", flag]) == 1

@@ -44,16 +44,19 @@ from big_linear_algebra_tpu.parallel import pipeline as jax_pl
 from big_linear_algebra_tpu_torch.data import synth
 from big_linear_algebra_tpu_torch.models import cifar_unet as cu
 from big_linear_algebra_tpu_torch.models import common
-from big_linear_algebra_tpu_torch.nn.optim import (adam_init, tree_leaves,
-                                                   tree_map)
+from big_linear_algebra_tpu_torch.nn.optim import (AdamState, adam_init,
+                                                   tree_leaves, tree_map)
 from big_linear_algebra_tpu_torch.parallel import pipeline as pl
 from tests import torch_ranks
 from tests.test_torch_unet_tp import (_assert_step, _flat, _tree_np,
+                                      assert_bit_equal_step,
                                       assert_step_matches_jax)
 from tests.torch_parity import n, t
 
 F64 = {"compute_dtype": "float64"}
 F64_NO_DROPOUT = {"compute_dtype": "float64", "dropout_rate": 0.0}
+F64_NHWC_REMAT = {"compute_dtype": "float64", "layout": "NHWC",
+                  "remat": True}
 N_MICRO = 4
 KEY = 7
 
@@ -101,6 +104,11 @@ def ranks(tmp_path_factory):
                                        cfg_kwargs=F64, key=KEY)),
         ("pp gpipe", *pp((tt, noise), F64, "gpipe")),
         ("pp 1f1b", *pp((tt, noise), F64, "1f1b")),
+        ("pp gpipe nhwc remat", *pp((tt, noise), F64_NHWC_REMAT, "gpipe")),
+        ("pp 1f1b nhwc remat", *pp((tt, noise), F64_NHWC_REMAT, "1f1b")),
+        ("pp gpipe remat", *pp((tt, noise), {**F64, "remat": True},
+                               "gpipe")),
+        ("pp 1f1b remat", *pp((tt, noise), {**F64, "remat": True}, "1f1b")),
         ("pp gpipe jax", *pp((jt, jnoise), F64_NO_DROPOUT, "gpipe")),
         ("pp 1f1b jax", *pp((jt, jnoise), F64_NO_DROPOUT, "1f1b")),
         ("cli gpipe", *cli("pp", "--pp", "--pp-micro=2", "--max-steps=2")),
@@ -298,6 +306,32 @@ def test_pp_step_equals_sequential_fold_chain(ranks, schedule):
     for k, v in _flat(results[0]["params"]).items():
         np.testing.assert_allclose(v, _flat(other["params"])[k], rtol=0,
                                    atol=1e-12, err_msg=k)
+
+
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
+def test_pp_step_nhwc_remat_equals_plain_pp_step(ranks, schedule):
+    """``--layout=NHWC --remat`` through the pipeline: the down stage
+    transposes at entry, the mid boundaries carry channels-last skips, the
+    up stage transposes back, and each resnet block is recomputed (under
+    1F1B inside the stage's own recompute), its fold generator's draws
+    replayed. Against the same step without the flags, the replicas
+    bit-equal: under ``--remat`` alone bit-equal; with NHWC too the loss
+    within 1e-9, the moments within 1e-7 of each leaf's max|ref| (the
+    layouts sum in other orders, which the net amplifies to ~1e-8 of the
+    gradient; JAX's own NHWC test allows 1e-6), the
+    parameters within Adam's response, and the same hop bytes (the
+    boundaries keep their widths)."""
+    want = ranks["three"][0][f"pp {schedule}"]
+    for got in _same_on_every_rank(ranks["three"], f"pp {schedule} remat"):
+        assert_bit_equal_step(got, want)
+    for got in _same_on_every_rank(ranks["three"],
+                                   f"pp {schedule} nhwc remat"):
+        assert_step_matches_jax(got, want["params"],
+                                AdamState(step=1, m=want["m"], v=want["v"]),
+                                want["loss"], moments_of_max=1e-7)
+    for rank in ranks["three"]:
+        assert rank[f"pp {schedule} nhwc remat"]["hop bytes"] == \
+            rank[f"pp {schedule}"]["hop bytes"]
 
 
 @pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])

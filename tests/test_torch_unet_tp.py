@@ -33,13 +33,15 @@ from big_linear_algebra_tpu.models import cifar_unet as jax_cu
 from big_linear_algebra_tpu.nn.optim import adam_init as jax_adam_init
 from big_linear_algebra_tpu.parallel import make_mesh as jax_make_mesh
 from big_linear_algebra_tpu_torch.models import cifar_unet as cu
-from big_linear_algebra_tpu_torch.nn.optim import (adam_init, adam_update,
-                                                   tree_map)
+from big_linear_algebra_tpu_torch.nn.optim import (AdamState, adam_init,
+                                                   adam_update, tree_map)
 from tests import torch_ranks
 from tests.torch_parity import n, t
 
 F64 = {"compute_dtype": "float64"}
 F64_NO_DROPOUT = {"compute_dtype": "float64", "dropout_rate": 0.0}
+F64_NHWC_REMAT = {"compute_dtype": "float64", "layout": "NHWC",
+                  "remat": True}
 MASK_SEED = 9
 
 
@@ -81,10 +83,10 @@ def ranks(tmp_path_factory):
 
     sched = [np.asarray(a) for a in jax_cu.ddpm_schedule(jcfg)]
 
-    def step(draw_t, draw_noise, cfg_kwargs, dp):
+    def step(draw_t, draw_noise, cfg_kwargs, dp, inject=True):
         return dict(params=params, x0=x0, t=draw_t, noise=draw_noise,
                     mask_seed=MASK_SEED, cfg_kwargs=cfg_kwargs, dp=dp,
-                    schedule=sched if draw_t is jt else None)
+                    schedule=sched if draw_t is jt else None, inject=inject)
 
     four = torch_ranks.spawn(4, [
         ("tp", "unet_tp_step", step(tt, noise, F64, False)),
@@ -92,6 +94,11 @@ def ranks(tmp_path_factory):
         ("tp jax", "unet_tp_step", step(jt, jnoise, F64_NO_DROPOUT, False)),
         ("dp tp jax", "unet_tp_step", step(jt, jnoise, F64_NO_DROPOUT,
                                            True)),
+        ("tp drawn", "unet_tp_step", step(tt, noise, F64, False, False)),
+        ("tp nhwc remat", "unet_tp_step", step(tt, noise, F64_NHWC_REMAT,
+                                               False, False)),
+        ("tp remat", "unet_tp_step", step(tt, noise, {**F64, "remat": True},
+                                          False, False)),
         ("place", "unet_tp_place", dict(params=params)),
         ("cli", "cli", dict(module="cifar_unet",
                             argv=["train", "1", "--tiny", "--tp",
@@ -280,6 +287,35 @@ def test_unet_tp_step_matches_jax_at_dropout_0(ranks, case):
         p, opt, x0, jax.random.key(3), cfg)
     for rank in ranks["four"]:
         assert_step_matches_jax(rank[case], want_p, want_opt, want_loss)
+
+
+def test_unet_tp_step_nhwc_remat_equals_plain_tp_step(ranks):
+    """The TP step under ``--layout=NHWC --remat`` (the sharded convs'
+    outputs gathered along the channels-last axis, each block recomputed,
+    its gathers replayed on every rank) against the TP step without the
+    flags, all drawing their masks from the step's generator, on all 4
+    ranks: under ``--remat`` alone bit-equal; with NHWC too the loss
+    within 1e-9, the moments within 1e-7 of each leaf's max|ref| (the
+    layouts sum in other orders, which the net amplifies to ~1e-8 of the
+    gradient; JAX's own NHWC test allows 1e-6), the
+    parameters within Adam's response."""
+    for rank in ranks["four"]:
+        want = rank["tp drawn"]
+        assert_bit_equal_step(rank["tp remat"], want)
+        assert_step_matches_jax(
+            rank["tp nhwc remat"], want["params"],
+            AdamState(step=1, m=want["m"], v=want["v"]), want["loss"],
+            moments_of_max=1e-7)
+
+
+def assert_bit_equal_step(got, want):
+    """Two steps' results (loss, params, m, v as numpy trees) bit-equal."""
+    assert got["loss"] == want["loss"]
+    for name in ("params", "m", "v"):
+        g, w = _flat(got[name]), _flat(want[name])
+        assert sorted(g) == sorted(w)
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=f"{name} {k}")
 
 
 def test_cli_tp_trains_and_writes_a_tree_jax_loads(ranks, capsys):

@@ -226,9 +226,11 @@ def injected_dropout(mask_of):
     return dropout, calls
 
 
-def unet_dp_step(params, x0, t, noise, mask_seed, cfg_kwargs):
+def unet_dp_step(params, x0, t, noise, mask_seed, cfg_kwargs, inject=True):
     """One TINY DP step with this rank's (t, noise) and dropout masks
-    injected; returns the loss, the params and the Adam moments."""
+    injected (without ``inject`` the masks come from the rank's generator:
+    ``--remat`` replays a generator, not an injected mask's call count);
+    returns the loss, the params and the Adam moments."""
     import dataclasses
 
     from big_linear_algebra_tpu_torch.models import cifar_unet as cu
@@ -244,7 +246,8 @@ def unet_dp_step(params, x0, t, noise, mask_seed, cfg_kwargs):
             np.random.default_rng([mask_seed, pmesh.rank(), i]).random(
                 shape) < keep))
     real = cu.dropout
-    cu.dropout = dropout
+    if inject:
+        cu.dropout = dropout
     try:
         p = _t(params)
         p, opt, loss = cu.make_train_step_dp(mesh, cfg)(
@@ -359,12 +362,13 @@ def _masks(mask_seed, data_index):
 
 
 def unet_tp_step(params, x0, t, noise, mask_seed, cfg_kwargs, dp,
-                 schedule=None):
+                 schedule=None, inject=True):
     """One TINY TP step on the (data 2 × model 2) mesh of a world of 4:
     with ``dp`` the DP×TP step (x0, t, noise cut over "data", masks per
     data index), else every model line runs the TP step on the whole batch.
-    ``schedule``: the DDPM schedule to use (``_schedule``). Returns the
-    loss and the gathered params and Adam moments."""
+    ``schedule``: the DDPM schedule to use (``_schedule``); without
+    ``inject`` the masks come from the step's generator. Returns the loss
+    and the gathered params and Adam moments."""
     from big_linear_algebra_tpu_torch.models import cifar_unet as cu
     from big_linear_algebra_tpu_torch.nn.optim import adam_init
     from big_linear_algebra_tpu_torch.parallel import make_mesh
@@ -378,8 +382,9 @@ def unet_tp_step(params, x0, t, noise, mask_seed, cfg_kwargs, dp,
              else (lambda x: x))
     step = cu.make_train_step_tp(mesh, specs, cfg,
                                  data_axis="data" if dp else None)
-    with _masks(mask_seed, mesh.index("data") if dp else 0) as calls, \
-            _schedule(schedule):
+    masks = (_masks(mask_seed, mesh.index("data") if dp else 0) if inject
+             else contextlib.nullcontext([]))
+    with masks as calls, _schedule(schedule):
         p, opt, loss = step(p, opt, shard(_t(x0)),
                             torch.Generator().manual_seed(3),
                             draws=(shard(_t(t)), shard(_t(noise))))
