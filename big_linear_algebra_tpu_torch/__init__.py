@@ -16,10 +16,11 @@ package as a CUDA kernel (``csrc/``), and the debug helpers
 DP×TP step, ring attention, the U-Net's tensor parallelism and the
 pipeline modes), and the U-Net's ``--layout=NHWC`` (the channels-last
 twins ``conv2d_nhwc``, ``group_norm_nhwc``, ``self_attention_block_nhwc``)
-and ``--remat`` (per-block recompute that replays the block's draws). Not
-ported: the XLA dispatch modes (``--scan-steps``, ``--scan-unroll``,
-``--host-loop``) and ``--prng`` (the port draws from
-``torch.Generator``).
+and ``--remat`` (per-block recompute that replays the block's draws),
+and the XLA dispatch modes as replayed CUDA graphs (``utils/graphs.py``:
+the sampler's loop, cifar_unet's device epoch with ``--scan-steps``,
+``--scan-unroll`` and ``--host-loop``, and mnist_nn's resident epoch). Not
+ported: ``--prng`` (the port draws from ``torch.Generator``).
 
 This package imports ``torch`` and numpy, never ``jax`` and never the JAX
 package. Importing it switches TF32 off (``ops/precision.py``).

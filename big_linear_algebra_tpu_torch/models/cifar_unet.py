@@ -16,8 +16,9 @@ Verbs:
   with ``Config.seed``, written as the reference CSV tree — the files the
   JAX package reads and writes.
 - ``train <epochs>``: the DDPM simple loss (Ho et al. alg. 1), its gradient
-  through the hand-written backward of every layer, and Adam, one eager step
-  per batch of the CIFAR batches (synthesized when absent). bf16 compute
+  through the hand-written backward of every layer, and Adam, one step per
+  batch of the CIFAR batches (synthesized when absent), replayed from a
+  CUDA graph or eager (below). bf16 compute
   over f32 stored parameters by default. The train state (parameters, Adam
   moments and step, the generator's state, the epoch) is saved each epoch
   under ``train_state_torch/step_<n>/`` and resumed from there; the CSV
@@ -44,9 +45,14 @@ Verbs:
   ``--remat`` (``Config.remat``): each resnet block recomputed in the
   backward from its inputs, its draws replayed (``_recomputed``). Both
   reach ``run``, ``train`` and every parallel mode.
-  Not ported: ``--prng`` and the XLA dispatch modes (``--scan-steps``,
-  ``--scan-unroll``, ``--host-loop``); ``main`` rejects each with its
-  reason.
+- The JAX package's XLA dispatch modes as replayed CUDA graphs
+  (``utils/graphs.py``): ``train`` runs a whole epoch as ``epoch_step``
+  (graphs of ``Config.scan_unroll`` steps, ``--scan-unroll=U``),
+  ``--scan-steps=K`` as ``train_chunk``'s K steps a replay, and
+  ``--host-loop`` one eager step per batch, by the JAX package's rules
+  (``train``); ``run`` samples through a graph of the denoising step.
+  The parallel modes, ``--debug-nans`` and ``--disable-jit`` run eager
+  steps. Not ported: ``--prng``, which ``main`` rejects with its reason.
 Every draw (DDPM noise and timesteps, dropout masks, sampling noise, the
 stochastic-rounding seeds of ``--bf16-params``) comes from one
 ``torch.Generator`` on the model's device (Philox on a GPU); JAX's
@@ -100,7 +106,7 @@ from big_linear_algebra_tpu_torch.nn.attention import (
 )
 from big_linear_algebra_tpu_torch.nn.conv import conv2d, conv2d_nhwc
 from big_linear_algebra_tpu_torch.nn import fused_block
-from big_linear_algebra_tpu_torch.nn.dropout import dropout
+from big_linear_algebra_tpu_torch.nn.dropout import dropout, dropout_mask
 from big_linear_algebra_tpu_torch.nn.init import he_uniform, xavier_uniform
 from big_linear_algebra_tpu_torch.nn.losses import mse_loss
 from big_linear_algebra_tpu_torch.nn.norm import group_norm, group_norm_nhwc
@@ -108,6 +114,8 @@ from big_linear_algebra_tpu_torch.nn.optim import (
     AdamState,
     adam_init,
     adam_update,
+    adam_update_at,
+    bias_corrections,
     tree_leaves,
     tree_map,
 )
@@ -124,6 +132,7 @@ from big_linear_algebra_tpu_torch.parallel.sharding import (
     BatchShard,
     batch_sharding,
 )
+from big_linear_algebra_tpu_torch.utils import debug, graphs
 
 Params = Dict[str, Any]
 
@@ -162,6 +171,9 @@ class Config:
     # --remat: each resnet block recomputed in the backward from its
     # inputs (its activations are not kept), its draws replayed
     remat: bool = False
+    # steps in one CUDA graph of the device epoch (and of the sampler's
+    # loop), the JAX package's lax.scan unroll factor: --scan-unroll=U
+    scan_unroll: int = 4
 
 
 CONFIG = Config()
@@ -479,39 +491,74 @@ def _conv(x: torch.Tensor, w, stride: int, add=None,
     return w.gather(y, -1 if nhwc else 1) if isinstance(w, _Shard) else y
 
 
+class _Draws:
+    """A block's draws under ``--remat``: on the block's first run each is
+    drawn from ``generator`` and kept; when the block is recomputed they
+    are handed back in the same order. Only the draws are kept (a dropout
+    mask as bool, a fused block's seed), which the plain step's autograd
+    keeps too; nothing is read to the host and no generator state is
+    copied, so a CUDA graph can capture the step."""
+
+    def __init__(self, generator):
+        self.generator = generator
+        self.kept = []
+        self.replay = None
+
+    def draw(self, fn):
+        """``fn(generator)``, or on a recompute the draw it gave."""
+        if self.replay is not None:
+            return next(self.replay)
+        out = fn(self.generator)
+        self.kept.append(out)
+        return out
+
+    def rewind(self) -> None:
+        self.replay = iter(self.kept)
+
+
+def _draw(generator, fn):
+    """``fn(generator)``: a block's draw, through ``_Draws`` under
+    ``--remat``."""
+    return generator.draw(fn) if isinstance(generator, _Draws) \
+        else fn(generator)
+
+
 def _dropout(h: torch.Tensor, cfg: Config, generator, train: bool,
              nhwc: bool) -> torch.Tensor:
     """The block's dropout. An NHWC map's mask is drawn in the logical
     NCHW order and permuted, so that both layouts consume ``generator``
     alike and drop the same elements (the JAX package draws in the
     activation's own layout, so its two layouts drop different ones)."""
-    if nhwc:
-        return dropout(h.permute(0, 3, 1, 2), cfg.dropout_rate, generator,
-                       deterministic=not train).permute(0, 2, 3, 1)
-    return dropout(h, cfg.dropout_rate, generator, deterministic=not train)
+    x = h.permute(0, 3, 1, 2) if nhwc else h
+    if isinstance(generator, _Draws) and train and cfg.dropout_rate > 0.0:
+        drop = generator.draw(lambda g: dropout_mask(
+            x.shape, cfg.dropout_rate, g, x.device))
+        out = dropout(x, cfg.dropout_rate, None, drop=drop)
+    else:
+        out = dropout(x, cfg.dropout_rate, generator,
+                      deterministic=not train)
+    return out.permute(0, 2, 3, 1) if nhwc else out
 
 
 def _recomputed(body, generator, *args):
-    """``body(*args, generator)`` under ``torch.utils.checkpoint``: its
+    """``body(*args, draws)`` under ``torch.utils.checkpoint``: its
     activations are dropped after the forward and recomputed from ``args``
-    when the backward reaches them. That restores only the global RNG
-    states, so the recompute draws from a new generator set to
-    ``generator``'s state at entry: the same masks (and fused-block seeds)
-    as the forward, while ``generator`` itself advances only as the plain
-    forward advances it. The graph is the plain one, so the step is
-    bit-equal to the step without recompute. The recompute runs the whole
-    body (no early stop), so under TP every rank replays every gather."""
-    state = None if generator is None else generator.get_state()
+    when the backward reaches them. The block draws through ``_Draws``
+    (``draws``): from ``generator`` in the forward, and the same masks
+    (and fused-block seeds) again in the recompute, while ``generator``
+    advances only as the plain forward advances it. The graph is the plain
+    one, so the step is bit-equal to the step without recompute. The
+    recompute runs the whole body (no early stop), so under TP every rank
+    replays every gather."""
+    draws = _Draws(generator)
     calls = 0
 
     def run(*a):
         nonlocal calls
-        gen = generator
-        if calls and generator is not None:
-            gen = torch.Generator(device=generator.device)
-            gen.set_state(state)
+        if calls:
+            draws.rewind()
         calls += 1
-        return body(*a, gen)
+        return body(*a, draws)
 
     with torch.utils.checkpoint.set_checkpoint_early_stop(False):
         return torch.utils.checkpoint.checkpoint(
@@ -549,8 +596,9 @@ def _resnet_block_body(x, temb, p, cfg: Config, train: bool, nhwc: bool,
                                       x.dtype)):
         seed = 0
         if train and cfg.dropout_rate > 0.0:
-            seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                                 device=x.device, dtype=torch.int32)
+            seed = _draw(generator, lambda g: torch.randint(
+                0, 2 ** 31 - 1, (1,), generator=g, device=x.device,
+                dtype=torch.int32))
         if isinstance(p["time_w"], _Shard):
             td = p["time_w"].gather(td, 1)
         w3 = _full(p["conv_3"]) if in_ch != out_ch else None
@@ -720,10 +768,23 @@ def _ddpm_draws(x0: torch.Tensor, generator: torch.Generator,
     return t, noise
 
 
+@functools.lru_cache(maxsize=8)
+def _schedule_on(schedule_fn, cfg: Config, device: torch.device):
+    return tuple(a.to(device) for a in schedule_fn(cfg))
+
+
+def device_schedule(cfg: Config, device) -> Tuple[torch.Tensor, ...]:
+    """``ddpm_schedule(cfg)`` on ``device``, copied there once per (cfg,
+    device): a step reads it without a copy from the host, which a CUDA
+    graph could not replay. (The cache is keyed by the schedule function
+    too, so that a test's replacement of ``ddpm_schedule`` takes effect.)"""
+    return _schedule_on(ddpm_schedule, cfg, torch.device(device))
+
+
 def _noised(x0: torch.Tensor, t: torch.Tensor, noise: torch.Tensor,
             cfg: Config) -> torch.Tensor:
     """x_t = √ᾱ_t·x₀ + √(1−ᾱ_t)·ε (the JAX package's ``_ddpm_draws``)."""
-    alpha_bars = ddpm_schedule(cfg)[2].to(x0.device)
+    alpha_bars = device_schedule(cfg, x0.device)[2]
     ab = alpha_bars[t][:, None, None, None]
     return torch.sqrt(ab) * x0 + torch.sqrt(1.0 - ab) * noise
 
@@ -801,6 +862,127 @@ def train_step(params: Params, opt_state: AdamState, x0: torch.Tensor,
     params, opt_state = _adam(params, grads, opt_state, cfg,
                               _sr_seed(generator, cfg))
     return params, opt_state, loss
+
+
+# ---------------------------------------------------------------------------
+# Many steps a dispatch: the JAX package's lax.scan over train steps
+# (train_chunk, epoch_step; models/cifar_unet.py:789-836) as a replayed CUDA
+# graph (utils/graphs.py).
+# ---------------------------------------------------------------------------
+
+
+class TrainSteps:
+    """Train steps over static buffers, replayed as a CUDA graph of
+    ``unroll`` steps (default ``cfg.scan_unroll``) on the card and run
+    eagerly on the CPU and under the debug modes: the state of the JAX
+    package's scanned steps.
+
+    It holds the parameters and Adam moments (copies of those given), the
+    batch indices of the steps ahead, their bias corrections
+    (``nn/optim.py`` ``bias_corrections``), a device step counter and the
+    losses. A step gathers its batch from ``data`` (N, 3, 32, 32) on the
+    card, row ``counter`` of the indices; runs ``train_step``'s loss,
+    gradient and Adam update (``adam_update_at``), its draws from
+    ``generator`` in the same order; writes the new parameters and
+    moments back into the buffers; records its loss; and advances the
+    counter. A replayed step is bit-equal to ``train_step`` on the same
+    batch and generator, and the generator ends where the eager steps
+    leave it."""
+
+    def __init__(self, params: Params, opt_state: AdamState,
+                 data: torch.Tensor, generator: torch.Generator,
+                 cfg: Config = CONFIG, unroll: Optional[int] = None):
+        device = data.device
+        self.cfg, self.data, self.generator = cfg, data, generator
+        self.params = tree_map(lambda p: p.detach().clone(), params)
+        self.m = tree_map(lambda a: a.detach().clone(), opt_state.m)
+        self.v = tree_map(lambda a: a.detach().clone(), opt_state.v)
+        self.step = opt_state.step
+        self.counter = torch.zeros((), dtype=torch.int64, device=device)
+        self.idx = torch.zeros((0, cfg.batch_size), dtype=torch.int64,
+                               device=device)
+        self.table = torch.zeros((0, 2), dtype=torch.float32, device=device)
+        # the loss in train_step's dtype (f64 for f64 data)
+        self.losses = torch.zeros((0,), device=device,
+                                  dtype=torch.promote_types(torch.float32,
+                                                            data.dtype))
+        self.graph = graphs.StepGraph(unroll or cfg.scan_unroll, device,
+                                      (generator,))
+
+    def opt_state(self) -> AdamState:
+        return AdamState(step=self.step, m=self.m, v=self.v)
+
+    def _one(self) -> None:
+        row = self.counter.reshape(1)
+        x0 = _fit_images(self.data[self.idx.index_select(0, row)[0]],
+                         self.cfg)
+        loss, grads = _loss_and_grads(self.params, x0, self.generator,
+                                      self.cfg, None)
+        sr_seed = _sr_seed(self.generator, self.cfg)
+        with torch.no_grad():
+            params, opt = adam_update_at(
+                self.params, grads, self.opt_state(), self.counter,
+                self.table, self.cfg.learn_rate, sr_seed=sr_seed)
+            for mine, new in ((self.params, params), (self.m, opt.m),
+                              (self.v, opt.v)):
+                for a, b in zip(tree_leaves(mine), tree_leaves(new)):
+                    a.copy_(b)
+            self.losses.index_copy_(0, row, loss.reshape(1))
+            self.counter.add_(1)
+
+    def run(self, idx: torch.Tensor) -> torch.Tensor:
+        """One step per row of ``idx`` (k, B), the batches' rows of
+        ``data``, on this object's state; returns the k losses (f32, on
+        the device)."""
+        k = idx.shape[0]
+        if k > self.idx.shape[0]:  # new buffers: the graph reads the old
+            device = self.counter.device
+            self.idx = torch.zeros((k, self.cfg.batch_size),
+                                   dtype=torch.int64, device=device)
+            self.table = torch.zeros((k, 2), dtype=torch.float32,
+                                     device=device)
+            self.losses = torch.zeros((k,), dtype=self.losses.dtype,
+                                      device=device)
+            self.graph.reset()
+        self.idx[:k].copy_(idx)
+        self.table[:k].copy_(bias_corrections(self.step + 1, k))
+        self.counter.zero_()
+        self.graph.run(k, self._one)
+        self.step += k
+        return self.losses[:k].clone()
+
+
+def train_chunk(params: Params, opt_state: AdamState, data: torch.Tensor,
+                idx: torch.Tensor, generator: torch.Generator,
+                cfg: Config = CONFIG):
+    """K train steps as one CUDA graph of K steps (the JAX package's
+    ``train_chunk``, one dispatch per chunk): ``idx`` (K, B) holds each
+    step's rows of ``data`` (N, 3, 32, 32), which the steps gather on the
+    device (the JAX package's chunk takes the stacked batches). Equal bit
+    for bit to K ``train_step`` calls on those batches and ``generator``.
+    A graph is captured after its warm-up, which for one chunk is the whole
+    chunk: ``train`` keeps one ``TrainSteps`` for all the chunks of a run.
+    Returns (params, opt_state, losses)."""
+    steps = TrainSteps(params, opt_state, data, generator, cfg,
+                       unroll=idx.shape[0])
+    losses = steps.run(idx)
+    return steps.params, steps.opt_state(), losses
+
+
+def epoch_step(params: Params, opt_state: AdamState, data: torch.Tensor,
+               perm: torch.Tensor, generator: torch.Generator,
+               cfg: Config = CONFIG):
+    """A whole epoch over a device-resident dataset (the JAX package's
+    ``epoch_step``): ``data`` (N, 3, 32, 32) on the device, ``perm``
+    (n_batches·B,) this epoch's order; each step gathers its batch on the
+    device, and on the card the steps after the warm-up are replays of a
+    graph of ``cfg.scan_unroll`` steps. Equal bit for bit to the same
+    ``train_step`` calls. Returns (params, opt_state, losses)."""
+    b = cfg.batch_size
+    n = perm.shape[0] // b
+    steps = TrainSteps(params, opt_state, data, generator, cfg)
+    losses = steps.run(perm[:n * b].reshape(n, b))
+    return steps.params, steps.opt_state(), losses
 
 
 # ---------------------------------------------------------------------------
@@ -1260,39 +1442,55 @@ def denoise_psnr(params: Params, x0: torch.Tensor,
     return torch.stack(out)
 
 
-def ddpm_update(x: torch.Tensor, eps: torch.Tensor, t: int,
-                z: torch.Tensor, schedule) -> torch.Tensor:
-    """One ancestral step x_t → x_{t−1} (the JAX sampler's loop body):
-    mean = (x − β/√(1−ᾱ)·ε)/√α, plus √β·z except at t = 0. The
-    coefficients are computed in f32 on the host, as the JAX body computes
-    them from f32 schedule scalars."""
-    betas, alphas, alpha_bars = schedule
-    beta, alpha, ab = betas[t], alphas[t], alpha_bars[t]
-    mean = (x - float(beta / torch.sqrt(1.0 - ab)) * eps) \
-        / float(torch.sqrt(alpha))
-    return mean + float(torch.sqrt(beta)) * z if t > 0 else mean
+def ddpm_update(x: torch.Tensor, eps: torch.Tensor, t, z: torch.Tensor,
+                schedule) -> torch.Tensor:
+    """One ancestral step x_t → x_{t−1}, the JAX sampler's loop body
+    (:1106-1111): mean = (x − β/√(1−ᾱ)·ε)/√α, then
+    ``where(t > 0, mean + √β·z, mean)``. ``t``: the timestep, a 0-dim
+    integer tensor on x's device (an int is put there); ``schedule``:
+    (betas, alphas, alpha_bars) on x's device (``device_schedule``). β, α
+    and ᾱ are read on the device and every coefficient is computed there in
+    f32, with true divisions as in JAX's body (a division of a CUDA tensor
+    by a host scalar would multiply by its reciprocal), so the step is the
+    same eagerly and in a CUDA graph."""
+    t = torch.as_tensor(t, device=x.device)
+    row = t.reshape(1)
+    beta, alpha, ab = (a.index_select(0, row)[0] for a in schedule)
+    mean = (x - beta / torch.sqrt(1.0 - ab) * eps) / torch.sqrt(alpha)
+    return torch.where(t > 0, mean + torch.sqrt(beta) * z, mean)
 
 
 def sample(params: Params, generator: torch.Generator, cfg: Config = CONFIG,
-           num_samples: int = 1) -> torch.Tensor:
+           num_samples: int = 1, graphed: Optional[bool] = None
+           ) -> torch.Tensor:
     """DDPM ancestral sampling (Ho et al. alg. 2) → (n, 3, S, S) f32 in
     [−1, 1], on the device of ``params`` and ``generator``. The initial
-    noise and every step's z are drawn from ``generator``."""
+    noise and every step's z are drawn from ``generator``. The loop is the
+    JAX package's ``lax.fori_loop``: each denoising step reads the timestep
+    from a device counter and writes x in place, so on the card the steps
+    after the warm-up are replays of a CUDA graph of ``cfg.scan_unroll``
+    steps (``utils/graphs.py``; eager on the CPU, under the debug modes or
+    with ``graphed=False``), bit-equal to the eager loop."""
     device = generator.device
     dt = getattr(torch, cfg.compute_dtype)
     params = tree_map(lambda p: p.to(device, dt), params)  # cast once
-    schedule = ddpm_schedule(cfg)
+    schedule = device_schedule(cfg, device)
     shape = (num_samples, cfg.in_channels, cfg.image_size, cfg.image_size)
-    x = torch.randn(shape, generator=generator, device=device)
     with torch.inference_mode():
-        for i in range(cfg.timesteps):
-            t = cfg.timesteps - 1 - i
-            tb = torch.full((num_samples,), t, dtype=torch.int32,
-                            device=device)
+        x = torch.randn(shape, generator=generator, device=device)
+        t = torch.full((), cfg.timesteps - 1, dtype=torch.int64,
+                       device=device)
+
+        def step():
+            tb = t.expand(num_samples).to(torch.int32)
             eps = forward(params, x, tb, cfg).float()
             z = torch.randn(shape, generator=generator, device=device)
-            x = ddpm_update(x, eps, t, z, schedule)
-    return x.clamp(-1.0, 1.0)
+            x.copy_(ddpm_update(x, eps, t, z, schedule))
+            t.sub_(1)
+
+        graphs.StepGraph(cfg.scan_unroll, device, (generator,),
+                         graphed).run(cfg.timesteps, step)
+        return x.clamp(-1.0, 1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -1387,6 +1585,9 @@ def _cfg_from_flags(flags) -> Config:
         cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
     if common.presence_flag(flags, "fused-block"):
         cfg = dataclasses.replace(cfg, fused_block=True)
+    if "scan-unroll" in flags:
+        cfg = dataclasses.replace(
+            cfg, scan_unroll=common.positive_int_flag(flags, "scan-unroll"))
     return cfg
 
 
@@ -1543,22 +1744,60 @@ def _parallel_mode(flags, cfg: Config):
                                           schedule=schedule)
 
 
+def _scan_steps(flags, kind: str) -> int:
+    """``--scan-steps`` (default 1), with the JAX package's messages where
+    a parallel mode runs (:1566-1573); under ``--tp`` the port rejects it:
+    its chunk graph would have to capture the step's collectives."""
+    scan_steps = common.int_flag(flags, "scan-steps", default=1, minimum=1)
+    if scan_steps > 1:
+        if kind == "dp":
+            raise SystemExit("--scan-steps>1 is not supported with --dp; use "
+                             "the default device-resident DP epoch mode")
+        if kind in ("pp", "idle"):
+            raise SystemExit("--scan-steps>1 is not supported with --pp (the "
+                             "chunked scan path runs the unsharded "
+                             "train_chunk)")
+        if kind == "tp":
+            raise SystemExit(
+                "--scan-steps>1 is not supported with --tp on the port: its "
+                "steps run eagerly (capturing the step's torch.distributed "
+                "collectives in a CUDA graph is later work)")
+    return scan_steps
+
+
 def train(num_epochs: int, *args, flags=None) -> int:
     """Train for ``num_epochs`` epochs, resuming the newest train state.
     Under ``--tp`` each rank holds its slices and the train state and the
     CSV tree are written from the gathered tree; under ``--pp`` every rank
-    holds the whole tree. Rank 0 alone prints and writes."""
+    holds the whole tree. Rank 0 alone prints and writes.
+
+    The JAX package's dispatch rules (:1516-1630), its scans replayed as
+    CUDA graphs (``TrainSteps``): with no ``--max-steps``, ``--scan-steps``
+    or ``--host-loop``, on one device with the data resident, each epoch
+    is ``epoch_step``'s (graphs of ``cfg.scan_unroll`` steps,
+    ``--scan-unroll``); ``--scan-steps=K`` takes K steps a replay (a
+    ragged tail step by step); otherwise (``--host-loop``, ``--max-steps``
+    alone, a parallel mode, a dataset past ``_RESIDENT_BYTES``) one eager
+    step per batch. Under the debug flags the same paths run their steps
+    eagerly. Either way the steps, the draws and the saved train state are
+    the same bit for bit."""
     flags = flags or {}
     cfg = _cfg_from_flags(flags)
     device = common.device_flag(flags)
     # absent = whole epochs; when given, --max-steps caps each epoch
     max_steps = common.int_flag(flags, "max-steps", default=0, minimum=1)
+    host_loop = common.presence_flag(flags, "host-loop")
     keep = common.int_flag(flags, "keep", default=3, minimum=0) or None
     best = common.presence_flag(flags, "keep-best")
     kind, mesh, step = _parallel_mode(flags, cfg)
+    scan_steps = _scan_steps(flags, kind)
     if mesh is not None:
         device = mesh.device
     rank0 = common.is_rank0()
+    if kind in ("dp", "tp", "pp") and rank0:
+        print(f"--{kind}: one eager step per batch (capturing the step's "
+              f"torch.distributed collectives in a CUDA graph is later "
+              f"work)")
     data = Cifar10Batches(common.rank0_first(
         lambda: synth.ensure_cifar(str(common.data_dir()))))
     if data.num_examples < cfg.batch_size:
@@ -1619,23 +1858,44 @@ def train(num_epochs: int, *args, flags=None) -> int:
     resident = data.pixels.size * 4 < _RESIDENT_BYTES
     if resident:
         data_dev = torch.from_numpy(pixels_to_chw(data.pixels)).to(device)
+    # the JAX package's dispatch (:1527-1530): the device epoch, the
+    # --scan-steps chunks, or one step per batch
+    device_epoch = (not max_steps and scan_steps == 1 and not host_loop
+                    and kind == "single" and resident)
+    steps_graph = None
+    if device_epoch or scan_steps > 1:
+        # a chunk path that streams stages each chunk in a device buffer
+        source = data_dev if resident else torch.empty(
+            (scan_steps * b, cfg.in_channels, 32, 32), device=device)
+        steps_graph = TrainSteps(params, opt_state, source, generator, cfg,
+                                 unroll=None if device_epoch else scan_steps)
+        params, opt_state = steps_graph.params, steps_graph.opt_state()
+    n_steps = n_ex // b if not max_steps else min(n_ex // b, max_steps)
     for epoch in range(epoch0, epoch0 + num_epochs):
         t0 = time.perf_counter()
-        if resident:
-            perm = torch.from_numpy(rng.permutation(n_ex)).to(device)
-            batches = (data_dev[perm[i + lo:i + hi]]
-                       for i in range(0, (n_ex // b) * b, b))
+        if steps_graph is not None:
+            losses = _graph_epoch(steps_graph, data, rng, n_steps,
+                                  scan_steps, resident, device)
+            params, opt_state = steps_graph.params, steps_graph.opt_state()
         else:
-            batches = prefetch_to_device(
-                (x[lo:hi] for _, x in data.epoch_batches(rng, b)), device)
-        losses = []
-        for step_i, x0 in enumerate(batches):
-            if max_steps and step_i >= max_steps:
-                break
-            params, opt_state, loss = step(params, opt_state,
-                                           _fit_images(x0, cfg), generator)
-            losses.append(loss)
-        losses = torch.stack(losses).float().cpu().numpy()
+            if resident:
+                perm = torch.from_numpy(rng.permutation(n_ex)).to(device)
+                batches = (data_dev[perm[i + lo:i + hi]]
+                           for i in range(0, (n_ex // b) * b, b))
+            else:
+                batches = prefetch_to_device(
+                    (x[lo:hi] for _, x in data.epoch_batches(rng, b)),
+                    device)
+            losses = []
+            for step_i, x0 in enumerate(batches):
+                if max_steps and step_i >= max_steps:
+                    break
+                params, opt_state, loss = step(params, opt_state,
+                                               _fit_images(x0, cfg),
+                                               generator)
+                losses.append(loss)
+            losses = torch.stack(losses)
+        losses = losses.float().cpu().numpy()
         dt = time.perf_counter() - t0
         avg = float(losses.mean())
         logger.log(epoch=epoch, avg_loss=avg, epoch_seconds=dt,
@@ -1652,6 +1912,39 @@ def train(num_epochs: int, *args, flags=None) -> int:
     common.launch_done(mesh)
     logger.close()
     return 0
+
+
+def _graph_epoch(steps: TrainSteps, data: Cifar10Batches,
+                 rng: np.random.Generator, n_steps: int, scan_steps: int,
+                 resident: bool, device) -> torch.Tensor:
+    """One epoch of ``train``'s graph paths on ``steps``: the device epoch
+    (``scan_steps`` 1: every step of the epoch in one ``run``) or the
+    ``--scan-steps`` chunks (whole chunks first, then the ragged tail step
+    by step), over ``rng``'s order, as the eager loop walks it. A dataset
+    that is not resident streams each chunk into ``steps.data``. Returns
+    the epoch's losses."""
+    b = steps.cfg.batch_size
+    if resident:
+        perm = torch.from_numpy(rng.permutation(data.num_examples)).to(device)
+        rows = perm[:n_steps * b].reshape(n_steps, b)
+        if scan_steps == 1:
+            return steps.run(rows)
+        whole = n_steps // scan_steps * scan_steps
+        return torch.cat([steps.run(rows[:whole]), steps.run(rows[whole:])])
+    chunk_rows = torch.arange(scan_steps * b, device=device).reshape(
+        scan_steps, b)
+    losses, chunk = [], []
+    batches = prefetch_to_device(
+        (x for _, x in data.epoch_batches(rng, b)), device)
+    for step_i, x0 in enumerate(batches):
+        if step_i >= n_steps:
+            break
+        chunk.append(x0)
+        if len(chunk) == scan_steps or step_i == n_steps - 1:
+            steps.data[:len(chunk) * b].copy_(torch.cat(chunk))
+            losses.append(steps.run(chunk_rows[:len(chunk)]))
+            chunk = []
+    return torch.cat(losses)
 
 
 def run(num_predictions: int = 1, flags=None) -> None:
@@ -1684,12 +1977,11 @@ def main(argv=None) -> int:
         extra_flags=("tiny", "image-size", "sample-seed", "bf16-params",
                      "layout", "batch", "max-steps", "keep", "keep-best",
                      "jsonl", "fused-block", "dp", "tp", "pp", "pp-micro",
-                     "pp-schedule", "remat"),
+                     "pp-schedule", "remat", "scan-steps", "scan-unroll",
+                     "host-loop"),
         unsupported_flags={
             "prng": "the port draws from torch.Generator (Philox on the "
                     "GPU); rbg/threefry are JAX's generators",
-            **{f: common.XLA_DISPATCH_MODE
-               for f in ("scan-steps", "scan-unroll", "host-loop")},
         })
 
 

@@ -19,7 +19,8 @@ Flags every model understands:
   every kernel launch on a CUDA tensor.
 
 The two debug flags only read: a run under them is bit-equal to one
-without them.
+without them. Under either, the steps a model would replay as a CUDA graph
+run eagerly (``utils/debug.py``).
 """
 
 from __future__ import annotations
@@ -109,10 +110,6 @@ def parse_flags(argv: List[str]):
 # a model ignores is worse than rejecting it.
 BASE_FLAGS = frozenset({"profile", "device", "debug-nans", "disable-jit"})
 
-# The reason the model CLIs give for the flags of the JAX package's XLA
-# dispatch modes.
-XLA_DISPATCH_MODE = ("an XLA dispatch mode; the port runs one eager step per "
-                     "batch (a CUDA graph over a step is later work)")
 # The JAX package accepts --jsonl on every program and ignores it where no
 # metrics are logged; the port rejects a flag it would ignore.
 NO_METRICS_LOG = ("this program logs no metrics (the JAX package accepts "
@@ -251,11 +248,16 @@ def rank0_first(fn: Callable[[], Any]) -> Any:
     return fn()
 
 
-# The flags of the parallel modes, which apply to train only.
-_PARALLEL_FLAGS = {"dp": "data parallelism", "tp": "tensor parallelism",
-                   "pp": "pipeline parallelism",
-                   "pp-micro": "pipeline parallelism",
-                   "pp-schedule": "pipeline parallelism"}
+# The flags of the parallel modes and of the dispatch modes (the JAX
+# package's XLA dispatch, replayed CUDA graphs here), which apply to train
+# only.
+_TRAIN_FLAGS = {"dp": "data parallelism", "tp": "tensor parallelism",
+                "pp": "pipeline parallelism",
+                "pp-micro": "pipeline parallelism",
+                "pp-schedule": "pipeline parallelism",
+                "scan-steps": "the train steps' dispatch",
+                "scan-unroll": "the train steps' dispatch",
+                "host-loop": "the train steps' dispatch"}
 
 
 def _ranks_to_spawn(flags) -> int:
@@ -343,7 +345,7 @@ def run_cli(prog: str,
                   + " ".join(f"--{f}" for f in sorted(allowed)))
             return 1
     verb = pos[0]
-    for f, what in _PARALLEL_FLAGS.items():
+    for f, what in _TRAIN_FLAGS.items():
         if f in flags and not verb.startswith("train"):
             # the JAX package ignores these outside train; the port rejects
             # a flag it would ignore

@@ -29,8 +29,10 @@ permutation is the JAX package's (``default_rng(Config.seed)``), so both
 packages visit the examples in the same order.
 
 Flags: ``--device=cuda|cpu`` (default ``cuda``), ``--batch=N``,
-``--per-batch``, ``--jsonl=PATH``, ``--dp``; ``--scan-unroll`` (an XLA
-dispatch mode) is rejected with its reason.
+``--per-batch``, ``--jsonl=PATH``, ``--dp``, ``--scan-unroll=U``. The
+resident epoch (the JAX package's one ``lax.scan``) replays a CUDA graph
+of ``Config.scan_unroll`` steps on the card (``ResidentEpoch``);
+``--per-batch``, ``--dp`` and the debug flags run eager steps.
 
 ``train --dp`` is data parallel over every rank of the launch (``torchrun
 --nproc-per-node=N -m big_linear_algebra_tpu_torch.models.mnist_nn train
@@ -72,6 +74,7 @@ from big_linear_algebra_tpu_torch.ops.matrix import frobenius_norm
 from big_linear_algebra_tpu_torch.parallel import spmd
 from big_linear_algebra_tpu_torch.parallel.sharding import (
     batch_sharding, shard_params_tp)
+from big_linear_algebra_tpu_torch.utils import graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +87,9 @@ class Config:
     learn_rate: float = 0.02       # SGD_LEARN_RATE_MULTIPLIER, :12
     grad_clip: float = float("inf")  # SGD_GRADIENT_CLIP, :13
     seed: int = 42                 # srand(42), :513
+    # steps in one CUDA graph of the resident epoch, the JAX package's
+    # lax.scan unroll factor: --scan-unroll=U
+    scan_unroll: int = 4
 
     @property
     def sizes(self):
@@ -255,20 +261,65 @@ def _resident_batches(x_dev, y_dev, batch_indices, cfg: Config):
         yield x, onehot, (batch_idx >= 0).to(torch.float32)
 
 
+class ResidentEpoch:
+    """The resident epoch on ``model`` (updated in place): ``x_dev`` (N,
+    784) raw 0-255 pixels and ``y_dev`` (N,) labels on the model's device.
+    ``epoch(perm)`` runs one ``train_step`` per batch of ``perm``
+    (n_batches·B indices, −1 = padding: the ragged last batch's mask, so
+    every step has one shape) and returns the summed (correct, ce_sum) as
+    device tensors. Each step gathers its batch on the device from row
+    ``counter`` of a static index buffer (``_resident_batches``' gather),
+    takes its gradients in ``.grad`` (a graph's from its own memory), and
+    adds its metrics to static accumulators; on the card the steps after
+    the warm-up are replays of a CUDA graph of ``cfg.scan_unroll`` steps
+    (``utils/graphs.py``; eager on the CPU, under the debug modes and with
+    ``graphed=False``), bit-equal to the eager epoch."""
+
+    def __init__(self, model: MnistNN, x_dev, y_dev, cfg: Config = CONFIG,
+                 graphed=None):
+        device = x_dev.device
+        self.model, self.x_dev, self.y_dev, self.cfg = model, x_dev, y_dev, \
+            cfg
+        self.idx = torch.zeros((0, cfg.batch_size), dtype=torch.int64,
+                               device=device)
+        self.counter = torch.zeros((), dtype=torch.int64, device=device)
+        # the dtypes of train_step's metrics: the mask's and the loss's
+        self.correct = torch.zeros((), dtype=torch.float32, device=device)
+        self.ce_sum = torch.zeros((), device=device, dtype=torch.promote_types(
+            torch.float32, model.layers[0].weight.dtype))
+        self.graph = graphs.StepGraph(cfg.scan_unroll, device,
+                                      graphed=graphed)
+
+    def _one(self) -> None:
+        rows = self.idx.index_select(0, self.counter.reshape(1))
+        batch = next(_resident_batches(self.x_dev, self.y_dev, rows,
+                                       self.cfg))
+        c, ce = train_step(self.model, *batch, self.cfg)
+        with torch.no_grad():
+            self.correct.add_(c)
+            self.ce_sum.add_(ce)
+            self.counter.add_(1)
+
+    def __call__(self, perm: torch.Tensor):
+        rows = perm.long().reshape(-1, self.cfg.batch_size)
+        k = rows.shape[0]
+        if k > self.idx.shape[0]:  # a new buffer: the graph reads the old
+            self.idx = torch.zeros_like(rows)
+            self.graph.reset()
+        self.idx[:k].copy_(rows)
+        for acc in (self.counter, self.correct, self.ce_sum):
+            acc.zero_()
+        self.graph.run(k, self._one)
+        return self.correct.clone(), self.ce_sum.clone()
+
+
 def epoch_step_resident(model: MnistNN, x_dev, y_dev, perm,
-                        cfg: Config = CONFIG):
-    """A whole epoch against a device-resident dataset: the host sends only
-    the permutation. ``x_dev``: (N, 784) raw 0-255 pixels; ``y_dev``: (N,)
-    labels; ``perm``: (n_batches·B,) indices, −1 = padding (the ragged last
-    batch's mask), all on the model's device. One eager step per batch.
+                        cfg: Config = CONFIG, graphed=None):
+    """A whole epoch against a device-resident dataset (the JAX package's
+    ``epoch_step_resident``): the host sends only the permutation; one
+    ``ResidentEpoch`` run. ``perm``: (n_batches·B,) indices, −1 = padding.
     Returns the epoch's summed (correct, ce_sum) as device tensors."""
-    correct = ce_sum = 0.0
-    for batch in _resident_batches(x_dev, y_dev,
-                                   perm.long().reshape(-1, cfg.batch_size),
-                                   cfg):
-        c, ce = train_step(model, *batch, cfg)
-        correct, ce_sum = correct + c, ce_sum + ce
-    return correct, ce_sum
+    return ResidentEpoch(model, x_dev, y_dev, cfg, graphed)(perm)
 
 
 def epoch_step(model: MnistNN, xs, onehots, masks, cfg: Config = CONFIG):
@@ -478,6 +529,9 @@ def train(num_epochs: int, *args, flags=None, cfg: Config = CONFIG) -> None:
         # --batch=N: scale past the reference's 64 (model/mnist_nn.c:11)
         cfg = dataclasses.replace(
             cfg, batch_size=common.positive_int_flag(flags, "batch"))
+    if "scan-unroll" in flags:
+        cfg = dataclasses.replace(
+            cfg, scan_unroll=common.positive_int_flag(flags, "scan-unroll"))
     per_batch = common.presence_flag(flags, "per-batch")
     device = common.device_flag(flags)
     mesh = common.dp_mesh(flags, cfg.batch_size)
@@ -502,12 +556,15 @@ def train(num_epochs: int, *args, flags=None, cfg: Config = CONFIG) -> None:
     step = (functools.partial(train_step, cfg=cfg) if mesh is None
             else make_train_step_dp(mesh, cfg))
     shard = (lambda a: a) if mesh is None else batch_sharding(mesh)
-    epoch_fn = (functools.partial(epoch_step_resident, cfg=cfg)
-                if mesh is None else make_epoch_resident_dp(mesh, cfg))
     try:
         if not per_batch:  # the dataset to the device once
             x_dev = torch.from_numpy(data.x).to(device)
             y_dev = torch.from_numpy(data.y).to(device)
+            # one graph for every epoch (--dp: eager steps)
+            epoch_fn = (ResidentEpoch(model, x_dev, y_dev, cfg)
+                        if mesh is None else
+                        functools.partial(make_epoch_resident_dp(mesh, cfg),
+                                          model, x_dev, y_dev))
         for epoch in range(num_epochs):
             t0 = time.perf_counter()
             if per_batch:  # reference-style: host batches, one at a time
@@ -521,7 +578,7 @@ def train(num_epochs: int, *args, flags=None, cfg: Config = CONFIG) -> None:
             else:
                 perm = torch.from_numpy(
                     epoch_permutation(rng, n, cfg.batch_size)).to(device)
-                correct, ce_sum = epoch_fn(model, x_dev, y_dev, perm)
+                correct, ce_sum = epoch_fn(perm)
                 correct_sum, loss_sum = float(correct), float(ce_sum)
             dt = time.perf_counter() - t0
             logger.log(epoch=epoch, avg_accuracy=correct_sum / n,
@@ -556,8 +613,7 @@ def run(num_predictions: int = -1, flags=None, cfg: Config = CONFIG) -> None:
 def main(argv=None) -> int:
     return common.run_cli(
         "mnist_nn", init, train, run, argv=argv,
-        extra_flags=("batch", "per-batch", "jsonl", "dp"),
-        unsupported_flags={"scan-unroll": common.XLA_DISPATCH_MODE})
+        extra_flags=("batch", "per-batch", "jsonl", "dp", "scan-unroll"))
 
 
 if __name__ == "__main__":

@@ -15,12 +15,22 @@ from typing import Optional
 import torch
 
 
+def dropout_mask(shape, rate: float, generator: Optional[torch.Generator],
+                 device) -> torch.Tensor:
+    """The elements ``dropout`` drops (True), drawn from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) >= 1.0 - rate
+
+
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator],
-            deterministic: bool = False) -> torch.Tensor:
+            deterministic: bool = False,
+            drop: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``drop``: the mask to apply (``dropout_mask``) instead of drawing
+    one."""
     if deterministic or rate == 0.0:
         return x
     keep = 1.0 - rate
-    drop = torch.rand(x.shape, generator=generator, device=x.device) >= keep
+    if drop is None:
+        drop = dropout_mask(x.shape, rate, generator, x.device)
     # in x's layout (torch.where would lay its output out as the mask)
     return (x / keep).masked_fill_(drop, 0.0).to(x.dtype)

@@ -14,6 +14,13 @@ in place.
   from an f32 step, as the JAX package computes them even in f64 mode.
   (XLA's f32 ``pow`` on the CPU and torch's can differ by one ulp at some
   steps; they agree for the first 30.)
+- ``adam_update_at`` is the same step for a CUDA graph
+  (``utils/graphs.py``): the step is a device counter that indexes a table
+  of the bias corrections of the steps ahead (``bias_corrections``), which
+  the host computes exactly as ``adam_update`` does, so the two forms are
+  bit-equal. (``adam_update`` copies its corrections from the host every
+  step, which a capture cannot hold: the copy would be frozen into the
+  graph.)
 - bf16 parameters can be written with stochastic rounding
   (``stochastic_round_bf16``), whose dither is the JAX package's counter hash
   (``_fmix32``) bit for bit: uint32 arithmetic emulated in int64, with every
@@ -128,29 +135,32 @@ def leaf_seeds(base, n: int) -> List[Any]:
     return [_fmix32(base ^ ((0x9E3779B9 * i) & _MASK32)) for i in range(n)]
 
 
-def adam_update(params: Any, grads: Any, state: AdamState, lr,
-                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                sr_seed: Optional[Any] = None,
-                sr_index: Optional[Any] = None):
-    """One Adam step with bias correction. Returns (params, state).
-
-    Moment and update arithmetic run in the moment dtype (≥ f32); the new
-    value is rounded back to each leaf's own dtype. ``sr_seed``: when given
-    (a uint32 base, int or int64 tensor), bf16 leaves are written with
-    stochastic rounding, one derived seed per leaf (``leaf_seeds``), leaf
-    *i* in sorted key-path order as the JAX package numbers them, whatever
-    order the dict was built in; f32 and f64 leaves are untouched by it.
-    ``sr_index``: a tree of element indices (or None leaves) for leaves that
-    are slices of larger ones (``stochastic_round_bf16``'s ``index``)."""
-    step = state.step + 1
+def _bias_correction(step: int, b1: float, b2: float) -> torch.Tensor:
+    """(1 − b1**t, 1 − b2**t) at t = ``step``, in f32 on the CPU from an f32
+    t (the JAX package's arithmetic)."""
     t = torch.tensor(float(step), dtype=torch.float32)
-    m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.to(m_.dtype),
-                 state.m, grads)
+    return torch.stack([1 - torch.pow(b1, t), 1 - torch.pow(b2, t)])
+
+
+def bias_corrections(first_step: int, n: int, b1: float = 0.9,
+                     b2: float = 0.999) -> torch.Tensor:
+    """The bias corrections of steps ``first_step`` … ``first_step + n − 1``
+    (1-based, as ``AdamState.step`` after the update): an (n, 2) f32 table
+    on the CPU, row i = (1 − b1**t, 1 − b2**t) at t = first_step + i. Each
+    row is computed as ``adam_update`` computes its own (one scalar pow at a
+    time: a vectorized pow can round otherwise)."""
+    rows = [_bias_correction(first_step + i, b1, b2) for i in range(n)]
+    return (torch.stack(rows) if rows
+            else torch.zeros((0, 2), dtype=torch.float32))
+
+
+def _adam_core(params: Any, grads: Any, m: Any, v: Any, bc1, bc2, lr,
+               b1: float, b2: float, eps: float, sr_seed, sr_index):
+    """The update of ``adam_update`` given the bias corrections ``bc1``,
+    ``bc2`` (0-dim f32 tensors on the moments' device): (params, m, v)."""
+    m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.to(m_.dtype), m, grads)
     v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * torch.square(
-        g.to(v_.dtype)), state.v, grads)
-    device = tree_leaves(m)[0].device
-    bc1 = (1 - torch.pow(b1, t)).to(device)
-    bc2 = (1 - torch.pow(b2, t)).to(device)
+        g.to(v_.dtype)), v, grads)
 
     def write(p, m_, v_, seed=None, index=None):
         new = p.to(m_.dtype) - lr * (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
@@ -166,4 +176,43 @@ def adam_update(params: Any, grads: Any, state: AdamState, lr,
         if sr_index is None:
             sr_index = tree_map(lambda _: None, params)
         new_params = tree_map(write, params, m, v, seed_tree, sr_index)
+    return new_params, m, v
+
+
+def adam_update(params: Any, grads: Any, state: AdamState, lr,
+                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                sr_seed: Optional[Any] = None,
+                sr_index: Optional[Any] = None):
+    """One Adam step with bias correction. Returns (params, state).
+
+    Moment and update arithmetic run in the moment dtype (≥ f32); the new
+    value is rounded back to each leaf's own dtype. ``sr_seed``: when given
+    (a uint32 base, int or int64 tensor), bf16 leaves are written with
+    stochastic rounding, one derived seed per leaf (``leaf_seeds``), leaf
+    *i* in sorted key-path order as the JAX package numbers them, whatever
+    order the dict was built in; f32 and f64 leaves are untouched by it.
+    ``sr_index``: a tree of element indices (or None leaves) for leaves that
+    are slices of larger ones (``stochastic_round_bf16``'s ``index``)."""
+    step = state.step + 1
+    device = tree_leaves(state.m)[0].device
+    bc1, bc2 = _bias_correction(step, b1, b2).to(device)
+    new_params, m, v = _adam_core(params, grads, state.m, state.v, bc1, bc2,
+                                  lr, b1, b2, eps, sr_seed, sr_index)
     return new_params, AdamState(step=step, m=m, v=v)
+
+
+def adam_update_at(params: Any, grads: Any, state: AdamState,
+                   counter: torch.Tensor, table: torch.Tensor, lr,
+                   b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                   sr_seed: Optional[Any] = None,
+                   sr_index: Optional[Any] = None):
+    """``adam_update`` with its bias corrections read on the device: row
+    ``counter`` (a 0-dim int64 tensor) of ``table`` (``bias_corrections`` of
+    the steps ahead, on the moments' device), so that nothing of the step
+    is on the host and a CUDA graph can replay it. Bit-equal to
+    ``adam_update`` at the row's step. Returns (params, state) with
+    ``state.step`` one more; the counter is the caller's to advance."""
+    bc1, bc2 = table.index_select(0, counter.reshape(1))[0]
+    new_params, m, v = _adam_core(params, grads, state.m, state.v, bc1, bc2,
+                                  lr, b1, b2, eps, sr_seed, sr_index)
+    return new_params, AdamState(step=state.step + 1, m=m, v=v)

@@ -19,7 +19,14 @@ jit, so it ports what they give, not how:
 - ``validate_finite``: a host-side check of a tree of tensors or arrays.
 
 The checks only read: a run under them computes bit for bit what it
-computes without them. Outputs of the ops that return uninitialized memory
+computes without them.
+
+Under either mode the steps the models would replay as a CUDA graph
+(``utils/graphs.py``) run eagerly instead (``active``): a check runs
+between two ops, and a graph replays its ops with no Python between them,
+so a graph would check nothing (and a capture cannot synchronize, read a
+value to the host or raise at an op). JAX's ``disable_jit`` likewise turns
+a ``lax.scan`` into a Python loop. Outputs of the ops that return uninitialized memory
 (``empty`` and its kin, ``resize_``, ``set_``) are not checked, nor views,
 which compute nothing: the tensor a view aliases was checked when it was
 computed. An ``out=`` or in-place op is checked after it has run.
@@ -88,6 +95,12 @@ def _tensors(tree) -> Iterator[torch.Tensor]:
 def _active() -> Iterator[_CheckMode]:
     return (m for m in _get_current_dispatch_mode_stack()
             if isinstance(m, _CheckMode))
+
+
+def active() -> bool:
+    """Whether ``debug_nans`` or ``no_jit`` is on: the models then run
+    their steps eagerly, not as a CUDA graph."""
+    return next(_active(), None) is not None
 
 
 def check_launch(what: str, outputs: Tuple[Optional[torch.Tensor], ...]

@@ -215,9 +215,9 @@ def test_cli_flags(tmp_path, monkeypatch, capsys):
                "--dp": "applies to train", "--tp": "parallel",
                "--pp": "parallel", "--pp-micro=2": "parallel",
                "--pp-schedule=1f1b": "parallel",
-               "--scan-steps=2": "dispatch mode",
-               "--host-loop": "dispatch mode",
-               "--scan-unroll=2": "dispatch mode",
+               "--scan-steps=2": "applies to train",
+               "--host-loop": "applies to train",
+               "--scan-unroll=2": "applies to train",
                "--bogus": "Unrecognized flag"}
     for flag, reason in reasons.items():
         assert cu.main(["run", "1", "--tiny", flag]) == 1, flag

@@ -241,8 +241,8 @@ def _assert_bit_equal(got, want):
 @pytest.mark.parametrize("case", ["f64", "f32", "f64 nhwc", "f32 fused"])
 def test_remat_step_bit_equal_to_plain_step(case, monkeypatch):
     """``--remat`` recomputes each resnet block in the backward, its
-    dropout masks (and fused-block seeds) replayed from the generator's
-    state at the block's entry: the step is bit-equal to the plain step,
+    dropout masks (and fused-block seeds) drawn once and handed back to
+    the recompute: the step is bit-equal to the plain step,
     and the generator ends where the plain step leaves it. With
     ``--fused-block`` the fused blocks run (and rerun in the recompute)."""
     dtype = "float64" if case.startswith("f64") else "float32"

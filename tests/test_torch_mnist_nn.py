@@ -139,13 +139,17 @@ def test_cli_flags(tmp_path, monkeypatch, capsys):
     assert mnist_nn.main([]) == 1
     assert mnist_nn.main(["train"]) == 1
     assert "number of epochs" in capsys.readouterr().out
-    for flag in ("--bogus", "--scan-unroll=2"):
-        assert mnist_nn.main(["train", "1", flag]) == 1
-    assert mnist_nn.main(["run", "--dp"]) == 1  # --dp is train's
+    assert mnist_nn.main(["train", "1", "--bogus"]) == 1
+    # --dp and --scan-unroll are train's (tests/test_torch_graphs.py runs
+    # the resident epoch's graph form)
+    assert mnist_nn.main(["run", "--scan-unroll=2"]) == 1
+    assert mnist_nn.main(["run", "--dp"]) == 1
     out = capsys.readouterr().out
     assert "data parallelism applies to train" in out
-    assert "dispatch mode" in out
+    assert "the train steps' dispatch applies to train" in out
     assert "Unrecognized flag" in out
+    with pytest.raises(ValueError, match="must be positive"):
+        mnist_nn.main(["train", "1", "--scan-unroll=0", "--device=cpu"])
     with pytest.raises(ValueError, match="takes no value"):
         mnist_nn.main(["train", "1", "--per-batch=1", "--device=cpu"])
     with pytest.raises(ValueError, match="must be positive"):

@@ -164,6 +164,14 @@ def ranks(tmp_path_factory):
                               argv=["train", "1", "--dp", "--device=cpu",
                                     "--batch=63"],
                               data_dir=str(data_dir / "batch"))),
+        ("scan dp", "cli", dict(module="cifar_unet",
+                                argv=["train", "1", "--tiny", "--dp",
+                                      "--scan-steps=2", "--device=cpu"],
+                                data_dir=str(data_dir / "scan"))),
+        ("scan tp", "cli", dict(module="cifar_unet",
+                                argv=["train", "1", "--tiny", "--tp",
+                                      "--scan-steps=2", "--device=cpu"],
+                                data_dir=str(data_dir / "scan"))),
     ])
     four = torch_ranks.spawn(4, [
         ("mesh", "mesh_facts", {}),
@@ -180,6 +188,11 @@ def ranks(tmp_path_factory):
                                          perm=perm, lr=0.1)),
         ("hinge", "hinge_dp_chunk", dict(w=hw, x=hx, labels=hl, lr=hlr,
                                          n_iters=10)),
+        ("scan pp", "cli", dict(module="cifar_unet",
+                                argv=["train", "1", "--tiny", "--pp",
+                                      "--pp-micro=2", "--scan-steps=2",
+                                      "--device=cpu"],
+                                data_dir=str(data_dir / "scan"))),
     ])
     return {"two": two, "four": four, "params": params, "p32": p32,
             "mnist": (x, onehot, mask), "mnist32": (x32, onehot32, mask32),
@@ -561,15 +574,24 @@ def test_cli_hinge_train_dp_prints_what_one_process_prints(ranks,
 
 def test_cli_dp_batch_must_divide_and_unet_rejections(ranks, capsys):
     """A batch that does not divide over the ranks raises with JAX's
-    message; cifar_unet rejects the flags it does not port, each with its
-    reason (``--prng``, the XLA dispatch modes), and the parallel flags
-    outside train."""
+    message; ``--scan-steps>1`` exits with JAX's messages under ``--dp``
+    and ``--pp`` (and with the port's reason under ``--tp``, whose steps
+    run eagerly); cifar_unet rejects the flag it does not port
+    (``--prng``) with its reason, and the parallel flags outside train."""
     for r in ranks["two"]:
         rc, _ = r["batch"]
         assert rc == "--dp: batch size 63 is not divisible by 2 devices"
-    for flag, reason in (("--prng=rbg", "torch.Generator"),
-                         ("--scan-steps=2", "XLA dispatch mode"),
-                         ("--host-loop", "XLA dispatch mode")):
+        rc, _ = r["scan dp"]
+        assert rc == ("--scan-steps>1 is not supported with --dp; use the "
+                      "default device-resident DP epoch mode")
+        rc, _ = r["scan tp"]
+        assert "--scan-steps>1 is not supported with --tp" in rc
+        assert "later work" in rc
+    for r in ranks["four"]:
+        rc, _ = r["scan pp"]
+        assert rc == ("--scan-steps>1 is not supported with --pp (the "
+                      "chunked scan path runs the unsharded train_chunk)")
+    for flag, reason in (("--prng=rbg", "torch.Generator"),):
         assert cu.main(["train", "1", "--tiny", flag]) == 1
         out = capsys.readouterr().out
         assert "not supported by cifar_unet" in out and reason in out
