@@ -19,8 +19,12 @@ twins ``conv2d_nhwc``, ``group_norm_nhwc``, ``self_attention_block_nhwc``)
 and ``--remat`` (per-block recompute that replays the block's draws),
 and the XLA dispatch modes as replayed CUDA graphs (``utils/graphs.py``:
 the sampler's loop, cifar_unet's device epoch with ``--scan-steps``,
-``--scan-unroll`` and ``--host-loop``, and mnist_nn's resident epoch). Not
-ported: ``--prng`` (the port draws from ``torch.Generator``).
+``--scan-unroll`` and ``--host-loop``, mnist_nn's resident epoch, the
+Layer graph's SGD scan and mnist_hinge's chunk, and the ``--dp`` and
+``--tp`` epochs with their collectives inside when the ranks run over
+NCCL, one card each). ``--pp`` trains one step a dispatch, as the JAX
+package does. Not ported: ``--prng`` (the port draws from
+``torch.Generator``).
 
 This package imports ``torch`` and numpy, never ``jax`` and never the JAX
 package. Importing it switches TF32 off (``ops/precision.py``).

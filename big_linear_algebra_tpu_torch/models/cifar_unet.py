@@ -27,10 +27,12 @@ Verbs:
   ``samples/sample_<i>.bmp``, from the port's train state when it is newer
   than the CSV tree.
 - ``train --dp``: data parallel over the ranks of the launch
-  (``make_train_step_dp``, the JAX package's shard_map DP step): each rank
-  steps on its rows of every batch with its own draws, the gradients and
-  the loss are averaged over the ranks, every rank applies the same Adam
-  update, and rank 0 alone prints and writes.
+  (``make_train_step_dp``, the JAX package's shard_map DP step, and its
+  epoch, ``make_epoch_step_dp``, as ``TrainSteps`` with a mesh): each rank
+  steps on its rows of every batch with its own draws (``DPGenerators``,
+  on its device), the gradients and the loss are averaged over the ranks,
+  every rank applies the same Adam update, and rank 0 alone prints and
+  writes.
 - ``train --tp``: tensor parallel over every rank of the launch
   (``place_tp``, ``make_train_step_tp``): each sharded conv computes its
   rank's output channels, which are gathered before the group norm; the
@@ -51,12 +53,16 @@ Verbs:
   ``--scan-steps=K`` as ``train_chunk``'s K steps a replay, and
   ``--host-loop`` one eager step per batch, by the JAX package's rules
   (``train``); ``run`` samples through a graph of the denoising step.
-  The parallel modes, ``--debug-nans`` and ``--disable-jit`` run eager
+  ``--dp`` and ``--tp`` (``--tp --scan-steps=K`` too) capture their
+  collectives in the graph when the ranks run over NCCL, one card each;
+  ranks that share a card (gloo), ``--pp`` (one step a dispatch in the
+  JAX package too), ``--debug-nans`` and ``--disable-jit`` run eager
   steps. Not ported: ``--prng``, which ``main`` rejects with its reason.
 Every draw (DDPM noise and timesteps, dropout masks, sampling noise, the
 stochastic-rounding seeds of ``--bf16-params``) comes from one
-``torch.Generator`` on the model's device (Philox on a GPU); JAX's
-rbg/threefry streams are not reproduced, and the tests inject draws.
+``torch.Generator`` on the model's device (Philox on a GPU; under
+``--dp`` two a rank, ``DPGenerators``); JAX's rbg/threefry streams are
+not reproduced, and the tests inject draws.
 
 At ``--image-size=64`` the four attention sites at resolution 2 (down_2 and
 up_3) see 32×32 = 1024 tokens and run the flash kernels (K2 forward,
@@ -124,6 +130,7 @@ from big_linear_algebra_tpu_torch.parallel import spmd
 from big_linear_algebra_tpu_torch.parallel.pipeline import (
     assemble_grads,
     fold_generator,
+    fold_seed,
     gpipe_hetero,
     gpipe_hetero_1f1b,
     pipeline_plan,
@@ -850,6 +857,28 @@ def _adam(params: Params, grads: Params, opt_state: AdamState, cfg: Config,
                            sr_index=sr_index)
 
 
+def _step_grads(params: Params, x0: torch.Tensor, generator, cfg: Config,
+                draws=None, mesh=None, tp=None, axis: str = "data"):
+    """What a train step hands Adam: (loss, gradients, the
+    ``--bf16-params`` rounding seed, the rounding's element indices). One
+    device: the draws from ``generator``, then the seed. ``tp`` (a
+    ``TPLayout``): the same on this rank's slices, which round with their
+    full leaves' indices. ``mesh`` (DP over its ``axis``): ``generator`` is
+    the rank's ``DPGenerators``; the seed from the replicated stream, the
+    draws from the rank's, the gradients and the loss averaged over the
+    axis (one all-reduce)."""
+    if mesh is not None:
+        sr_seed = _sr_seed(generator.replicated, cfg)
+        loss, grads = _loss_and_grads(params, x0, generator.rank, cfg, draws)
+        mean = spmd.pmean_tree({"grads": grads, "loss": loss}, mesh, axis)
+        return mean["loss"], mean["grads"], sr_seed, None
+    loss, grads = _loss_and_grads(params, x0, generator, cfg, draws, tp)
+    sr_seed = _sr_seed(generator, cfg)
+    index = (tp.sr_index(params) if tp is not None and sr_seed is not None
+             else None)
+    return loss, grads, sr_seed, index
+
+
 def train_step(params: Params, opt_state: AdamState, x0: torch.Tensor,
                generator: torch.Generator, cfg: Config = CONFIG,
                draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
@@ -858,9 +887,8 @@ def train_step(params: Params, opt_state: AdamState, x0: torch.Tensor,
     ``generator``. With ``--bf16-params`` the stochastic-rounding seed of
     the Adam writes is drawn from ``generator`` after the step's masks.
     Returns (params, opt_state, loss); nothing is updated in place."""
-    loss, grads = _loss_and_grads(params, x0, generator, cfg, draws)
-    params, opt_state = _adam(params, grads, opt_state, cfg,
-                              _sr_seed(generator, cfg))
+    loss, grads, sr_seed, _ = _step_grads(params, x0, generator, cfg, draws)
+    params, opt_state = _adam(params, grads, opt_state, cfg, sr_seed)
     return params, opt_state, loss
 
 
@@ -874,8 +902,8 @@ def train_step(params: Params, opt_state: AdamState, x0: torch.Tensor,
 class TrainSteps:
     """Train steps over static buffers, replayed as a CUDA graph of
     ``unroll`` steps (default ``cfg.scan_unroll``) on the card and run
-    eagerly on the CPU and under the debug modes: the state of the JAX
-    package's scanned steps.
+    eagerly on the CPU, under the debug modes and over gloo: the state of
+    the JAX package's scanned steps.
 
     It holds the parameters and Adam moments (copies of those given), the
     batch indices of the steps ahead, their bias corrections
@@ -887,13 +915,22 @@ class TrainSteps:
     moments back into the buffers; records its loss; and advances the
     counter. A replayed step is bit-equal to ``train_step`` on the same
     batch and generator, and the generator ends where the eager steps
-    leave it."""
+    leave it.
+
+    The parallel modes (``_step_grads``): with ``mesh`` the step is
+    ``make_train_step_dp``'s (JAX ``make_epoch_step_dp``): ``generator`` is
+    the rank's ``DPGenerators`` (both registered with the graph), the rows
+    given to ``run`` are this rank's columns of each batch, and the
+    all-reduce is captured with the step; with ``tp`` (a ``TPLayout``) it
+    is ``make_train_step_tp``'s on this rank's slices, its all-gathers and
+    all-reduces captured. Either needs NCCL to be graphed."""
 
     def __init__(self, params: Params, opt_state: AdamState,
-                 data: torch.Tensor, generator: torch.Generator,
-                 cfg: Config = CONFIG, unroll: Optional[int] = None):
+                 data: torch.Tensor, generator, cfg: Config = CONFIG,
+                 unroll: Optional[int] = None, mesh=None, tp=None):
         device = data.device
         self.cfg, self.data, self.generator = cfg, data, generator
+        self.mesh, self.tp = mesh, tp
         self.params = tree_map(lambda p: p.detach().clone(), params)
         self.m = tree_map(lambda a: a.detach().clone(), opt_state.m)
         self.v = tree_map(lambda a: a.detach().clone(), opt_state.v)
@@ -906,8 +943,9 @@ class TrainSteps:
         self.losses = torch.zeros((0,), device=device,
                                   dtype=torch.promote_types(torch.float32,
                                                             data.dtype))
-        self.graph = graphs.StepGraph(unroll or cfg.scan_unroll, device,
-                                      (generator,))
+        gens = ((generator.replicated, generator.rank) if mesh is not None
+                else (generator,))
+        self.graph = graphs.StepGraph(unroll or cfg.scan_unroll, device, gens)
 
     def opt_state(self) -> AdamState:
         return AdamState(step=self.step, m=self.m, v=self.v)
@@ -916,13 +954,14 @@ class TrainSteps:
         row = self.counter.reshape(1)
         x0 = _fit_images(self.data[self.idx.index_select(0, row)[0]],
                          self.cfg)
-        loss, grads = _loss_and_grads(self.params, x0, self.generator,
-                                      self.cfg, None)
-        sr_seed = _sr_seed(self.generator, self.cfg)
+        loss, grads, sr_seed, index = _step_grads(
+            self.params, x0, self.generator, self.cfg, mesh=self.mesh,
+            tp=self.tp)
         with torch.no_grad():
             params, opt = adam_update_at(
                 self.params, grads, self.opt_state(), self.counter,
-                self.table, self.cfg.learn_rate, sr_seed=sr_seed)
+                self.table, self.cfg.learn_rate, sr_seed=sr_seed,
+                sr_index=index)
             for mine, new in ((self.params, params), (self.m, opt.m),
                               (self.v, opt.v)):
                 for a, b in zip(tree_leaves(mine), tree_leaves(new)):
@@ -932,12 +971,12 @@ class TrainSteps:
 
     def run(self, idx: torch.Tensor) -> torch.Tensor:
         """One step per row of ``idx`` (k, B), the batches' rows of
-        ``data``, on this object's state; returns the k losses (f32, on
-        the device)."""
+        ``data`` (under ``mesh`` this rank's B/ranks of each), on this
+        object's state; returns the k losses (f32, on the device)."""
         k = idx.shape[0]
         if k > self.idx.shape[0]:  # new buffers: the graph reads the old
             device = self.counter.device
-            self.idx = torch.zeros((k, self.cfg.batch_size),
+            self.idx = torch.zeros((k, idx.shape[1]),
                                    dtype=torch.int64, device=device)
             self.table = torch.zeros((k, 2), dtype=torch.float32,
                                      device=device)
@@ -987,14 +1026,15 @@ def epoch_step(params: Params, opt_state: AdamState, data: torch.Tensor,
 
 # ---------------------------------------------------------------------------
 # Data parallelism: the JAX package's shard_map DP step
-# (models/cifar_unet.py:846-876). Each rank runs its shard of the batch;
+# (models/cifar_unet.py:846-876) and its scanned epoch (make_epoch_step_dp,
+# :878-911: TrainSteps with a mesh). Each rank runs its shard of the batch;
 # the gradients and the loss are averaged over the ranks.
 # ---------------------------------------------------------------------------
 
 def rank_generator(step_seed: int, rank: int,
                    device: torch.device) -> torch.Generator:
-    """The generator of one rank's draws in one DP step: the step's seed
-    with the rank folded in (JAX's ``fold_in(key, axis_index)``)."""
+    """The generator of one rank's draws from ``step_seed`` with the rank
+    folded in (JAX's ``fold_in(key, axis_index)``; the DP×TP step's)."""
     return fold_generator(step_seed, rank, device)
 
 
@@ -1003,34 +1043,56 @@ def _step_seed(generator: torch.Generator) -> int:
                              device=generator.device))
 
 
+class DPGenerators:
+    """``--dp``'s two generators on the rank's device, made once.
+    ``replicated``, seeded alike on every rank, draws the ``--bf16-params``
+    rounding seed (JAX's ``_sr_key`` from the pre-fold key: every rank
+    must round the replicated params alike or the replicas part).
+    ``rank``, this rank's own (the seed with the rank ``index`` folded in),
+    draws its t, noise and dropout masks. ``new_epoch`` seeds ``rank``
+    anew from a seed the replicated stream draws (one host read an epoch),
+    the rank folded in: the train state keeps the replicated stream alone
+    (``get_state``/``set_state``), whatever the rank count, and a run
+    resumed at an epoch draws as the unbroken run. A graph registers both,
+    and the eager DP step draws from the same two, so graphed and eager
+    steps are one stream."""
+
+    def __init__(self, seed: int, index: int, device):
+        self.index = index
+        self.replicated = torch.Generator(device=device).manual_seed(seed)
+        self.rank = fold_generator(seed, index, device)
+
+    def new_epoch(self) -> None:
+        self.rank.manual_seed(fold_seed(_step_seed(self.replicated),
+                                        self.index))
+
+    def get_state(self) -> torch.Tensor:
+        return self.replicated.get_state()
+
+    def set_state(self, state: torch.Tensor) -> None:
+        self.replicated.set_state(state)
+
+
 def make_train_step_dp(mesh, cfg: Config = CONFIG, axis: str = "data"):
     """DP train step over ``mesh``: x0 is this rank's shard of the batch
     (``batch_sharding``), params and Adam state are replicated.
-    ``step(params, opt_state, x0, generator, draws=None)``: ``generator``
-    is the replicated stream, the same on every rank (a host generator, so
-    that drawing a seed waits for no device). From it the step draws the
-    stochastic-rounding seed of ``--bf16-params`` first (JAX's ``_sr_key``
-    from the pre-fold key: every rank must round the replicated params
-    alike or the replicas part), then a step seed; the rank's generator
-    (``rank_generator``) makes its t, noise and dropout masks. ``draws``:
-    this rank's (t, noise) instead. The local loss is a mean over the
-    shard, so the gradients and the loss are averaged over ``axis``
-    (pmean, one all-reduce), and every rank applies the same Adam update.
+    ``step(params, opt_state, x0, generators, draws=None)``:
+    ``generators`` is the rank's ``DPGenerators``: the stochastic-rounding
+    seed of ``--bf16-params`` from the replicated stream, this rank's t,
+    noise and dropout masks from its own. ``draws``: this rank's (t,
+    noise) instead. The local loss is a mean over the shard, so the
+    gradients and the loss are averaged over ``axis`` (pmean, one
+    all-reduce), and every rank applies the same Adam update.
     Statistically the single-device step at the global batch: each rank
-    draws its own timesteps, noise and masks. (JAX's ``make_epoch_step_dp``
-    is this step under an XLA scan; the port runs one step per batch.)
-    Returns (params, opt_state, loss)."""
-
+    draws its own timesteps, noise and masks. ``TrainSteps`` with the mesh
+    runs this step over static buffers (JAX's ``make_epoch_step_dp``, a
+    graph under NCCL). Returns (params, opt_state, loss)."""
     def step(params: Params, opt_state: AdamState, x0: torch.Tensor,
-             generator: torch.Generator, draws=None):
-        sr_seed = _sr_seed(generator, cfg)
-        local = rank_generator(_step_seed(generator), mesh.index(axis),
-                               x0.device)
-        loss, grads = _loss_and_grads(params, x0, local, cfg, draws)
-        mean = spmd.pmean_tree({"grads": grads, "loss": loss}, mesh, axis)
-        params, opt_state = _adam(params, mean["grads"], opt_state, cfg,
-                                  sr_seed)
-        return params, opt_state, mean["loss"]
+             generators: DPGenerators, draws=None):
+        loss, grads, sr_seed, _ = _step_grads(params, x0, generators, cfg,
+                                              draws, mesh=mesh, axis=axis)
+        params, opt_state = _adam(params, grads, opt_state, cfg, sr_seed)
+        return params, opt_state, loss
 
     return step
 
@@ -1177,9 +1239,9 @@ def make_train_step_tp(mesh, specs: Params, cfg: Config = CONFIG,
     ``generator`` exactly as ``train_step`` does (t, noise, the masks, then
     the rounding seed): every rank of the line draws alike, and the step is
     the single-device step, as JAX's GSPMD step is. With ``data_axis``
-    (DP×TP) x0 is this rank's data shard and ``generator`` the replicated
-    host stream, as in ``make_train_step_dp``: the rounding seed, then a
-    step seed with the **data** index folded in (never the global rank, so
+    (DP×TP) x0 is this rank's data shard and ``generator`` a replicated
+    host stream: the rounding seed, then a step seed with the **data**
+    index folded in (never the global rank, so
     that the ranks of one model line draw alike); the gradients and the
     loss are then averaged over ``data_axis``. ``draws``: this rank's (t,
     noise). Returns (params, opt_state, loss)."""
@@ -1188,9 +1250,8 @@ def make_train_step_tp(mesh, specs: Params, cfg: Config = CONFIG,
     def step(params: Params, opt_state: AdamState, x0: torch.Tensor,
              generator: torch.Generator, draws=None):
         if data_axis is None:
-            loss, grads = _loss_and_grads(params, x0, generator, cfg, draws,
-                                          layout)
-            sr_seed = _sr_seed(generator, cfg)
+            loss, grads, sr_seed, index = _step_grads(
+                params, x0, generator, cfg, draws, tp=layout)
         else:
             sr_seed = _sr_seed(generator, cfg)
             local = rank_generator(_step_seed(generator),
@@ -1200,7 +1261,7 @@ def make_train_step_tp(mesh, specs: Params, cfg: Config = CONFIG,
             mean = spmd.pmean_tree({"grads": grads, "loss": loss}, mesh,
                                    data_axis)
             grads, loss = mean["grads"], mean["loss"]
-        index = layout.sr_index(params) if sr_seed is not None else None
+            index = layout.sr_index(params) if sr_seed is not None else None
         params, opt_state = _adam(params, grads, opt_state, cfg, sr_seed,
                                   index)
         return params, opt_state, loss
@@ -1600,15 +1661,23 @@ def init(flags=None) -> None:
 
 # The draw chains a train state's generator can belong to, and how to
 # resume each: "device" (one device, and --tp, whose step is the
-# single-device step), "dp" (--dp) and "pp" (--pp, and --pp --dp, whose
-# step is the 1-D pipeline's at the same global batch).
+# single-device step), "dp-device" (--dp) and "pp" (--pp, and --pp --dp,
+# whose step is the 1-D pipeline's at the same global batch). "dp" is the
+# --dp chain of earlier versions of the port, which no run continues.
 _CHAINS = {
     "device": "a run without --dp or --pp (one device, or --tp), whose draws "
               "come from the device's generator; resume it without --dp and "
               "--pp",
-    "dp": "a --dp run, whose draws come from a replicated host generator "
-          "with each rank's index folded in; resume it with --dp on two or "
-          "more ranks (any count)",
+    "dp-device": "a --dp run, whose draws come from two generators on each "
+                 "rank's device (the replicated stream, and the rank's own "
+                 "seeded from it each epoch); resume it with --dp on two or "
+                 "more ranks (any count)",
+    "dp": "a --dp run of an earlier version of the port, whose draws came "
+          "from a replicated host generator and a new generator every step; "
+          "--dp now draws from two device generators a rank (so that its "
+          "steps can be replayed as a CUDA graph) and cannot continue that "
+          "stream: delete the train state (train_state_torch/) to start "
+          "again from the CSV tree",
     "pp": "a --pp run, whose draws come from a replicated host generator "
           "with each stage and microbatch folded in; resume it with --pp on "
           "three or more ranks (with or without --dp)",
@@ -1631,7 +1700,9 @@ def _resume(state: dict, generator, cfg: Config, device: torch.device,
     ``--bf16-params`` setting resumes into this one); the generator
     continues its stream. The state records its draw chain (``_CHAINS``;
     states from before the pipeline record ``dp``), and resuming it into
-    another chain is refused. A ``--dp`` or ``--pp`` state holds the
+    another chain is refused, as is a ``--dp`` state of an earlier version
+    (chain "dp"), whose stream no run continues. A ``--dp`` state holds the
+    replicated stream of ``DPGenerators`` and a ``--pp`` state the
     replicated host stream, whatever the rank count."""
     written = state.get("chain") or ("dp" if state.get("dp") else "device")
     if written != chain:
@@ -1746,8 +1817,8 @@ def _parallel_mode(flags, cfg: Config):
 
 def _scan_steps(flags, kind: str) -> int:
     """``--scan-steps`` (default 1), with the JAX package's messages where
-    a parallel mode runs (:1566-1573); under ``--tp`` the port rejects it:
-    its chunk graph would have to capture the step's collectives."""
+    a parallel mode runs (:1566-1573); ``--tp`` takes it, as the JAX
+    package's GSPMD chunk does."""
     scan_steps = common.int_flag(flags, "scan-steps", default=1, minimum=1)
     if scan_steps > 1:
         if kind == "dp":
@@ -1757,11 +1828,6 @@ def _scan_steps(flags, kind: str) -> int:
             raise SystemExit("--scan-steps>1 is not supported with --pp (the "
                              "chunked scan path runs the unsharded "
                              "train_chunk)")
-        if kind == "tp":
-            raise SystemExit(
-                "--scan-steps>1 is not supported with --tp on the port: its "
-                "steps run eagerly (capturing the step's torch.distributed "
-                "collectives in a CUDA graph is later work)")
     return scan_steps
 
 
@@ -1773,12 +1839,14 @@ def train(num_epochs: int, *args, flags=None) -> int:
 
     The JAX package's dispatch rules (:1516-1630), its scans replayed as
     CUDA graphs (``TrainSteps``): with no ``--max-steps``, ``--scan-steps``
-    or ``--host-loop``, on one device with the data resident, each epoch
-    is ``epoch_step``'s (graphs of ``cfg.scan_unroll`` steps,
-    ``--scan-unroll``); ``--scan-steps=K`` takes K steps a replay (a
-    ragged tail step by step); otherwise (``--host-loop``, ``--max-steps``
-    alone, a parallel mode, a dataset past ``_RESIDENT_BYTES``) one eager
-    step per batch. Under the debug flags the same paths run their steps
+    or ``--host-loop``, with the data resident, on one device, under
+    ``--dp`` (JAX's ``make_epoch_step_dp``) or ``--tp`` (its GSPMD epoch),
+    each epoch is one ``TrainSteps`` run (graphs of ``cfg.scan_unroll``
+    steps, ``--scan-unroll``); ``--scan-steps=K`` (one device or ``--tp``)
+    takes K steps a replay (a ragged tail step by step); otherwise
+    (``--host-loop``, ``--max-steps`` alone, ``--pp``, a dataset past
+    ``_RESIDENT_BYTES``) one eager step per batch. Under the debug flags,
+    and where ranks share a card over gloo, the same paths run their steps
     eagerly. Either way the steps, the draws and the saved train state are
     the same bit for bit."""
     flags = flags or {}
@@ -1794,10 +1862,11 @@ def train(num_epochs: int, *args, flags=None) -> int:
     if mesh is not None:
         device = mesh.device
     rank0 = common.is_rank0()
-    if kind in ("dp", "tp", "pp") and rank0:
-        print(f"--{kind}: one eager step per batch (capturing the step's "
-              f"torch.distributed collectives in a CUDA graph is later "
-              f"work)")
+    if kind in ("dp", "tp"):
+        common.say_eager_rule(kind, device)
+    if kind == "pp" and rank0:
+        print("--pp: one eager step per batch (the JAX package trains the "
+              "pipeline one step a dispatch)")
     data = Cifar10Batches(common.rank0_first(
         lambda: synth.ensure_cifar(str(common.data_dir()))))
     if data.num_examples < cfg.batch_size:
@@ -1806,10 +1875,14 @@ def train(num_epochs: int, *args, flags=None) -> int:
             f"({data.num_examples} examples): no full batch to train on")
     if kind == "idle":  # a rank the pipeline's mesh leaves out: it leaves
         return 0
-    chain = {"dp": "dp", "pp": "pp"}.get(kind, "device")
-    # --dp and --pp: the replicated stream is a host generator
-    generator = torch.Generator(
-        device="cpu" if chain != "device" else device).manual_seed(cfg.seed)
+    chain = {"dp": "dp-device", "pp": "pp"}.get(kind, "device")
+    # --dp: the replicated and the rank's generator on the device; --pp:
+    # the replicated stream is a host generator
+    if kind == "dp":
+        generator = DPGenerators(cfg.seed, mesh.index("data"), device)
+    else:
+        generator = torch.Generator(
+            device="cpu" if chain == "pp" else device).manual_seed(cfg.seed)
     step0 = ckpt_pytree.latest_step(state_dir())
     csv_file = ckpt_dir() / "output_conv.csv"
     epoch0 = 0
@@ -1858,24 +1931,28 @@ def train(num_epochs: int, *args, flags=None) -> int:
     resident = data.pixels.size * 4 < _RESIDENT_BYTES
     if resident:
         data_dev = torch.from_numpy(pixels_to_chw(data.pixels)).to(device)
-    # the JAX package's dispatch (:1527-1530): the device epoch, the
-    # --scan-steps chunks, or one step per batch
+    # the JAX package's dispatch (:1527-1530): the device epoch (one
+    # device, --dp, --tp), the --scan-steps chunks, or one step per batch
     device_epoch = (not max_steps and scan_steps == 1 and not host_loop
-                    and kind == "single" and resident)
+                    and kind in ("single", "dp", "tp") and resident)
     steps_graph = None
     if device_epoch or scan_steps > 1:
         # a chunk path that streams stages each chunk in a device buffer
         source = data_dev if resident else torch.empty(
-            (scan_steps * b, cfg.in_channels, 32, 32), device=device)
-        steps_graph = TrainSteps(params, opt_state, source, generator, cfg,
-                                 unroll=None if device_epoch else scan_steps)
+            (scan_steps * (hi - lo), cfg.in_channels, 32, 32), device=device)
+        steps_graph = TrainSteps(
+            params, opt_state, source, generator, cfg,
+            unroll=None if device_epoch else scan_steps,
+            mesh=mesh if kind == "dp" else None, tp=layout)
         params, opt_state = steps_graph.params, steps_graph.opt_state()
     n_steps = n_ex // b if not max_steps else min(n_ex // b, max_steps)
     for epoch in range(epoch0, epoch0 + num_epochs):
         t0 = time.perf_counter()
+        if kind == "dp":
+            generator.new_epoch()
         if steps_graph is not None:
             losses = _graph_epoch(steps_graph, data, rng, n_steps,
-                                  scan_steps, resident, device)
+                                  scan_steps, resident, device, lo, hi)
             params, opt_state = steps_graph.params, steps_graph.opt_state()
         else:
             if resident:
@@ -1916,32 +1993,33 @@ def train(num_epochs: int, *args, flags=None) -> int:
 
 def _graph_epoch(steps: TrainSteps, data: Cifar10Batches,
                  rng: np.random.Generator, n_steps: int, scan_steps: int,
-                 resident: bool, device) -> torch.Tensor:
+                 resident: bool, device, lo: int, hi: int) -> torch.Tensor:
     """One epoch of ``train``'s graph paths on ``steps``: the device epoch
     (``scan_steps`` 1: every step of the epoch in one ``run``) or the
     ``--scan-steps`` chunks (whole chunks first, then the ragged tail step
-    by step), over ``rng``'s order, as the eager loop walks it. A dataset
-    that is not resident streams each chunk into ``steps.data``. Returns
-    the epoch's losses."""
+    by step), over ``rng``'s order, as the eager loop walks it; each step
+    takes its batch's columns ``lo:hi`` (this rank's under ``--dp``). A
+    dataset that is not resident streams each chunk into ``steps.data``.
+    Returns the epoch's losses."""
     b = steps.cfg.batch_size
     if resident:
         perm = torch.from_numpy(rng.permutation(data.num_examples)).to(device)
-        rows = perm[:n_steps * b].reshape(n_steps, b)
+        rows = perm[:n_steps * b].reshape(n_steps, b)[:, lo:hi]
         if scan_steps == 1:
             return steps.run(rows)
         whole = n_steps // scan_steps * scan_steps
         return torch.cat([steps.run(rows[:whole]), steps.run(rows[whole:])])
-    chunk_rows = torch.arange(scan_steps * b, device=device).reshape(
-        scan_steps, b)
+    chunk_rows = torch.arange(scan_steps * (hi - lo), device=device).reshape(
+        scan_steps, hi - lo)
     losses, chunk = [], []
     batches = prefetch_to_device(
-        (x for _, x in data.epoch_batches(rng, b)), device)
+        (x[lo:hi] for _, x in data.epoch_batches(rng, b)), device)
     for step_i, x0 in enumerate(batches):
         if step_i >= n_steps:
             break
         chunk.append(x0)
         if len(chunk) == scan_steps or step_i == n_steps - 1:
-            steps.data[:len(chunk) * b].copy_(torch.cat(chunk))
+            steps.data[:len(chunk) * (hi - lo)].copy_(torch.cat(chunk))
             losses.append(steps.run(chunk_rows[:len(chunk)]))
             chunk = []
     return torch.cat(losses)

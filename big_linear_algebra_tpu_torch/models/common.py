@@ -233,6 +233,19 @@ def is_rank0() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
+def say_eager_rule(flag: str, device) -> None:
+    """The parallel modes' stated rule, printed once by rank 0: where the
+    ranks share a card over gloo, ``--flag``'s steps run eagerly, since a
+    CUDA graph cannot hold gloo's collectives (``utils/graphs.py``
+    ``GLOO``). Over NCCL they replay a graph, and on the CPU nothing is
+    said (every step there is eager)."""
+    from big_linear_algebra_tpu_torch.utils import graphs
+
+    if (torch.device(device).type == "cuda" and is_rank0()
+            and graphs.eager_reason(device) == graphs.GLOO):
+        print(f"--{flag}: eager steps ({graphs.GLOO})")
+
+
 def rank0_first(fn: Callable[[], Any]) -> Any:
     """``fn()`` on rank 0 first, then on the other ranks (which find the
     files it made): data synthesis under ``--dp``."""

@@ -18,7 +18,11 @@ ten iterations on the device (the reference's logging and convergence
 cadence, :152), and the host reads the chunk's norm history once. The
 converging iteration's update lands; after it the weights stay frozen
 while the chunk's remaining norms are still computed, so the last row the
-host prints is what the JAX package prints.
+host prints is what the JAX package prints. ``train`` runs its chunks over
+static buffers (``Chunks``: the weights, the device ``done`` flag and the
+norm history), each whole chunk a replay of one CUDA graph on the card
+(the JAX package's one dispatch a chunk; ``utils/graphs.py``), the ragged
+tail eagerly; ``--dp`` captures its all-reduce an iteration with it.
 
 Intended-semantics deviations, as in the JAX package (SURVEY.md §7.9):
 descent on max(0, 1 − y·wᵀx) with argmax-of-``wᵀx`` scoring and full
@@ -30,8 +34,9 @@ Flags: ``--device=cuda|cpu`` (default ``cuda``), ``--reference-scoring``,
 ``train --dp`` shards the examples over the ranks of the launch (zero rows
 pad them to a multiple of the rank count; ``torchrun`` or, on a node with
 several cards, one rank per card) and sums the gradient over the ranks
-once an iteration (``make_train_chunk_dp``); rank 0 alone prints and
-writes.
+once an iteration (``make_train_chunk_dp``), inside the chunk's graph
+when the ranks run over NCCL (one card each) and eagerly over gloo;
+rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from big_linear_algebra_tpu_torch.models import common
 from big_linear_algebra_tpu_torch.nn.init import uniform_init
 from big_linear_algebra_tpu_torch.parallel import spmd
 from big_linear_algebra_tpu_torch.parallel.sharding import batch_sharding
+from big_linear_algebra_tpu_torch.utils import graphs
 
 EPSILON = 0.05  # convergence threshold, model/mnist_hinge.c:168
 CHUNK = 10      # iterations between the reference's norm logs (:152)
@@ -95,24 +101,64 @@ def signed_targets(labels: torch.Tensor, dtype) -> torch.Tensor:
 
 
 @torch.no_grad()
-def _chunk(w, x, y, lr, n_iters, n_total, mesh=None, axis="data"):
-    """The iterations of ``train_chunk`` (JAX ``_chunk_body``): with a
-    mesh, x and y are this rank's examples and the gradient is summed over
-    ``axis`` (one all-reduce an iteration); every rank then holds the same
-    sum, so the same weights and the same convergence freeze."""
-    done = torch.zeros((), dtype=torch.bool, device=w.device)
-    history = []
-    for _ in range(n_iters):
+def _iterate(w, done, history, x, y, lr, n_total, mesh=None, axis="data"):
+    """``len(history)`` iterations in place (JAX ``_chunk_body`` under its
+    scan): ``w`` updated, ``done`` cleared first and set at convergence,
+    row i of ``history`` the i-th iteration's norms. With a mesh, x and y
+    are this rank's examples and the gradient is summed over ``axis`` (one
+    all-reduce an iteration); every rank then holds the same sum, so the
+    same weights and the same convergence freeze."""
+    done.zero_()
+    for i in range(history.shape[0]):
         margins = y * (x @ w)
         viol = (margins < 1.0).to(x.dtype)
         grads = -(x.T @ (viol * y))
         if mesh is not None:
             grads = spmd.psum_tree(grads, mesh, axis)
         norms = torch.sqrt(torch.sum(grads * grads, dim=0)) / n_total
-        w = torch.where(done, w, w - lr * grads)
-        done = done | (torch.sum(norms) < EPSILON)
-        history.append(norms)
-    return w, torch.stack(history)
+        w.copy_(torch.where(done, w, w - lr * grads))
+        done.copy_(done | (torch.sum(norms) < EPSILON))
+        history[i].copy_(norms)
+
+
+def _chunk(w, x, y, lr, n_iters, n_total, mesh=None, axis="data"):
+    """The iterations of ``train_chunk`` on new buffers: (w, history)."""
+    w = w.clone()
+    history = torch.zeros((n_iters, w.shape[1]), dtype=w.dtype,
+                          device=w.device)
+    _iterate(w, torch.zeros((), dtype=torch.bool, device=w.device), history,
+             x, y, lr, n_total, mesh, axis)
+    return w, history
+
+
+class Chunks:
+    """``train``'s chunks over static buffers: the weights ``w`` (a copy of
+    those given), the device ``done`` flag and the (CHUNK, 10) norm
+    history. ``run(n)`` makes n ≤ CHUNK iterations and returns the
+    history's first n rows (the buffer itself): a whole chunk is one
+    ``StepGraph`` step, so on the card the first chunk runs eagerly (the
+    warm-up) and every later one is a replay; a shorter one (the ragged
+    tail) runs eagerly. Bit-equal to ``_chunk``. ``graphed``: as
+    ``StepGraph``'s."""
+
+    def __init__(self, w, x, y, lr, n_total, mesh=None, axis="data",
+                 graphed=None):
+        self.w = w.clone()
+        self.done = torch.zeros((), dtype=torch.bool, device=w.device)
+        self.history = torch.zeros((CHUNK, w.shape[1]), dtype=w.dtype,
+                                   device=w.device)
+        self.args = (x, y, lr, n_total, mesh, axis)
+        self.graph = graphs.StepGraph(1, w.device, graphed=graphed)
+
+    def _whole(self) -> None:
+        _iterate(self.w, self.done, self.history, *self.args)
+
+    def run(self, n: int) -> torch.Tensor:
+        if n == CHUNK:
+            self.graph.run(1, self._whole)
+        else:
+            _iterate(self.w, self.done, self.history[:n], *self.args)
+        return self.history[:n]
 
 
 def train_chunk(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor, lr: float,
@@ -161,6 +207,7 @@ def train(iterations: int, learn_rate: str = None, *args, flags=None):
     mesh = common.dp_mesh(flags)
     if mesh is not None:
         device = mesh.device
+        common.say_eager_rule("dp", device)
     rank0 = common.is_rank0()
     train_csv, _ = common.rank0_first(
         lambda: synth.ensure_mnist(str(common.data_dir())))
@@ -184,11 +231,11 @@ def train(iterations: int, learn_rate: str = None, *args, flags=None):
         x_np, labels_np = shard(x_np), shard(labels_np)
     x = torch.from_numpy(x_np).to(device)
     y = signed_targets(torch.from_numpy(labels_np).to(device), x.dtype)
+    chunks = Chunks(w, x, y, lr, n_total, mesh)
     i = 0
     while i < iterations:
         chunk = min(CHUNK, iterations - i)
-        w, norms_hist = _chunk(w, x, y, lr, chunk, n_total, mesh)
-        norms_hist = norms_hist.cpu().numpy()   # one read per chunk
+        norms_hist = chunks.run(chunk).cpu().numpy()  # one read per chunk
         i += chunk
         if rank0 and ((i % CHUNK == 0) or i == iterations):  # logUpdate
             print(f"Gradient norms after iteration {i - 1}:")  # (:152)
@@ -201,7 +248,7 @@ def train(iterations: int, learn_rate: str = None, *args, flags=None):
                 print(f"Gradient converged < epsilon after iteration {conv}")
             break
     if rank0:
-        save_weights(w)
+        save_weights(chunks.w)
         print("Finished training")
     common.launch_done()
 

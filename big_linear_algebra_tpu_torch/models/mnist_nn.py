@@ -31,16 +31,18 @@ packages visit the examples in the same order.
 Flags: ``--device=cuda|cpu`` (default ``cuda``), ``--batch=N``,
 ``--per-batch``, ``--jsonl=PATH``, ``--dp``, ``--scan-unroll=U``. The
 resident epoch (the JAX package's one ``lax.scan``) replays a CUDA graph
-of ``Config.scan_unroll`` steps on the card (``ResidentEpoch``);
-``--per-batch``, ``--dp`` and the debug flags run eager steps.
+of ``Config.scan_unroll`` steps on the card (``ResidentEpoch``), under
+``--dp`` too when the ranks run over NCCL; ``--per-batch``, the debug
+flags and ranks that share a card over gloo run eager steps.
 
 ``train --dp`` is data parallel over every rank of the launch (``torchrun
 --nproc-per-node=N -m big_linear_algebra_tpu_torch.models.mnist_nn train
 1 --dp``; launched plainly on a node with several cards, one rank per
 card; on one card, the JAX package's "single device, running unsharded"):
 each rank takes its slice of every batch (the resident epoch by default,
-``make_train_step_dp`` under ``--per-batch``), the gradients are summed
-over the ranks, and rank 0 alone logs and writes the CSVs.
+``make_epoch_resident_dp``, graphed as above; ``make_train_step_dp``
+under ``--per-batch``), the gradients and the metrics are summed over the
+ranks on the device, and rank 0 alone logs and writes the CSVs.
 ``make_train_step_dp_tp`` is the DP×TP step (the dense layers
 column-parallel over a ``model`` axis), an API as in the JAX package.
 
@@ -272,16 +274,31 @@ class ResidentEpoch:
     takes its gradients in ``.grad`` (a graph's from its own memory), and
     adds its metrics to static accumulators; on the card the steps after
     the warm-up are replays of a CUDA graph of ``cfg.scan_unroll`` steps
-    (``utils/graphs.py``; eager on the CPU, under the debug modes and with
-    ``graphed=False``), bit-equal to the eager epoch."""
+    (``utils/graphs.py``; eager on the CPU, under the debug modes, over
+    gloo and with ``graphed=False``), bit-equal to the eager epoch.
+
+    With ``mesh`` (DP over its ``axis``) the step is ``make_train_step_dp``'s
+    on this rank's slice of every batch, ``perm.reshape(n_batches, ranks,
+    B/ranks)[:, rank]`` as the JAX package slices it; its gradients and
+    metrics are summed over the ranks inside the step (in the graph under
+    NCCL), so the accumulators hold the epoch's global sums."""
 
     def __init__(self, model: MnistNN, x_dev, y_dev, cfg: Config = CONFIG,
-                 graphed=None):
+                 graphed=None, mesh=None, axis: str = "data"):
         device = x_dev.device
         self.model, self.x_dev, self.y_dev, self.cfg = model, x_dev, y_dev, \
             cfg
-        self.idx = torch.zeros((0, cfg.batch_size), dtype=torch.int64,
-                               device=device)
+        if mesh is None:
+            self.ranks, self.rank = 1, 0
+            self.step = functools.partial(train_step, cfg=cfg)
+        else:
+            self.ranks, self.rank = mesh.size(axis), mesh.index(axis)
+            if cfg.batch_size % self.ranks:
+                raise ValueError(f"batch_size {cfg.batch_size} not divisible "
+                                 f"by {self.ranks} devices")
+            self.step = make_train_step_dp(mesh, cfg, axis)
+        self.idx = torch.zeros((0, cfg.batch_size // self.ranks),
+                               dtype=torch.int64, device=device)
         self.counter = torch.zeros((), dtype=torch.int64, device=device)
         # the dtypes of train_step's metrics: the mask's and the loss's
         self.correct = torch.zeros((), dtype=torch.float32, device=device)
@@ -294,14 +311,15 @@ class ResidentEpoch:
         rows = self.idx.index_select(0, self.counter.reshape(1))
         batch = next(_resident_batches(self.x_dev, self.y_dev, rows,
                                        self.cfg))
-        c, ce = train_step(self.model, *batch, self.cfg)
+        c, ce = self.step(self.model, *batch)
         with torch.no_grad():
             self.correct.add_(c)
             self.ce_sum.add_(ce)
             self.counter.add_(1)
 
     def __call__(self, perm: torch.Tensor):
-        rows = perm.long().reshape(-1, self.cfg.batch_size)
+        rows = perm.long().reshape(-1, self.ranks,
+                                   self.idx.shape[1])[:, self.rank]
         k = rows.shape[0]
         if k > self.idx.shape[0]:  # a new buffer: the graph reads the old
             self.idx = torch.zeros_like(rows)
@@ -470,23 +488,16 @@ def make_epoch_resident_dp(mesh, cfg: Config = CONFIG, axis: str = "data"):
     every rank, and each rank gathers its slice of every batch by its
     position on ``axis``, ``perm.reshape(n_batches, ranks, B/ranks)[:,
     rank]`` as the JAX package slices it, so an epoch is the single-device
-    epoch's math. ``epoch(model, x_dev, y_dev, perm)`` returns the summed
-    (correct, ce_sum)."""
-    ndev = mesh.size(axis)
-    if cfg.batch_size % ndev:
-        raise ValueError(
-            f"batch_size {cfg.batch_size} not divisible by {ndev} devices")
-    b_local = cfg.batch_size // ndev
-    step = make_train_step_dp(mesh, cfg, axis)
-    r = mesh.index(axis)
+    epoch's math. ``epoch(model, x_dev, y_dev, perm)`` is one
+    ``ResidentEpoch`` run with the mesh (``train`` keeps one for every
+    epoch); it returns the summed (correct, ce_sum) as device tensors."""
+    if cfg.batch_size % mesh.size(axis):
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
+                         f"{mesh.size(axis)} devices")
 
     def epoch(model: MnistNN, x_dev, y_dev, perm):
-        idx = perm.long().reshape(-1, ndev, b_local)[:, r]
-        correct = ce_sum = 0.0
-        for batch in _resident_batches(x_dev, y_dev, idx, cfg):
-            c, ce = step(model, *batch)
-            correct, ce_sum = correct + c, ce_sum + ce
-        return correct, ce_sum
+        return ResidentEpoch(model, x_dev, y_dev, cfg, mesh=mesh,
+                             axis=axis)(perm)
 
     return epoch
 
@@ -537,6 +548,7 @@ def train(num_epochs: int, *args, flags=None, cfg: Config = CONFIG) -> None:
     mesh = common.dp_mesh(flags, cfg.batch_size)
     if mesh is not None:
         device = mesh.device
+        common.say_eager_rule("dp", device)
     train_csv, _ = common.rank0_first(
         lambda: synth.ensure_mnist(str(common.data_dir())))
     if layout_exists(str(ckpt_dir()), _LAYOUT):
@@ -560,11 +572,8 @@ def train(num_epochs: int, *args, flags=None, cfg: Config = CONFIG) -> None:
         if not per_batch:  # the dataset to the device once
             x_dev = torch.from_numpy(data.x).to(device)
             y_dev = torch.from_numpy(data.y).to(device)
-            # one graph for every epoch (--dp: eager steps)
-            epoch_fn = (ResidentEpoch(model, x_dev, y_dev, cfg)
-                        if mesh is None else
-                        functools.partial(make_epoch_resident_dp(mesh, cfg),
-                                          model, x_dev, y_dev))
+            # one graph for every epoch (--dp: its step, this rank's rows)
+            epoch_fn = ResidentEpoch(model, x_dev, y_dev, cfg, mesh=mesh)
         for epoch in range(num_epochs):
             t0 = time.perf_counter()
             if per_batch:  # reference-style: host batches, one at a time

@@ -28,11 +28,13 @@ backward (the independence approximation is written out intentionally in
 softmax_ddx).
 
 Where the JAX package runs many steps as one ``lax.scan`` dispatch,
-``make_sgd_scan`` here is a loop of eager steps on the parameters' device:
-one example is a few dozen small kernels. The costs stay on the device and
-are read once, after the loop. The forward's ``W @ a + b`` is one
-``addmv`` and the update ``W − lr·δ⊗a`` one ``addr``: the same values as
-the JAX package's separate ops, rounded once fewer.
+``make_sgd_scan`` here replays a CUDA graph of ``unroll`` per-example
+steps over static buffers (``utils/graphs.py``; one example is a few dozen
+small kernels, which the host would otherwise launch one by one), eager
+on the CPU and under the debug modes. The costs stay on the device and are
+read once, after the loop. The forward's ``W @ a + b`` is one ``addmv`` and
+the update ``W − lr·δ⊗a`` one ``addr``: the same values as the JAX
+package's separate ops, rounded once fewer.
 """
 
 from __future__ import annotations
@@ -152,22 +154,58 @@ def make_sgd_step(activations: Sequence[str]):
     return step
 
 
-def make_sgd_scan(activations: Sequence[str]):
+class _ScanSteps:
+    """The state of ``make_sgd_scan``'s steps: copies of the parameters,
+    the examples, the costs (T,) and a device counter. A step reads example
+    ``counter``, writes the updated parameters back into their buffers and
+    its cost at ``counter``, and advances the counter; it holds no
+    reference to the ``StepGraph`` that replays it."""
+
+    def __init__(self, params: Params, activations: Tuple[str, ...],
+                 xs: torch.Tensor, ys: torch.Tensor, lr: float):
+        self.params = [(w.clone(), b.clone()) for w, b in params]
+        self.acts, self.xs, self.ys, self.lr = activations, xs, ys, lr
+        self.costs = torch.zeros(
+            xs.shape[0], device=xs.device,
+            dtype=torch.promote_types(params[-1][0].dtype, xs.dtype))
+        self.counter = torch.zeros((), dtype=torch.int64, device=xs.device)
+
+    def step(self) -> None:
+        row = self.counter.reshape(1)
+        new, c = _sgd_step_cost(self.params, self.acts,
+                                self.xs.index_select(0, row)[0],
+                                self.ys.index_select(0, row)[0], self.lr)
+        for (w, b), (nw, nb) in zip(self.params, new):
+            w.copy_(nw)
+            b.copy_(nb)
+        self.costs.index_copy_(0, row, c.reshape(1))
+        self.counter.add_(1)
+
+
+def make_sgd_scan(activations: Sequence[str], unroll: int = 2,
+                  graphed=None):
     """Many per-example SGD steps:
     ``run(params, xs (T, in), ys (T, out), lr) -> (params, costs (T,))``.
 
     Identical to T sequential ``sgd_step`` calls (online SGD in example
     order); each cost is the pre-update squared error, as the reference
-    logs it (model/my_first_model.c:102-105). The costs stay on the
-    parameters' device: the loop never waits for the device."""
+    logs it (model/my_first_model.c:102-105). The steps run over static
+    buffers (``_ScanSteps``); on a card a graph of ``unroll`` steps is
+    replayed (``StepGraph.run``: the first steps eager as the warm-up,
+    then ⌊(T − those) / unroll⌋ replays), bit-equal to the eager steps;
+    ``graphed`` as ``StepGraph``'s (default: ``graphs_allowed``). The costs
+    stay on the parameters' device: the loop never waits for the device."""
+    from big_linear_algebra_tpu_torch.utils import graphs
+
     acts = tuple(activations)
 
     @torch.no_grad()
     def run(params, xs, ys, lr):
-        costs = []
-        for x, y in zip(xs, ys):
-            params, c = _sgd_step_cost(params, acts, x, y, lr)
-            costs.append(c)
-        return params, torch.stack(costs) if costs else xs.new_zeros(0)
+        if xs.shape[0] == 0:
+            return params, xs.new_zeros(0)
+        steps = _ScanSteps(params, acts, xs, ys, lr)
+        graphs.StepGraph(unroll, xs.device, graphed=graphed).run(
+            xs.shape[0], steps.step)
+        return steps.params, steps.costs
 
     return run

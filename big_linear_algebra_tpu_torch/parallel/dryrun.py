@@ -73,7 +73,7 @@ def _dryrun_rank(n: int, out_path: str) -> int:
     step = cu.make_train_step_dp(mesh, cfg)
     params, _, loss = step(params, adam_init(params),
                            batch_sharding(mesh)(x0),
-                           torch.Generator().manual_seed(1))
+                           cu.DPGenerators(1, mesh.index("data"), "cpu"))
     _finite("the U-Net DP step's loss", loss)
 
     # 1b) TP: the conv kernels' output channels over a "model" axis

@@ -51,12 +51,16 @@ from big_linear_algebra_tpu_torch.parallel import spmd
 _GOLDEN64 = 0x9E3779B97F4A7C15
 
 
+def fold_seed(seed: int, index: int) -> int:
+    """``seed`` with ``index`` folded in (JAX's ``fold_in(key, index)``):
+    other indices give other seeds, the same one the same."""
+    return (seed ^ ((index + 1) * _GOLDEN64)) & (2 ** 63 - 1)
+
+
 def fold_generator(seed: int, index: int, device) -> torch.Generator:
-    """A generator of ``seed`` with ``index`` folded in (JAX's
-    ``fold_in(key, index)``): other indices draw otherwise, the same one
-    alike."""
-    folded = (seed ^ ((index + 1) * _GOLDEN64)) & (2 ** 63 - 1)
-    return torch.Generator(device=device).manual_seed(folded)
+    """A generator of ``fold_seed(seed, index)``: other indices draw
+    otherwise, the same one alike."""
+    return torch.Generator(device=device).manual_seed(fold_seed(seed, index))
 
 
 # ---------------------------------------------------------------------------

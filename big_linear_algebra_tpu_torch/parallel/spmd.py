@@ -28,11 +28,20 @@ this is how ranks that share one card exchange data). NCCL takes the
 device buffers. On a line of one rank, or outside a process group, every
 collective is the identity.
 
+Under NCCL the collectives read nothing to the host and allocate only on
+the current stream's pool (an all-gather fills one flat buffer), so a step
+that makes them can be captured in a CUDA graph (``utils/graphs.py``) once
+every group it uses has run a collective (NCCL makes a group's
+communicator at its first one).
+
 ``collective_calls`` counts every collective; ``collective_seconds`` and
 ``collective_bytes`` give, for each kind ("all_reduce", "all_gather",
 "hop"), the host wall time spent in it (copies included; under NCCL the
 time to enqueue, not to finish) and the bytes this rank handed to it (the
-buffer summed, this rank's part gathered, the tensors sent).
+buffer summed, this rank's part gathered, the tensors sent). The count and
+the bytes come from the call and the shapes, with no device read, and a
+graph's replay adds what its capture recorded; ``collective_seconds`` is
+host time and does not advance in a capture or a replay.
 """
 
 from __future__ import annotations
@@ -136,10 +145,17 @@ class _AllGather(torch.autograd.Function):
         if group is None:
             return x.clone()
         with _Timed("all_gather", [x]):
-            src = x.cpu().contiguous() if _staged(x) else x.contiguous()
-            parts = [torch.empty_like(src) for _ in range(mesh.size(axis))]
-            dist.all_gather(parts, src, group=group)
-            return torch.cat(parts, dim=dim).to(x.device)
+            n = mesh.size(axis)
+            if dist.get_backend() != "nccl":
+                src = x.cpu().contiguous() if _staged(x) else x.contiguous()
+                parts = [torch.empty_like(src) for _ in range(n)]
+                dist.all_gather(parts, src, group=group)
+                return torch.cat(parts, dim=dim).to(x.device)
+            src = x.contiguous()
+            flat = torch.empty((n,) + tuple(src.shape), dtype=src.dtype,
+                               device=src.device)
+            dist.all_gather_into_tensor(flat, src, group=group)
+            return torch.cat(flat.unbind(0), dim=dim)
 
     @staticmethod
     def backward(ctx, g):

@@ -33,10 +33,21 @@ that replay n+1 reads what replay n wrote, as a scan's carry.
   wrapper that makes it, and a replay calls no wrapper. So the counts a
   capture records are taken back, and added again at every replay: a run
   counts the same launches graphed or eager.
+- The collectives of ``parallel/spmd.py`` (a DP or TP step's all-reduces
+  and all-gathers) are captured with the step when the ranks run over
+  NCCL, which enqueues them on the device; their counters
+  (``collective_calls``, ``collective_bytes``) are kept as the launch
+  counters are, so a graphed epoch counts the collectives and bytes of the
+  eager one. ``collective_seconds``, host enqueue time, does not advance in
+  a capture or a replay. Every group a step uses must have run a
+  collective before the capture (NCCL makes a group's communicator at its
+  first collective): the warm-up's eager steps do that. Gloo stages its
+  collectives through host memory, which a graph cannot hold.
 - A capture or replay that fails raises; nothing falls back to the eager
-  steps. The eager steps run instead only where no graph is asked for: on
-  the CPU (where they are the plain version), under the debug modes of
-  ``utils/debug.py`` (which run op by op), or with ``graphed=False``.
+  steps. The eager steps run instead only where no graph is asked for
+  (``eager_reason``): on the CPU (where they are the plain version), under
+  the debug modes of ``utils/debug.py`` (which run op by op), in a gloo
+  process group, inside ``eager()``, or with ``graphed=False``.
 """
 
 from __future__ import annotations
@@ -63,14 +74,19 @@ _COUNTERS = {
     "big_linear_algebra_tpu_torch.nn.fused_block": (
         "launch_count", "bwd_launch_count", "wgrad_launch_count",
         "tc_launch_count", "bwd_tc_launch_count", "wgrad_tc_launch_count"),
+    "big_linear_algebra_tpu_torch.parallel.spmd": (
+        "collective_calls", "collective_bytes"),
 }
+# Host clocks a capture must leave as they were (a replay does not move
+# them): module → its attributes (dicts of floats).
+_CLOCKS = {"big_linear_algebra_tpu_torch.parallel.spmd": ("collective_seconds",)}
 
 Counts = Dict[Tuple[str, str, Optional[str]], int]
 
 
 def launch_counts() -> Counts:
-    """Every launch counter now: (module, attribute, dict key or None) →
-    count."""
+    """Every launch counter (and collective counter) now: (module,
+    attribute, dict key or None) → count."""
     out: Counts = {}
     for name, attrs in _COUNTERS.items():
         module = importlib.import_module(name)
@@ -96,11 +112,59 @@ def _set_counts(counts: Counts, add: bool = False) -> None:
             table[key] = value + (table[key] if add else 0)
 
 
+def _clocks() -> dict:
+    """A copy of every clock of ``_CLOCKS``."""
+    return {(name, attr): dict(getattr(importlib.import_module(name), attr))
+            for name, attrs in _CLOCKS.items() for attr in attrs}
+
+
+def _set_clocks(clocks: dict) -> None:
+    for (name, attr), value in clocks.items():
+        getattr(importlib.import_module(name), attr).update(value)
+
+
+# Why a step runs eagerly where a CUDA graph could not hold it
+# (``eager_reason``); the gloo reason is the line the CLIs print.
+GLOO = "ranks share a card: gloo collectives cannot be captured"
+_forced_eager = [0]
+
+
+@contextlib.contextmanager
+def eager():
+    """Inside it no ``StepGraph`` made with the default ``graphed`` is
+    graphed: the same steps run eagerly (the bit-equal reference a check
+    holds a graphed run against)."""
+    _forced_eager[0] += 1
+    try:
+        yield
+    finally:
+        _forced_eager[0] -= 1
+
+
+def eager_reason(device: torch.device) -> Optional[str]:
+    """None where steps on ``device`` may be captured, else why not: not a
+    CUDA device; the debug modes (``utils/debug.py`` runs op by op, which a
+    graph cannot); a process group on gloo (``GLOO``: NCCL refuses two
+    ranks on one card, and gloo stages every collective through host
+    memory); inside ``eager()``."""
+    if torch.device(device).type != "cuda":
+        return f"no CUDA graph on {torch.device(device).type}"
+    if debug.active():
+        return "the debug modes run op by op"
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_backend() != "nccl":
+        return GLOO
+    if _forced_eager[0]:
+        return "graphs.eager()"
+    return None
+
+
 def graphs_allowed(device: torch.device) -> bool:
     """Whether steps on ``device`` may be captured: on a CUDA device,
-    outside the debug modes (``utils/debug.py`` runs op by op, which a
-    graph cannot)."""
-    return torch.device(device).type == "cuda" and not debug.active()
+    outside the debug modes and ``eager()``, and either outside a process
+    group or in an NCCL one (``eager_reason``)."""
+    return eager_reason(device) is None
 
 
 class StepGraph:
@@ -129,7 +193,7 @@ class StepGraph:
         self.generators = tuple(g for g in generators if g is not None)
         self.graphed = (graphs_allowed(self.device) if graphed is None
                         else graphed)
-        if self.graphed and self.device.type != "cuda":
+        if graphed and self.device.type != "cuda":
             raise ValueError(f"no CUDA graph on {self.device}")
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.stream: Optional[torch.cuda.Stream] = None
@@ -188,23 +252,32 @@ class StepGraph:
         if self.stream is None:
             self.stream = torch.cuda.Stream(self.device)
         before = launch_counts()
+        clocks = _clocks()
+        # in a process group NCCL's watchdog thread queries the events of
+        # earlier collectives while the capture runs, which a capture in
+        # the global mode would count as an unsafe call against it
+        import torch.distributed as dist
+
+        mode = "thread_local" if dist.is_initialized() else "global"
         gc.collect()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, stream=self.stream):
+            with torch.cuda.graph(graph, stream=self.stream,
+                                  capture_error_mode=mode):
                 for _ in range(self.unroll):
                     step()
         finally:
             gc.enable()
             after = launch_counts()
             _set_counts(before)
+            _set_clocks(clocks)
         self.deltas = {k: after[k] - v for k, v in before.items()
                        if after[k] != v}
         self.graph = graph
 
     def replay(self) -> None:
-        """One replay: ``unroll`` steps; the launch counters advance by
-        what the capture recorded."""
+        """One replay: ``unroll`` steps; the launch and collective counters
+        advance by what the capture recorded."""
         self.graph.replay()
         _set_counts(self.deltas, add=True)
         self.replays += 1

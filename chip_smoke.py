@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases, one line each (or a few), in the order 1–4, 22, 23, 24, 5–7,
-16–18, 11–15, 8–10, 26, 27, 19–21; any failure exits non-zero:
+16–18, 11–15, 8–10, 26, 27, 19–21, 28; any failure exits non-zero:
 1. environment: the card's name and power limit, torch and CUDA versions;
    fails when no CUDA device is available;
 2. build: compiles the kernels from ``big_linear_algebra_tpu_torch/csrc/``
@@ -65,8 +65,8 @@ Phases, one line each (or a few), in the order 1–4, 22, 23, 24, 5–7,
    variant as in phase 22 and the trained leaves bit-equal to its, a
    ``train_step`` with a NaN pixel under ``debug_nans()`` raising
    ``FloatingPointError`` at K1's launch, and a NaN made in a gradient
-   hook raising in the backward; then 100 legacy steps and one hinge
-   chunk timed and profiled (the card's busy share);
+   hook raising in the backward; then 100 eager legacy steps and one
+   eager hinge chunk timed and profiled (the card's busy share);
 24. the data- and sequence-parallel modes (run after 23): two ranks
    launched with ``python3 -m torch.distributed.run --standalone
    --nproc-per-node=2`` (this script with ``--phase24-rank``), which share
@@ -286,7 +286,23 @@ Phases, one line each (or a few), in the order 1–4, 22, 23, 24, 5–7,
    against the kernels ``torch.profiler`` records; the
    sampler's, the U-Net train step's and the mnist_nn step's host time a
    step, device busy and images/s, graph against eager in turns; the peak
-   of allocated memory, eager against graphs of 4 and 1 steps.
+   of allocated memory, eager against graphs of 4 and 1 steps;
+28. the last one-dispatch loops as CUDA graphs (run last;
+   ``tools/graph_check.py --phase=28`` runs it alone): my_first_model
+   ``train 800 0.1``, the legacy mnist ``train 1000 0.05 0`` and
+   mnist_hinge ``train 100 0.0005``, each from one ``init``'s CSVs graphed
+   (``make_sgd_scan``'s graphs of 2 steps; a whole hinge chunk a graph)
+   and inside ``graphs.eager()``: the loop's parameters and every cost
+   (the hinge's weights and norm history after every chunk, its
+   convergence), the saved parameters and the printed lines bit-equal;
+   the three loops' host time a step, graph against eager in turns,
+   beside the device busy share; a one-rank NCCL world on the card:
+   ``spmd._psum_leaves`` over the world group captured in a
+   ``StepGraph`` and replayed 3 times, the sums right and the collective
+   counters advanced per replay. (Phase 24 checks that ranks sharing the
+   card over gloo print the eager rule and keep their counts; the DP and
+   TP epochs graphed over NCCL need a card a rank: ``tools/graph_check.py
+   --ranks=4 --spawned``.)
 Then a JSON line of per-kernel results (K1's launches: phase 4's ``run``
 and phase 22's train epoch), the ``nvidia-smi`` name/power-limit line, and
 as the last line ``{"ok": true, "device": {...}}``.
@@ -4371,12 +4387,13 @@ def phase_debug_flags(p22: dict, tmp: str, device: str = "cuda") -> str:
 def phase_legacy_profile(mnist_run: dict, hinge_run: dict) -> dict:
     """Host wall time and a ``torch.profiler`` trace (``trace_summary.py``)
     of 100 legacy mnist steps and of one mnist_hinge chunk (10 iterations)
-    on the trained parameters: the card's busy share."""
+    on the trained parameters, both eager (phase 28 times the graphs): the
+    card's busy share."""
     from big_linear_algebra_tpu_torch.models import mnist as legacy
     from big_linear_algebra_tpu_torch.models import mnist_hinge as hinge
     from big_linear_algebra_tpu_torch.nn import layer_graph as lg
 
-    run_steps = lg.make_sgd_scan(legacy.ACTS)
+    run_steps = lg.make_sgd_scan(legacy.ACTS, graphed=False)
     xs, ys = mnist_run["xs"][:100], mnist_run["ys"][:100]
     out = {}
     out["mnist"] = _host_and_trace(
@@ -4827,14 +4844,13 @@ def _p24_hinge(tmp: str, device: str) -> dict:
     last = []
 
     def spy(real):
-        def chunk(*a, **kw):
-            w, norms = real(*a, **kw)
-            last[:] = [w.detach().cpu().clone()]
-            return w, norms
-        return chunk
+        def chunks(*a, **kw):
+            last[:] = [real(*a, **kw)]
+            return last[0]
+        return chunks
 
     w0 = torch.load(os.path.join(tmp, "hinge_w0.pt"))
-    with _wrapped(hinge, "_chunk", spy):
+    with _wrapped(hinge, "Chunks", spy):
         text, secs = _cli(hinge, ["train", str(HINGE_ITERATIONS),
                                   str(HINGE_LR), "--dp"], where, device)
     del os.environ["BLA_DATA_DIR"]
@@ -4866,7 +4882,7 @@ def _p24_hinge(tmp: str, device: str) -> dict:
         if float(norms.sum()) < hinge.EPSILON:
             break
     return {"text": text, "seconds": secs, "ratios": ratios,
-            "bit_equal": torch.equal(w.cpu(), last[0]),
+            "bit_equal": torch.equal(w.cpu(), last[0].w.cpu()),
             "iterations": len(ratios) if mesh.rank == 0 else None,
             "profile": _profile(lambda: hinge.make_train_chunk_dp(
                 mesh, n_total, hinge.CHUNK)(w, x_l, y_l, HINGE_LR), device)}
@@ -4947,7 +4963,8 @@ def _p24_unet(tmp: str, device: str) -> dict:
     x0 = torch.rand((cfg.batch_size // mesh.size("data"), 3, 64, 64),
                     generator=gen).to(mesh.device) * 2 - 1
     step = cu.make_train_step_dp(mesh, cfg)
-    out["profile"] = _profile(lambda: step(params, opt, x0, gen), device)
+    gens = cu.DPGenerators(24, mesh.index("data"), mesh.device)
+    out["profile"] = _profile(lambda: step(params, opt, x0, gens), device)
     del params, opt
     out["batch"] = base.batch_size
     out["blocks"] = len(_unet_fused_blocks(base, base.batch_size // world))
@@ -5019,17 +5036,21 @@ def _p24_ring(device: str) -> list:
 def _phase24_rank(tmp: str, device: str) -> int:
     """One rank of phase 24 (``chip_smoke.py --phase24-rank TMP DEVICE``
     under ``torch.distributed.run``): joins the group, runs the parts and
-    writes its results to ``TMP/rank<r>.pt`` for the launching process."""
+    writes its results to ``TMP/rank<r>.pt`` for the launching process.
+    The parts hold the eager steps (``graphs.eager()``: over NCCL the
+    epochs would replay graphs; phase 28 holds those)."""
     from big_linear_algebra_tpu_torch.parallel import mesh as pmesh
+    from big_linear_algebra_tpu_torch.utils import graphs
 
     rank = pmesh.distributed_init(device=device)
     dev = pmesh.current_device()
     out = {"rank": rank, "device": str(dev), "backend": pmesh.backend(),
            "why": pmesh.select_backend(dev, pmesh.local_world_size())[1]}
-    out["mnist"] = _p24_mnist(tmp, device)
-    out["hinge"] = _p24_hinge(tmp, device)
-    out["unet"] = _p24_unet(tmp, device)
-    out["ring"] = _p24_ring(device)
+    with graphs.eager():
+        out["mnist"] = _p24_mnist(tmp, device)
+        out["hinge"] = _p24_hinge(tmp, device)
+        out["unet"] = _p24_unet(tmp, device)
+        out["ring"] = _p24_ring(device)
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     return 0
 
@@ -5461,6 +5482,25 @@ def _p24_profile_lines(ranks, device, smi_line: str) -> list:
     return lines
 
 
+def _p24_gloo_rule(ranks, device) -> list:
+    """Ranks that share a card over gloo: rank 0 alone printed the stated
+    rule for each ``--dp`` CLI (mnist_nn, mnist_hinge, cifar_unet), whose
+    steps ran eagerly (the counts the other checks hold)."""
+    from big_linear_algebra_tpu_torch.utils import graphs
+
+    if device != "cuda" or ranks[0]["backend"] != "gloo":
+        return []
+    rule = f"--dp: eager steps ({graphs.GLOO})"
+    texts = [(r["mnist"]["resident"]["text"], r["hinge"]["text"],
+              r["unet"]["flash"]["text"]) for r in ranks]
+    if not all(rule in t for t in texts[0]) or any(
+            rule in t for other in texts[1:] for t in other):
+        fail(f"phase 24: rank 0 did not print {rule!r} for every --dp CLI "
+             f"(or another rank did)")
+    return [f"[24 gloo rule] rank 0 printed {rule!r} for mnist_nn, "
+            f"mnist_hinge and cifar_unet train --dp; their steps ran eagerly"]
+
+
 def phase_parallel(smi_line: str = "", device: str = "cuda",
                    n_ranks: int = P24_RANKS) -> None:
     """Phase 24: the data- and sequence-parallel modes, ``n_ranks`` ranks
@@ -5492,6 +5532,7 @@ def phase_parallel(smi_line: str = "", device: str = "cuda",
                  + f", backend {ranks[0]['backend']} ({ranks[0]['why']}): "
                  f"{how}; {seconds:.1f} s of wall for the launch "
                  f"(cifar_unet init {prep['init_s']:.2f} s before it)"]
+        lines += _p24_gloo_rule(ranks, device)
         lines += _p24_check_mnist(ranks, prep, tmp, device)
         lines += _p24_check_hinge(ranks, prep, tmp)
         lines += _p24_check_unet(ranks, device)
@@ -7434,6 +7475,756 @@ def phase_graphs(tmp: str, smi_line: str = "", device: str = "cuda") -> None:
     say("total", f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the last one-dispatch loops as CUDA graphs: the legacy programs'
+# SGD scan and hinge chunk on the card, and the DP and TP epochs captured
+# over NCCL (one rank per card: tools/graph_check.py --ranks=4 --spawned;
+# on one card, a one-rank NCCL world's all-reduce).
+# ---------------------------------------------------------------------------
+
+# the legacy CLIs phase 28 runs graphed and eagerly: (name, train args)
+P28_LEGACY = (("my_first_model", ["train", "800", "0.1"]),
+              ("mnist", ["train", str(LEGACY_MNIST_STEPS),
+                         str(LEGACY_MNIST_LR), "0"]),
+              ("mnist_hinge", ["train", str(HINGE_ITERATIONS),
+                               str(HINGE_LR)]))
+# the one-rank NCCL world: replays of the captured all-reduce step
+P28_NCCL_REPLAYS = 3
+
+
+def _p28_same(a, b) -> bool:
+    """Two nests of lists, tuples and dicts of tensors bit for bit."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and list(a) == list(b)
+                and all(_p28_same(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_p28_same(x, y) for x, y in zip(a, b)))
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _p28_record(module_name: str, held: list):
+    """A context that keeps what ``module_name``'s train loop computed: the
+    parameters and costs each ``make_sgd_scan`` run returns (the Layer
+    graph), or each ``Chunks.run``'s history and the chunks' weights
+    (mnist_hinge), as CPU copies."""
+    from big_linear_algebra_tpu_torch.models import mnist_hinge as hinge
+    from big_linear_algebra_tpu_torch.nn import layer_graph as lg
+
+    if module_name == "mnist_hinge":
+        def spy(real):
+            def make(*a, **kw):
+                chunks = real(*a, **kw)
+                run = chunks.run
+
+                def recorded(n):
+                    hist = run(n)
+                    held.append((chunks.w.detach().cpu().clone(),
+                                 hist.detach().cpu().clone()))
+                    return hist
+                chunks.run = recorded
+                return chunks
+            return make
+        return _wrapped(hinge, "Chunks", spy)
+
+    def spy(real):
+        def make(*a, **kw):
+            run = real(*a, **kw)
+
+            def recorded(*args):
+                params, costs = run(*args)
+                held.append((_flat([(w.cpu(), b.cpu()) for w, b in params]),
+                             costs.detach().cpu().clone()))
+                return params, costs
+            return recorded
+        return make
+    return _wrapped(lg, "make_sgd_scan", spy)
+
+
+def _p28_legacy(tmp: str, device: str) -> list:
+    """Each legacy program's ``init`` once, then its ``train`` twice from
+    copies of those CSVs, graphed and inside ``graphs.eager()``: what the
+    train loop computed (parameters and every cost; the hinge's weights
+    and norm history after every chunk) and what it saved bit-equal, the
+    printed lines equal (the hinge's convergence iteration with them)."""
+    import importlib
+    import shutil
+
+    from big_linear_algebra_tpu_torch.data import synth
+    from big_linear_algebra_tpu_torch.utils import graphs
+
+    mnist_dir = os.path.join(tmp, "p28_mnist_data")
+    with contextlib.redirect_stdout(io.StringIO()):
+        synth.ensure_mnist(mnist_dir)
+    lines = []
+    for name, args in P28_LEGACY:
+        module = importlib.import_module(
+            f"big_linear_algebra_tpu_torch.models.{name}")
+        base = os.path.join(tmp, f"p28_{name}")
+        if name != "my_first_model":
+            shutil.copytree(os.path.join(mnist_dir, "mnist"),
+                            os.path.join(base, "mnist"))
+        _cli(module, ["init"], base, device)
+        got = {}
+        for mode in ("graph", "eager"):
+            where = f"{base}_{mode}"
+            shutil.copytree(base, where)
+            held = []
+            save = "save_weights" if name == "mnist_hinge" else "save_params"
+            with _p28_record(name, held), _saved(module, save) as saved, (
+                    contextlib.nullcontext() if mode == "graph"
+                    else graphs.eager()):
+                text, secs = _cli(module, args, where, device)
+            got[mode] = (text, held, saved, secs)
+        (text, held, saved, secs), (etext, eheld, esaved, esecs) = (
+            got["graph"], got["eager"])
+        same = (text.splitlines() == etext.splitlines()
+                and len(held) == len(eheld) > 0 and len(saved) == 1
+                and len(esaved) == 1
+                and _p28_same(held, eheld) and _p28_same(saved, esaved))
+        if not same:
+            fail(f"phase 28: {name} {' '.join(args)} graphed is not "
+                 f"bit-equal to its eager run (loop results, saved "
+                 f"parameters or printed lines):\n{text[-1500:]}\n---\n"
+                 f"{etext[-1500:]}")
+        conv = re.search(r"converged < epsilon after iteration (\d+)", text)
+        what = (f"{len(held)} chunk(s), weights and norm history after each, "
+                f"convergence "
+                + (f"at {conv.group(1)}" if conv else "not reached")
+                if name == "mnist_hinge" else
+                f"parameters and all {held[0][1].numel()} costs")
+        lines.append(f"{name} {' '.join(args)}: graphed bit-equal to "
+                     f"graphs.eager() ({what}; saved parameters; "
+                     f"{len(text.splitlines())} printed lines equal); CLI "
+                     f"wall {secs:.2f} s graphed, {esecs:.2f} s eager")
+    return lines
+
+
+def _p28_timings(tmp: str, device: str) -> list:
+    """The three loops timed in turns (eager, graph, replays, replays,
+    graph, eager; two runs a turn after one warm-up run, the lower turn of
+    each), then each traced once: the legacy mnist loop
+    (LEGACY_MNIST_STEPS steps through ``make_sgd_scan``), my_first_model's
+    (800 steps) and mnist_hinge's (HINGE_ITERATIONS iterations through
+    ``Chunks``, the history read after each chunk, as ``train`` reads it):
+    eager; graph, a whole call as ``train`` makes it (its warm-up and
+    capture included); replays, the same steps replayed from a graph
+    captured before. Host µs a step from two timed runs ending in a
+    synchronise, and on the card the device busy a step and its share of a
+    traced run's span; then what one ``gc.collect()`` (which every capture
+    runs first) costs in this process."""
+    from big_linear_algebra_tpu_torch.data.mnist import MnistDataset
+    from big_linear_algebra_tpu_torch.models import mnist as legacy
+    from big_linear_algebra_tpu_torch.models import mnist_hinge as hinge
+    from big_linear_algebra_tpu_torch.models import my_first_model as mfm
+    from big_linear_algebra_tpu_torch.nn import layer_graph as lg
+    from big_linear_algebra_tpu_torch.utils import graphs
+
+    train_csv = os.path.join(tmp, "p28_mnist_data", "mnist",
+                             "mnist_train.csv")
+    xs, ys = legacy.stream_examples(train_csv, LEGACY_MNIST_STEPS)
+    gen = torch.Generator().manual_seed(28)
+
+    def uniform(shapes):  # the reference's U(-0.5, 0.5) init
+        return [(torch.rand(w, generator=gen) - 0.5,
+                 torch.rand(b, generator=gen) - 0.5) for w, b in shapes]
+
+    p_mnist, p_mfm = uniform(legacy.SHAPES), uniform(mfm.SHAPES)
+    mxs, mys = mfm.synth_stream(800)
+    data = MnistDataset.from_csv(train_csv)
+    hx = torch.from_numpy(data.x / 255.0).to(device)
+    hy = hinge.signed_targets(torch.from_numpy(data.y).to(device), hx.dtype)
+    hw = (torch.rand(784, 10, generator=gen) * 0.1 - 0.05).to(device)
+    cuda = device == "cuda"
+
+    def scan(acts, params, x, y, lr):
+        dev = [(w.to(device), b.to(device)) for w, b in params]
+        x, y = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+        runs = {g: lg.make_sgd_scan(acts, graphed=g and cuda)
+                for g in (False, True)}
+        steps = lg._ScanSteps(dev, acts, x, y, lr)
+        graph = graphs.StepGraph(2, torch.device(device), graphed=cuda)
+        graph.run(x.shape[0], steps.step)  # warm-up and capture
+
+        def replays():
+            steps.counter.zero_()
+            graph.run(x.shape[0], steps.step)
+        return {"eager": lambda: runs[False](dev, x, y, lr),
+                "graph": lambda: runs[True](dev, x, y, lr),
+                "replays": replays}
+
+    def chunk_runs():
+        def call(g):
+            c = hinge.Chunks(hw, hx, hy, HINGE_LR, hx.shape[0],
+                             graphed=g and cuda)
+            for _ in range(HINGE_ITERATIONS // hinge.CHUNK):
+                c.run(hinge.CHUNK).cpu()
+        held = hinge.Chunks(hw, hx, hy, HINGE_LR, hx.shape[0], graphed=cuda)
+        held.run(hinge.CHUNK)  # warm-up and capture
+
+        def replays():
+            for _ in range(HINGE_ITERATIONS // hinge.CHUNK):
+                held.run(hinge.CHUNK).cpu()
+        return {"eager": lambda: call(False), "graph": lambda: call(True),
+                "replays": replays}
+
+    cases = {"legacy mnist step": (LEGACY_MNIST_STEPS, lambda: scan(
+                 legacy.ACTS, p_mnist, xs, ys, LEGACY_MNIST_LR)),
+             "my_first_model step": (800, lambda: scan(
+                 mfm.ACTS, p_mfm, mxs, mys, 0.1)),
+             "mnist_hinge iteration": (HINGE_ITERATIONS, chunk_runs)}
+    lines = []
+    for what, (steps, make) in cases.items():
+        fns = make()
+        got = {k: [] for k in fns}
+        for k in fns:
+            fns[k]()
+        for k in ("eager", "graph", "replays", "replays", "graph", "eager"):
+            _sync(device)
+            t0 = time.perf_counter()
+            for _ in range(2):
+                fns[k]()
+            _sync(device)
+            got[k].append((time.perf_counter() - t0) * 1e3 / (2 * steps))
+        best = {k: min(v) for k, v in got.items()}
+        traced = {k: (None, None) for k in fns}
+        if cuda:
+            for k in fns:
+                _, busy, summary, _ = _host_and_trace(fns[k], 1, warmup=0,
+                                                      timed=1)
+                traced[k] = (busy / steps, _span_share(summary))
+        parts = []
+        for k, label in (("eager", "eager"),
+                         ("graph", "graph (a call, capture included)"),
+                         ("replays", "replays")):
+            host, (busy, share) = best[k], traced[k]
+            parts.append(f"{label} {host * 1e3:.2f} us host a step" + (
+                f", device busy {busy * 1e3:.2f} us a step ({share} of a "
+                f"traced run's span)" if busy is not None else ""))
+        lines.append(f"{what}, {steps} a run, in turns (eager, graph, "
+                     f"replays, replays, graph, eager; the lower of each): "
+                     + "; ".join(parts) + f"; eager over replays "
+                     f"{best['eager'] / best['replays']:.2f}x, over a "
+                     f"graphed call {best['eager'] / best['graph']:.2f}x "
+                     f"host us a step")
+        del fns
+    t0 = time.perf_counter()
+    gc.collect()
+    lines.append(f"one gc.collect() in this process (a capture runs one "
+                 f"first): {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    return lines
+
+
+def _p28_nccl_world(device: str) -> str:
+    """A one-rank NCCL world on the card (the part of a graphed DP or TP
+    step one card can hold): ``spmd._psum_leaves`` of an f32 and an f64
+    leaf over the world group, after an eager step that makes the
+    communicator, captured in a ``StepGraph`` and replayed
+    P28_NCCL_REPLAYS times; each replay's sums right (one rank: the leaves
+    themselves, which the step advances first), the collective counters
+    advanced by the capture's calls and bytes at every replay."""
+    import torch.distributed as dist
+
+    from big_linear_algebra_tpu_torch.parallel import mesh as pmesh
+    from big_linear_algebra_tpu_torch.parallel import spmd
+    from big_linear_algebra_tpu_torch.utils import graphs
+
+    if device != "cuda":
+        return "no NCCL world on the CPU"
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{pmesh._free_port()}", world_size=1, rank=0)
+    try:
+        leaves = [torch.arange(1000, dtype=torch.float32, device="cuda"),
+                  torch.full((37,), 0.5, dtype=torch.float64, device="cuda")]
+        start = [leaf.clone() for leaf in leaves]
+        sums = [torch.zeros_like(leaf) for leaf in leaves]
+
+        def step():
+            for leaf in leaves:
+                leaf.add_(1)
+            for out, s in zip(sums, spmd._psum_leaves(leaves,
+                                                      dist.group.WORLD)):
+                out.copy_(s)
+
+        graph = graphs.StepGraph(1, torch.device("cuda"))
+        if not graph.graphed:
+            fail(f"phase 28: no graph in a one-rank NCCL world "
+                 f"({graphs.eager_reason(torch.device('cuda'))})")
+        c0 = (spmd.collective_calls, spmd.collective_bytes["all_reduce"])
+        graph.run(1, step)  # the eager warm-up, then the capture
+        torch.cuda.synchronize()
+        c1 = (spmd.collective_calls, spmd.collective_bytes["all_reduce"])
+        per = (c1[0] - c0[0], c1[1] - c0[1])
+        for k in range(P28_NCCL_REPLAYS):
+            before = (spmd.collective_calls,
+                      spmd.collective_bytes["all_reduce"])
+            graph.replay()
+            torch.cuda.synchronize()
+            after = (spmd.collective_calls,
+                     spmd.collective_bytes["all_reduce"])
+            want = [s + (k + 2) for s in start]
+            if not all(torch.equal(o, w) and torch.equal(leaf, w)
+                       for o, leaf, w in zip(sums, leaves, want)):
+                fail(f"phase 28: replay {k + 1} of the captured NCCL "
+                     f"all-reduce summed wrong")
+            if (after[0] - before[0], after[1] - before[1]) != per:
+                fail(f"phase 28: replay {k + 1} advanced the collective "
+                     f"counters by {(after[0] - before[0], after[1] - before[1])}"
+                     f", the eager step by {per}")
+        replays = graph.replays
+        del graph
+        gc.collect()
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    return (f"a one-rank NCCL world: spmd._psum_leaves over the world group "
+            f"(f32 and f64 leaves: {per[0]} all-reduces, {per[1]} bytes a "
+            f"step) captured in a StepGraph after its eager warm-up and "
+            f"replayed {replays} times: the sums right at every replay, the "
+            f"collective counters advanced by {per[0]} calls and {per[1]} "
+            f"bytes a replay, as by the eager step")
+
+
+def phase_graphs_legacy(smi_line: str = "", device: str = "cuda") -> None:
+    """Phase 28 on one card (``tools/graph_check.py --phase=28`` runs it
+    alone): the legacy programs' loops graphed against ``graphs.eager()``
+    (``_p28_legacy``), their timings (``_p28_timings``) and a one-rank NCCL
+    world's captured all-reduce (``_p28_nccl_world``). The DP and TP
+    epochs over NCCL need a card a rank: ``phase_graphs_parallel``."""
+    def say(tag: str, *lines: str) -> None:
+        for line in lines:
+            print(f"[28 {tag}] {line}" + (f" | {smi_line}" if smi_line
+                                          else ""), flush=True)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="bla_smoke_") as tmp:
+        say("legacy", *_p28_legacy(tmp, device))
+        say("timing", *_p28_timings(tmp, device))
+        os.environ.pop("BLA_DATA_DIR", None)
+    say("nccl", _p28_nccl_world(device))
+    say("total", f"{time.perf_counter() - t0:.1f} s")
+
+
+# The DP and TP epochs over NCCL (``phase_graphs_parallel``, one rank a
+# card): P28_STEPS steps a U-Net case (one warm-up step, then two replays
+# of 4), P28_TP_SCAN_STEPS under --scan-steps=2 (chunks of 2, a ragged
+# tail of 1), P28_TIMED steps a timed run; the CLI pairs' synthesized set,
+# P28_CLI_EXAMPLES examples at --batch=P28_CLI_BATCH (TINY at 64x64).
+P28_STEPS, P28_TP_SCAN_STEPS, P28_TIMED = 9, 5, 8
+P28_CLI_EXAMPLES, P28_CLI_BATCH = 80, 8
+P28_TIMEOUT_S = 900
+
+
+def _p28_collectives():
+    from big_linear_algebra_tpu_torch.parallel import spmd
+
+    return spmd.collective_calls, dict(spmd.collective_bytes)
+
+
+def _p28_counted(fn):
+    """(fn's result, kernel launches, (collective calls, bytes by kind))
+    during fn, by the counters."""
+    c0, b0 = _p28_collectives()
+    out, launches = _p27_counts(fn)
+    c1, b1 = _p28_collectives()
+    return out, launches, (c1 - c0, {k: v - b0[k] for k, v in b1.items()
+                                     if v != b0[k]})
+
+
+def _p28_timed(fns: dict, steps: int, device: str):
+    """{graphed: (host ms a step, busy ms a step, busy share)} of the two
+    runs in ``fns`` ({False: eager, True: replays of a graph captured
+    before}), in turns (eager, graph, graph, eager), the lower of each;
+    None on the CPU (its rehearsal times nothing)."""
+    if device != "cuda":
+        return None
+    got = {False: [], True: []}
+    for g in (False, True, True, False):
+        host, busy, summary, _ = _host_and_trace(fns[g], 1, warmup=1,
+                                                 timed=2)
+        got[g].append((host / steps, busy / steps, _span_share(summary)))
+    return {g: min(v, key=lambda r: r[0]) for g, v in got.items()}
+
+
+def _p28_mnist_dp(device: str) -> dict:
+    """mnist_nn's resident DP epoch (128 steps of batch 64 on an 8192-image
+    set, graphs of 4) against the same epoch with ``graphed=False``, from
+    the same parameters: every leaf, correct and ce_sum bit-equal, the
+    launches and collectives equal; then both timed."""
+    import numpy as np
+
+    from big_linear_algebra_tpu_torch.models import mnist_nn
+    from big_linear_algebra_tpu_torch.parallel import default_mesh
+
+    mesh = default_mesh()
+    cfg = mnist_nn.CONFIG
+    g = torch.Generator().manual_seed(0)
+    x = torch.randint(0, 256, (8192, 784), generator=g).float().to(
+        mesh.device)
+    y = torch.randint(0, 10, (8192,), generator=g).to(torch.uint8).to(
+        mesh.device)
+    perm = torch.from_numpy(mnist_nn.epoch_permutation(
+        np.random.default_rng(cfg.seed), 8192, cfg.batch_size)).to(
+        mesh.device)
+    p0 = mnist_nn.init_params(torch.Generator().manual_seed(cfg.seed), cfg)
+    out, epochs = {}, {}
+    for graphed in (False, True):
+        model = mnist_nn.MnistNN.from_params(p0, cfg, device=mesh.device)
+        epochs[graphed] = mnist_nn.ResidentEpoch(
+            model, x, y, cfg, graphed=None if graphed else False, mesh=mesh)
+        (c, ce), launches, colls = _p28_counted(lambda: epochs[graphed](perm))
+        out[graphed] = (model, c, ce, launches, colls)
+    a, b = out[True], out[False]
+    same = (_p27_same(a[0].params(), b[0].params())
+            and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2]))
+    steps = perm.shape[0] // cfg.batch_size
+    replays = epochs[True].graph.replays
+    digest = _params_hash(a[0].params())
+
+    timed = _p28_timed({True: lambda: epochs[True](perm),
+                        False: lambda: epochs[False](perm)}, steps, device)
+    return {"same": same, "counts": (a[3], a[4]), "eager counts": (b[3], b[4]),
+            "hash": digest, "steps": steps, "replays": replays,
+            "timed": timed, "correct": float(a[1])}
+
+
+def _p28_hinge_dp(device: str) -> dict:
+    """mnist_hinge ``--dp``'s ``Chunks`` (HINGE_ITERATIONS iterations at
+    HINGE_LR on 8192 examples, a chunk a graph) against
+    ``make_train_chunk_dp``'s eager chunks from the same weights: the
+    weights and every norm bit-equal, the collectives equal; then timed."""
+    from big_linear_algebra_tpu_torch.models import mnist_hinge as hinge
+    from big_linear_algebra_tpu_torch.parallel import (batch_sharding,
+                                                       default_mesh)
+
+    mesh = default_mesh()
+    g = torch.Generator().manual_seed(1)
+    x = (torch.randint(0, 256, (8192, 784), generator=g).float() / 255.0)
+    labels = torch.randint(0, 10, (8192,), generator=g)
+    w0 = (torch.rand(784, 10, generator=g) * 0.1 - 0.05).to(mesh.device)
+    shard = batch_sharding(mesh)
+    xl = shard(x).to(mesh.device)
+    yl = hinge.signed_targets(shard(labels).to(mesh.device), xl.dtype)
+    n_chunks = HINGE_ITERATIONS // hinge.CHUNK
+
+    def eager():
+        w, hist = w0, []
+        chunk = hinge.make_train_chunk_dp(mesh, 8192)
+        for _ in range(n_chunks):
+            w, h = chunk(w, xl, yl, HINGE_LR)
+            hist.append(h)
+        return w, torch.cat(hist)
+
+    held = {}
+
+    def graphed():
+        chunks = hinge.Chunks(w0, xl, yl, HINGE_LR, 8192, mesh)
+        held["chunks"] = chunks
+        return chunks.w, torch.cat([chunks.run(hinge.CHUNK).clone()
+                                    for _ in range(n_chunks)])
+
+    want, _, want_c = _p28_counted(eager)
+    got, _, got_c = _p28_counted(graphed)
+    same = _p28_same(got, want)
+    chunks, replays = held["chunks"], held["chunks"].graph.replays
+
+    def replayed():
+        for _ in range(n_chunks):
+            chunks.run(hinge.CHUNK).cpu()
+
+    timed = _p28_timed({False: eager, True: replayed}, HINGE_ITERATIONS,
+                       device)
+    return {"same": same, "counts": got_c, "eager counts": want_c,
+            "hash": _params_hash(got[0]), "replays": replays,
+            "timed": timed}
+
+
+def _p28_unet(device: str, kind: str, fused: bool = False,
+              unroll=None, n: int = P28_STEPS) -> dict:
+    """``n`` U-Net train steps (64x64 bf16 at batch 16, or 32x32
+    ``--fused-block``; TINY at batch 8 on the CPU) through ``TrainSteps``
+    against the eager steps on the same rows and generator seeds: ``kind``
+    "dp" (the mesh: this rank's 16/ranks rows, ``DPGenerators``, against
+    ``make_train_step_dp``) or "tp" (a model axis of every rank: this
+    rank's slices, against ``make_train_step_tp``); ``unroll`` steps a
+    graph (default ``scan_unroll``). Every parameter, both moments, the
+    losses and the generators' states bit-equal, the launches and
+    collectives equal; the replicas' hash; then both timed over
+    P28_TIMED steps."""
+    import dataclasses
+
+    import numpy as np
+
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn.optim import adam_init
+    from big_linear_algebra_tpu_torch.parallel import (batch_sharding,
+                                                       default_mesh,
+                                                       make_mesh)
+    from big_linear_algebra_tpu_torch.parallel import mesh as pmesh
+
+    base = (dataclasses.replace(cu.TINY, batch_size=8, image_size=64)
+            if device == "cpu" else dataclasses.replace(cu.CONFIG,
+                                                        image_size=64))
+    cfg = (dataclasses.replace(base, fused_block=True, image_size=32)
+           if fused else base)
+    b = cfg.batch_size
+    mesh = (default_mesh() if kind == "dp"
+            else make_mesh({"model": pmesh.world_size()}))
+    dev = mesh.device
+    data = torch.from_numpy(np.random.default_rng(28).uniform(
+        -1, 1, (b * n, 3, 32, 32)).astype(np.float32)).to(dev)
+    rows = torch.from_numpy(np.random.default_rng(29).permutation(
+        b * n)).to(dev).reshape(n, b)
+    full = cu.cast_params(cu.init_params(torch.Generator().manual_seed(0),
+                                         cfg), cfg)
+    full = cu.tree_map(lambda a: a.to(dev), full)
+    if kind == "dp":
+        lo, hi = batch_sharding(mesh).bounds(b)
+        rows = rows[:, lo:hi]
+        layout = None
+
+        def gens():
+            return cu.DPGenerators(7, mesh.index("data"), dev)
+
+        def start():
+            return full, adam_init(full)
+
+        step = cu.make_train_step_dp(mesh, cfg)
+    else:
+        layout = cu.TPLayout(mesh, cu.tp_param_specs(full,
+                                                     mesh.size("model")))
+
+        def gens():
+            return torch.Generator(device=dev).manual_seed(7)
+
+        def start():
+            return cu.place_tp(mesh, full, adam_init(full))
+
+        step = cu.make_train_step_tp(mesh, layout.specs, cfg)
+
+    def states(g):
+        return ([g.replicated.get_state(), g.rank.get_state()]
+                if kind == "dp" else [g.get_state()])
+
+    def eager():
+        g = gens()
+        p, opt = start()
+        losses = []
+        for r in rows:
+            p, opt, loss = step(p, opt, cu._fit_images(data[r], cfg), g)
+            losses.append(loss)
+        return p, opt, torch.stack(losses), states(g)
+
+    held = {}
+
+    def graphed():
+        g = gens()
+        p, opt = start()
+        steps = cu.TrainSteps(p, opt, data, g, cfg, unroll=unroll,
+                              mesh=mesh if kind == "dp" else None, tp=layout)
+        held["steps"] = steps
+        if unroll is None:
+            losses = steps.run(rows)
+        else:
+            whole = n // unroll * unroll
+            losses = torch.cat([steps.run(rows[:whole]),
+                                steps.run(rows[whole:])])
+        return steps.params, steps.opt_state(), losses, states(g)
+
+    (q, opt, losses, st), want, want_c = _p28_counted(eager)
+    got, counts, got_c = _p28_counted(graphed)
+    same = (_p27_same(got[0], q) and _p27_same(got[1].m, opt.m)
+            and _p27_same(got[1].v, opt.v) and got[1].step == opt.step
+            and torch.equal(got[2], losses) and _p28_same(got[3], st))
+    params = got[0] if layout is None else cu.gather_tp(layout, got[0])
+    digest = _params_hash(params)
+    replays = held["steps"].graph.replays
+    del q, opt, got, params, held
+    timed = None
+    if unroll is None and device == "cuda":
+        r8 = rows[:P28_TIMED]
+        g = gens()
+        p, o = start()
+        state = {"p": p, "opt": o}
+
+        def eager_run():
+            for r in r8:
+                state["p"], state["opt"], _ = step(
+                    state["p"], state["opt"], cu._fit_images(data[r], cfg), g)
+
+        p, o = start()
+        steps = cu.TrainSteps(p, o, data, gens(), cfg,
+                              mesh=mesh if kind == "dp" else None, tp=layout)
+        steps.run(r8)  # warm-up and capture
+        timed = _p28_timed({False: eager_run, True: lambda: steps.run(r8)},
+                           P28_TIMED, device)
+        del steps, state
+    return {"same": same, "counts": (counts, got_c),
+            "eager counts": (want, want_c), "hash": digest,
+            "replays": replays, "timed": timed, "steps": n,
+            "losses": (float(losses[0]), float(losses[-1]))}
+
+
+def _p28_cli_states(tmp: str, device: str) -> dict:
+    """cifar_unet ``train 1 --dp --tiny --image-size=64 --batch=8`` (the
+    graphed device epoch) against ``--host-loop`` (eager steps), and
+    ``train 1 --tp ... --scan-steps=2 --max-steps=5`` (chunks of 2 and a
+    tail) against ``--max-steps=5`` alone (eager), each pair from fresh
+    data directories: this rank's stdout (rank 0's holds the metrics) and
+    the train states rank 0 saved (read after the launch's barrier)."""
+    from big_linear_algebra_tpu_torch.ckpt import pytree
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+
+    common_args = ["train", "1", "--tiny", "--image-size=64",
+                   f"--batch={P28_CLI_BATCH}"]
+    runs = {"dp graph": ["--dp"], "dp host-loop": ["--dp", "--host-loop"],
+            "tp scan": ["--tp", "--scan-steps=2", "--max-steps=5"],
+            "tp eager": ["--tp", "--max-steps=5"]}
+    out = {}
+    for name, extra in runs.items():
+        where = os.path.join(tmp, "p28_cli_" + name.replace(" ", "_"))
+        (text, secs), launches = _p27_counts(
+            lambda: _cli(cu, common_args + extra, where, device))
+        state = pytree.restore_pytree(cu.state_dir(), pytree.latest_step(
+            cu.state_dir()))
+        del os.environ["BLA_DATA_DIR"]
+        out[name] = {"text": text, "seconds": secs, "launches": launches,
+                     "state": state}
+    return out
+
+
+def _phase28_rank(tmp: str, device: str) -> int:
+    """One rank of phase 28's parallel part (``chip_smoke.py --phase28-rank
+    TMP DEVICE`` under ``torch.distributed.run``, one rank a card): the
+    graphed epochs against the eager ones (``_p28_mnist_dp``,
+    ``_p28_hinge_dp``, ``_p28_unet``, ``_p28_cli_states``); writes
+    ``TMP/rank<r>.pt`` for the launching process."""
+    from big_linear_algebra_tpu_torch.parallel import mesh as pmesh
+
+    rank = pmesh.distributed_init(device=device)
+    dev = pmesh.current_device()
+    out = {"rank": rank, "device": str(dev), "backend": pmesh.backend(),
+           "world": pmesh.world_size()}
+    out["mnist_nn --dp"] = _p28_mnist_dp(device)
+    out["mnist_hinge --dp"] = _p28_hinge_dp(device)
+    out["cifar_unet --dp"] = _p28_unet(device, "dp")
+    out["cifar_unet --dp --fused-block"] = _p28_unet(device, "dp",
+                                                     fused=True)
+    out["cifar_unet --tp"] = _p28_unet(device, "tp")
+    out["cifar_unet --tp --scan-steps=2"] = _p28_unet(
+        device, "tp", unroll=2, n=P28_TP_SCAN_STEPS)
+    out["cli"] = _p28_cli_states(tmp, device)
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    return 0
+
+
+def phase_graphs_parallel(smi_line: str = "", device: str = "cuda",
+                          n_ranks: int = 4) -> None:
+    """Phase 28's parallel part, ``n_ranks`` ranks under
+    ``torch.distributed.run``, one card each over NCCL
+    (``tools/graph_check.py --ranks=4 --spawned``; on the CPU a gloo
+    rehearsal in which both sides run eagerly): on every rank each graphed
+    epoch bit-equal to its eager one with the launches and collectives
+    equal, the replicas bit-equal across the ranks, the CLIs' train states
+    bit-equal between their graphed and eager runs; each case's host time
+    and busy share a step, graphed against eager."""
+    from big_linear_algebra_tpu_torch.data import synth
+    from big_linear_algebra_tpu_torch.utils import graphs
+
+    def say(tag: str, *lines: str) -> None:
+        for line in lines:
+            print(f"[28 {tag}] {line}" + (f" | {smi_line}" if smi_line
+                                          else ""), flush=True)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="bla_smoke_") as tmp:
+        for name in ("dp_graph", "dp_host-loop", "tp_scan", "tp_eager"):
+            with contextlib.redirect_stdout(io.StringIO()):
+                synth.ensure_cifar(os.path.join(tmp, f"p28_cli_{name}"),
+                                   per_batch=P28_CLI_EXAMPLES // 5)
+        _, seconds = _run_ranks(tmp, device, n_ranks,
+                                ["--phase28-rank", tmp, device], "phase 28")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(n_ranks)]
+    r0 = ranks[0]
+    if device == "cuda" and r0["backend"] != "nccl":
+        fail(f"phase 28 parallel: backend {r0['backend']}: a graphed "
+             f"parallel epoch needs NCCL, one card a rank")
+    say("launch", f"{n_ranks} ranks ("
+        + ", ".join(f"rank {r['rank']} on {r['device']}" for r in ranks)
+        + f"), backend {r0['backend']}; {seconds:.1f} s of wall")
+    for case in [k for k in r0 if k.startswith(("mnist", "cifar"))]:
+        res = [r[case] for r in ranks]
+        for r, x in zip(ranks, res):
+            if not x["same"]:
+                fail(f"phase 28 {case}: rank {r['rank']}'s graphed epoch is "
+                     f"not bit-equal to its eager one")
+            if x["counts"] != x["eager counts"]:
+                fail(f"phase 28 {case}: rank {r['rank']} launched "
+                     f"{x['counts']} graphed, {x['eager counts']} eager")
+            if device == "cuda" and x["replays"] == 0:
+                fail(f"phase 28 {case}: no replay ran")
+        if len({x["hash"] for x in res}) != 1:
+            fail(f"phase 28 {case}: the replicas differ across the ranks")
+        x = res[0]
+        launches, (calls, nbytes) = (x["counts"] if isinstance(
+            x["counts"][0], dict) else ({}, x["counts"]))
+        steps = x.get("steps", HINGE_ITERATIONS)
+        line = (f"{case}: {steps} steps, {x['replays']} replays; every rank "
+                f"bit-equal to its eager epoch, the replicas bit-equal "
+                f"across the ranks; per rank launches "
+                f"{ {k: v / steps for k, v in launches.items()} } a step, "
+                f"{calls / steps:g} collectives and "
+                f"{ {k: v / steps for k, v in nbytes.items()} } bytes a "
+                f"step, graphed as eager")
+        if x["timed"] is not None:
+            parts = []
+            for g in (False, True):
+                host, busy, share = x["timed"][g]
+                parts.append(f"{'graph' if g else 'eager'} {host:.4f} ms "
+                             f"host a step" + (
+                                 f", device busy {busy:.4f} ms a step "
+                                 f"({share} of a traced run's span)"
+                                 if busy is not None else ""))
+            line += ("; rank 0 in turns (eager, graph, graph, eager; the "
+                     "lower of each): " + "; ".join(parts) + f"; "
+                     f"{x['timed'][False][0] / x['timed'][True][0]:.2f}x "
+                     f"fewer host ms a step")
+        say("parallel", line)
+    cli = [r["cli"] for r in ranks]
+    for a, b, what in (("dp graph", "dp host-loop", "--dp: the graphed "
+                        "device epoch against --host-loop"),
+                       ("tp scan", "tp eager", "--tp --scan-steps=2 "
+                        "--max-steps=5 against --max-steps=5")):
+        sa, sb = cli[0][a]["state"], cli[0][b]["state"]
+        same = (_p27_same(sa["params"], sb["params"])
+                and _p27_same(sa["opt"]["m"], sb["opt"]["m"])
+                and _p27_same(sa["opt"]["v"], sb["opt"]["v"])
+                and sa["opt"]["step"] == sb["opt"]["step"]
+                and torch.equal(sa["rng"], sb["rng"])
+                and sa["chain"] == sb["chain"])
+        la, lb = (_epoch_line(cli[0][k]["text"], 0) for k in (a, b))
+        if not same or la["avg_loss"] != lb["avg_loss"]:
+            fail(f"phase 28 CLI {what}: the train states (or avg_loss) "
+                 f"differ:\n{cli[0][a]['text']}\n---\n{cli[0][b]['text']}")
+        if any(r[a]["launches"] != r[b]["launches"] for r in cli):
+            fail(f"phase 28 CLI {what}: launches "
+                 f"{[r[a]['launches'] for r in cli]} against "
+                 f"{[r[b]['launches'] for r in cli]}")
+        if any("later work" in r[k]["text"] or graphs.GLOO in r[k]["text"]
+               for r in cli for k in (a, b)) and device == "cuda":
+            fail(f"phase 28 CLI {what}: a rank printed an eager rule")
+        say("cli", f"cifar_unet train 1 --tiny --image-size=64 "
+                   f"--batch={P28_CLI_BATCH} on {P28_CLI_EXAMPLES} examples, "
+                   f"{what}: train states bit-equal (parameters, moments, "
+                   f"step {int(sa['opt']['step'])}, the generator's state, "
+                   f"chain {sa['chain']}), avg_loss {la['avg_loss']} both, "
+                   f"launches {cli[0][a]['launches']} on rank 0 either way; "
+                   f"CLI wall {cli[0][a]['seconds']:.2f} s and "
+                   f"{cli[0][b]['seconds']:.2f} s")
+    say("total", f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     smi_line, exp2_per_s = phase_environment()
     phase_build()
@@ -7491,6 +8282,7 @@ def main() -> int:
     k3 = phase_k3_timing(exp2_per_s)
     k3_launches = phase_k3_unet_sites(flash_sites)
     del flash_sites
+    phase_graphs_legacy(smi_line)
     k3_rows = [{
         "name": "K3a flash attention fused backward (dq, dk, dv; stream=False)",
         "route": "cuda",
@@ -7640,4 +8432,6 @@ if __name__ == "__main__":
         raise SystemExit(_p26_dp_rank(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--phase27-counters"]:  # phase 27's cross-check
         raise SystemExit(_p27_counters_child())
+    if sys.argv[1:2] == ["--phase28-rank"]:  # one rank of phase 28's launch
+        raise SystemExit(_phase28_rank(*sys.argv[2:4]))
     raise SystemExit(main())

@@ -170,8 +170,9 @@ def ranks(tmp_path_factory):
                                 data_dir=str(data_dir / "scan"))),
         ("scan tp", "cli", dict(module="cifar_unet",
                                 argv=["train", "1", "--tiny", "--tp",
-                                      "--scan-steps=2", "--device=cpu"],
-                                data_dir=str(data_dir / "scan"))),
+                                      "--scan-steps=2", "--max-steps=3",
+                                      "--device=cpu"],
+                                data_dir=str(data_dir / "scan_tp"))),
     ])
     four = torch_ranks.spawn(4, [
         ("mesh", "mesh_facts", {}),
@@ -575,18 +576,22 @@ def test_cli_hinge_train_dp_prints_what_one_process_prints(ranks,
 def test_cli_dp_batch_must_divide_and_unet_rejections(ranks, capsys):
     """A batch that does not divide over the ranks raises with JAX's
     message; ``--scan-steps>1`` exits with JAX's messages under ``--dp``
-    and ``--pp`` (and with the port's reason under ``--tp``, whose steps
-    run eagerly); cifar_unet rejects the flag it does not port
-    (``--prng``) with its reason, and the parallel flags outside train."""
+    and ``--pp``, and under ``--tp`` runs (chunks of 2 and a ragged tail
+    of 1: three steps, one metrics line from rank 0); cifar_unet rejects
+    the flag it does not port (``--prng``) with its reason, and the
+    parallel flags outside train."""
     for r in ranks["two"]:
         rc, _ = r["batch"]
         assert rc == "--dp: batch size 63 is not divisible by 2 devices"
         rc, _ = r["scan dp"]
         assert rc == ("--scan-steps>1 is not supported with --dp; use the "
                       "default device-resident DP epoch mode")
-        rc, _ = r["scan tp"]
-        assert "--scan-steps>1 is not supported with --tp" in rc
-        assert "later work" in rc
+        rc, out = r["scan tp"]
+        assert rc == 0 and "later work" not in out
+    out = ranks["two"][0]["scan tp"][1]
+    assert "--tp: conv kernels channel-sharded over 2 devices" in out
+    lines = [s for s in out.splitlines() if s.startswith("epoch: 0")]
+    assert len(lines) == 1 and lines[0].endswith("\tstep: 3")
     for r in ranks["four"]:
         rc, _ = r["scan pp"]
         assert rc == ("--scan-steps>1 is not supported with --pp (the "

@@ -28,6 +28,13 @@ def _np(x):
     return x
 
 
+def _snap(x):
+    """``_np`` as copies, so that a buffer updated later leaves them be."""
+    if isinstance(x, dict):
+        return {k: _snap(v) for k, v in x.items()}
+    return np.array(_np(x), copy=True)
+
+
 def _t(x):
     if isinstance(x, dict):
         return {k: _t(v) for k, v in x.items()}
@@ -60,6 +67,67 @@ def spawn(world: int, cases, timeout=None) -> list:
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
                 out.append(pickle.load(f))
     return out
+
+
+@contextlib.contextmanager
+def stood_in_graphs():
+    """``utils/graphs.py`` on the CPU as on the card, capture and replay
+    stood in for: every ``StepGraph`` made with the default ``graphed`` is
+    graphed (``eager_reason`` None); its warm-up steps run eagerly; a
+    capture runs nothing and keeps the step; a replay runs it ``unroll``
+    times with the launch and collective counters held, and sets the
+    graph's ``deltas`` to what those steps counted, which
+    ``StepGraph.replay`` then adds, as it adds what a capture recorded.
+    Yields the log of captures and replays."""
+    from big_linear_algebra_tpu_torch.utils import graphs
+
+    log = []
+
+    class Replayed:
+        def __init__(self, owner, step):
+            self.owner, self.step = owner, step
+
+        def replay(self):
+            before = graphs.launch_counts()
+            for _ in range(self.owner.unroll):
+                self.step()
+            after = graphs.launch_counts()
+            graphs._set_counts(before)
+            self.owner.deltas = {k: after[k] - v for k, v in before.items()
+                                 if after[k] != v}
+            log.append("replay")
+
+    def capture(self, step):
+        self.graph = Replayed(self, step)
+        log.append("capture")
+
+    patches = [(graphs, "eager_reason", lambda device: None),
+               (graphs.StepGraph, "_on_capture_stream",
+                lambda self: contextlib.nullcontext()),
+               (graphs.StepGraph, "capture", capture)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, value in patches:
+        setattr(obj, name, value)
+    try:
+        yield log
+    finally:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+
+
+def collective_counts():
+    """The collective counters now: (calls, bytes by kind)."""
+    from big_linear_algebra_tpu_torch.parallel import spmd
+
+    return spmd.collective_calls, dict(spmd.collective_bytes)
+
+
+def counted(fn):
+    """(fn(), the collective counters' advance during it)."""
+    c0, b0 = collective_counts()
+    out = fn()
+    c1, b1 = collective_counts()
+    return out, (c1 - c0, {k: v - b0[k] for k, v in b1.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +319,8 @@ def unet_dp_step(params, x0, t, noise, mask_seed, cfg_kwargs, inject=True):
     try:
         p = _t(params)
         p, opt, loss = cu.make_train_step_dp(mesh, cfg)(
-            p, adam_init(p), shard(_t(x0)), torch.Generator().manual_seed(3),
+            p, adam_init(p), shard(_t(x0)),
+            cu.DPGenerators(3, mesh.index("data"), "cpu"),
             draws=(shard(_t(t)), shard(_t(noise))))
     finally:
         cu.dropout = real
@@ -276,7 +345,7 @@ def unet_bf16_replicas(x0, n_steps):
                                        cfg), cfg)
     p, opt = p0, adam_init(p0)
     step = cu.make_train_step_dp(mesh, cfg)
-    gen = torch.Generator().manual_seed(5)
+    gen = cu.DPGenerators(5, mesh.index("data"), "cpu")
     losses = []
     for _ in range(n_steps):
         p, opt, loss = step(p, opt, batch_sharding(mesh)(_t(x0)), gen)
@@ -510,3 +579,213 @@ def unet_pp_step(params, x0, t, noise, cfg_kwargs, n_micro, schedule,
     return {"loss": float(loss), "params": _np(p), "m": _np(opt.m),
             "v": _np(opt.v), "hash": digest.hexdigest(),
             "hop bytes": spmd.collective_bytes["hop"] - bytes0["hop"]}
+
+
+# ---------------------------------------------------------------------------
+# graphed parallel epochs (capture and replay stood in for)
+# ---------------------------------------------------------------------------
+
+
+def graphs_gloo_rule():
+    """In a gloo process group: why a step on a card would run eagerly,
+    and what ``say_eager_rule`` prints on this rank."""
+    from big_linear_algebra_tpu_torch.models import common
+    from big_linear_algebra_tpu_torch.utils import graphs
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        common.say_eager_rule("dp", "cuda")
+        common.say_eager_rule("dp", "cpu")
+    return {"reason": graphs.eager_reason(torch.device("cuda")),
+            "cpu": graphs.eager_reason(torch.device("cpu")),
+            "printed": out.getvalue()}
+
+
+def graphs_mnist_dp_epoch(params, x_raw, y, perm, lr, unroll):
+    """Two resident DP epochs on one ``ResidentEpoch`` with the mesh
+    (graphs of ``unroll`` steps stood in for) against two eager DP epochs
+    as the port ran them before (one ``make_train_step_dp`` call per batch
+    of this rank's rows, the metrics summed from 0.0): the params and
+    metrics after each epoch, the collective counters' advance, the log."""
+    from big_linear_algebra_tpu_torch.models import mnist_nn
+    from big_linear_algebra_tpu_torch.parallel import default_mesh
+
+    mesh = default_mesh()
+    cfg = mnist_nn.Config(learn_rate=lr, scan_unroll=unroll)
+    x, yy, p = _t(x_raw), _t(y), _t(perm)
+    ranks, r = mesh.size("data"), mesh.index("data")
+    idx = p.long().reshape(-1, ranks, cfg.batch_size // ranks)[:, r]
+    model = mnist_nn.MnistNN.from_params(_t(params), cfg)
+    step = mnist_nn.make_train_step_dp(mesh, cfg)
+
+    def eager_epoch():
+        correct = ce_sum = 0.0
+        for batch in mnist_nn._resident_batches(x, yy, idx, cfg):
+            c, ce = step(model, *batch)
+            correct, ce_sum = correct + c, ce_sum + ce
+        return correct, ce_sum
+
+    out = {"eager": [], "graphed": []}
+    for _ in range(2):
+        (c, ce), counts = counted(eager_epoch)
+        out["eager"].append((_snap(model.params()), float(c), float(ce),
+                             counts))
+    model = mnist_nn.MnistNN.from_params(_t(params), cfg)
+    with stood_in_graphs() as log:
+        epoch = mnist_nn.ResidentEpoch(model, x, yy, cfg, mesh=mesh)
+        for _ in range(2):
+            (c, ce), counts = counted(lambda: epoch(p))
+            out["graphed"].append((_snap(model.params()), float(c),
+                                   float(ce), counts))
+    out["log"] = log
+    return out
+
+
+def graphs_hinge_dp_chunks(w, x, labels, lr):
+    """``Chunks`` with the mesh (a whole chunk a stood-in graph; chunks of
+    10, 10 and a ragged 3) against ``make_train_chunk_dp``'s eager chunks
+    from the same weights: the weights and histories, the collective
+    counters' advance."""
+    from big_linear_algebra_tpu_torch.models import mnist_hinge as hinge
+    from big_linear_algebra_tpu_torch.parallel import (batch_sharding,
+                                                       default_mesh)
+
+    mesh = default_mesh()
+    xp, lp = hinge.pad_examples(x, labels, mesh.size("data"))
+    shard = batch_sharding(mesh)
+    xt = _t(shard(xp))
+    yt = hinge.signed_targets(_t(shard(lp)), xt.dtype)
+    sizes = (10, 10, 3)
+
+    def eager():
+        wt, hist = _t(w), []
+        for n in sizes:
+            wt, h = hinge.make_train_chunk_dp(mesh, x.shape[0], n)(
+                wt, xt, yt, lr)
+            hist.append(h)
+        return wt, torch.cat(hist)
+
+    def graphed():
+        chunks = hinge.Chunks(_t(w), xt, yt, lr, x.shape[0], mesh)
+        hist = [chunks.run(n).clone() for n in sizes]
+        return chunks.w, torch.cat(hist)
+
+    (we, he), ce = counted(eager)
+    with stood_in_graphs() as log:
+        (wg, hg), cg = counted(graphed)
+    return {"eager": (_snap(we), _snap(he), ce),
+            "graphed": (_snap(wg), _snap(hg), cg), "log": log}
+
+
+def _unet_epoch_rows(x0, n_steps, batch):
+    rng = np.random.default_rng(11)
+    return torch.from_numpy(np.stack([rng.permutation(x0.shape[0])[:batch]
+                                      for _ in range(n_steps)]))
+
+
+def _unet_state(params, opt, losses, gens):
+    return {"params": _snap(params), "m": _snap(opt.m), "v": _snap(opt.v),
+            "step": opt.step, "losses": _snap(torch.stack(list(losses))),
+            "gens": [g.get_state().numpy().copy() for g in gens]}
+
+
+def graphs_unet_dp_epochs(x0, n_steps, unroll, cfg_kwargs):
+    """Two DP epochs of ``n_steps`` TINY steps (batch 2 a rank) through
+    ``TrainSteps`` with the mesh (graphs of ``unroll`` stood in for, one
+    object for both epochs, ``DPGenerators.new_epoch`` between them)
+    against ``make_train_step_dp``'s eager steps on the same rows and
+    generator seeds: the state after each epoch (params, moments, losses,
+    both generators' states), the collective counters, the log."""
+    import dataclasses
+
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn.optim import adam_init
+    from big_linear_algebra_tpu_torch.parallel import (batch_sharding,
+                                                       default_mesh)
+
+    mesh = default_mesh()
+    world = mesh.size("data")
+    cfg = dataclasses.replace(cu.TINY, batch_size=2 * world, **cfg_kwargs)
+    data = _t(x0)
+    rows = _unet_epoch_rows(x0, n_steps, cfg.batch_size)
+    lo, hi = batch_sharding(mesh).bounds(cfg.batch_size)
+    p0 = cu.cast_params(cu.init_params(torch.Generator().manual_seed(0),
+                                       cfg), cfg)
+
+    def eager():
+        gens = cu.DPGenerators(7, mesh.index("data"), "cpu")
+        step = cu.make_train_step_dp(mesh, cfg)
+        p, opt, states = p0, adam_init(p0), []
+        for _ in range(2):
+            losses = []
+            for r in rows:
+                p, opt, loss = step(p, opt, cu._fit_images(data[r[lo:hi]],
+                                                           cfg), gens)
+                losses.append(loss)
+            states.append(_unet_state(p, opt, losses,
+                                      (gens.replicated, gens.rank)))
+            gens.new_epoch()
+        return states
+
+    def graphed():
+        gens = cu.DPGenerators(7, mesh.index("data"), "cpu")
+        steps = cu.TrainSteps(p0, adam_init(p0), data, gens, cfg,
+                              unroll=unroll, mesh=mesh)
+        states = []
+        for _ in range(2):
+            losses = steps.run(rows[:, lo:hi])
+            states.append(_unet_state(steps.params, steps.opt_state(),
+                                      losses, (gens.replicated, gens.rank)))
+            gens.new_epoch()
+        return states
+
+    want, counts_eager = counted(eager)
+    with stood_in_graphs() as log:
+        got, counts_graphed = counted(graphed)
+    return {"eager": want, "graphed": got, "log": log,
+            "counts": (counts_eager, counts_graphed)}
+
+
+def graphs_unet_tp_chunks(x0, n_steps, unroll):
+    """``n_steps`` TINY TP steps over a model axis of every rank through
+    ``TrainSteps`` with the layout (chunks of ``unroll`` stood in for, a
+    ragged tail) against ``make_train_step_tp``'s eager steps: the gathered
+    state, the collective counters, the log."""
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn.optim import adam_init
+    from big_linear_algebra_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh({"model": pmesh.world_size()})
+    cfg = cu.TINY
+    data = _t(x0)
+    rows = _unet_epoch_rows(x0, n_steps, cfg.batch_size)
+    full = cu.init_params(torch.Generator().manual_seed(0), cfg)
+    layout = cu.TPLayout(mesh, cu.tp_param_specs(full, mesh.size("model")))
+
+    def eager():
+        gen = torch.Generator().manual_seed(8)
+        p, opt = cu.place_tp(mesh, full, adam_init(full))
+        step = cu.make_train_step_tp(mesh, layout.specs, cfg)
+        losses = []
+        for r in rows:
+            p, opt, loss = step(p, opt, cu._fit_images(data[r], cfg), gen)
+            losses.append(loss)
+        p, opt = cu.gather_tp(layout, p, opt)
+        return _unet_state(p, opt, losses, (gen,))
+
+    def graphed():
+        gen = torch.Generator().manual_seed(8)
+        p, opt = cu.place_tp(mesh, full, adam_init(full))
+        steps = cu.TrainSteps(p, opt, data, gen, cfg, unroll=unroll,
+                              tp=layout)
+        whole = n_steps // unroll * unroll
+        losses = torch.cat([steps.run(rows[:whole]),
+                            steps.run(rows[whole:])])
+        p, opt = cu.gather_tp(layout, steps.params, steps.opt_state())
+        return _unet_state(p, opt, losses, (gen,))
+
+    want, counts_eager = counted(eager)
+    with stood_in_graphs() as log:
+        got, counts_graphed = counted(graphed)
+    return {"eager": want, "graphed": got, "log": log,
+            "counts": (counts_eager, counts_graphed)}
