@@ -139,7 +139,7 @@ from big_linear_algebra_tpu_torch.parallel.sharding import (
     BatchShard,
     batch_sharding,
 )
-from big_linear_algebra_tpu_torch.utils import debug, graphs
+from big_linear_algebra_tpu_torch.utils import debug, graphs, trace
 
 Params = Dict[str, Any]
 
@@ -826,18 +826,23 @@ def _loss_and_grads(params: Params, x0: torch.Tensor,
     gradient is then exact, and a replicated leaf's is summed over the
     axis (each rank holds a share of it)."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-    t, noise = draws if draws is not None else _ddpm_draws(x0, generator,
-                                                           cfg)
-    with torch.enable_grad():
-        loss = loss_fn(leaves, x0, t, noise, cfg, generator, tp)
-        flat = tree_leaves(leaves)
-        grads = iter(torch.autograd.grad(
-            loss if tp is None else loss / tp.n, flat, allow_unused=True))
-    # leaves the forward does not use (conv_3 of a block whose channels do
-    # not change, the channel-matching convs of equal dims) get zeros, as
-    # jax.grad gives them
-    grads = tree_map(lambda p: _zero_if_none(next(grads), p), leaves)
-    return loss.detach(), grads if tp is None else tp.sum_replicated(grads)
+    with trace.phase("forward", x0):
+        t, noise = draws if draws is not None else _ddpm_draws(
+            x0, generator, cfg)
+        with torch.enable_grad():
+            loss = loss_fn(leaves, x0, t, noise, cfg, generator, tp)
+    with trace.phase("backward", x0):
+        with torch.enable_grad():
+            grads = iter(torch.autograd.grad(
+                loss if tp is None else loss / tp.n, tree_leaves(leaves),
+                allow_unused=True))
+        # leaves the forward does not use (conv_3 of a block whose channels
+        # do not change, the channel-matching convs of equal dims) get
+        # zeros, as jax.grad gives them
+        grads = tree_map(lambda p: _zero_if_none(next(grads), p), leaves)
+        if tp is not None:
+            grads = tp.sum_replicated(grads)
+    return loss.detach(), grads
 
 
 def _sr_seed(generator: torch.Generator, cfg: Config):
@@ -851,7 +856,7 @@ def _sr_seed(generator: torch.Generator, cfg: Config):
 
 def _adam(params: Params, grads: Params, opt_state: AdamState, cfg: Config,
           sr_seed, sr_index=None):
-    with torch.no_grad():
+    with torch.no_grad(), trace.phase("adam", tree_leaves(params)[0]):
         return adam_update(tree_map(torch.Tensor.detach, params), grads,
                            opt_state, cfg.learn_rate, sr_seed=sr_seed,
                            sr_index=sr_index)
@@ -957,7 +962,7 @@ class TrainSteps:
         loss, grads, sr_seed, index = _step_grads(
             self.params, x0, self.generator, self.cfg, mesh=self.mesh,
             tp=self.tp)
-        with torch.no_grad():
+        with torch.no_grad(), trace.phase("adam", x0):
             params, opt = adam_update_at(
                 self.params, grads, self.opt_state(), self.counter,
                 self.table, self.cfg.learn_rate, sr_seed=sr_seed,
@@ -974,21 +979,24 @@ class TrainSteps:
         ``data`` (under ``mesh`` this rank's B/ranks of each), on this
         object's state; returns the k losses (f32, on the device)."""
         k = idx.shape[0]
-        if k > self.idx.shape[0]:  # new buffers: the graph reads the old
-            device = self.counter.device
-            self.idx = torch.zeros((k, idx.shape[1]),
-                                   dtype=torch.int64, device=device)
-            self.table = torch.zeros((k, 2), dtype=torch.float32,
-                                     device=device)
-            self.losses = torch.zeros((k,), dtype=self.losses.dtype,
-                                      device=device)
-            self.graph.reset()
-        self.idx[:k].copy_(idx)
-        self.table[:k].copy_(bias_corrections(self.step + 1, k))
-        self.counter.zero_()
-        self.graph.run(k, self._one)
-        self.step += k
-        return self.losses[:k].clone()
+        with trace.span("bla.train.run"):
+            with trace.span("bla.train.buffers"):
+                # new buffers: the graph reads the old ones
+                if k > self.idx.shape[0]:
+                    device = self.counter.device
+                    self.idx = torch.zeros((k, idx.shape[1]),
+                                           dtype=torch.int64, device=device)
+                    self.table = torch.zeros((k, 2), dtype=torch.float32,
+                                             device=device)
+                    self.losses = torch.zeros((k,), dtype=self.losses.dtype,
+                                              device=device)
+                    self.graph.reset()
+                self.idx[:k].copy_(idx)
+                self.table[:k].copy_(bias_corrections(self.step + 1, k))
+                self.counter.zero_()
+            self.graph.run(k, self._one)
+            self.step += k
+            return self.losses[:k].clone()
 
 
 def train_chunk(params: Params, opt_state: AdamState, data: torch.Tensor,
@@ -1534,24 +1542,29 @@ def sample(params: Params, generator: torch.Generator, cfg: Config = CONFIG,
     with ``graphed=False``), bit-equal to the eager loop."""
     device = generator.device
     dt = getattr(torch, cfg.compute_dtype)
-    params = tree_map(lambda p: p.to(device, dt), params)  # cast once
-    schedule = device_schedule(cfg, device)
     shape = (num_samples, cfg.in_channels, cfg.image_size, cfg.image_size)
-    with torch.inference_mode():
-        x = torch.randn(shape, generator=generator, device=device)
-        t = torch.full((), cfg.timesteps - 1, dtype=torch.int64,
-                       device=device)
+    with trace.span("bla.sample"):
+        with trace.span("bla.sample.prepare"):
+            params = tree_map(lambda p: p.to(device, dt), params)  # once
+            schedule = device_schedule(cfg, device)
+            with torch.inference_mode():
+                x = torch.randn(shape, generator=generator, device=device)
+                t = torch.full((), cfg.timesteps - 1, dtype=torch.int64,
+                               device=device)
 
         def step():
-            tb = t.expand(num_samples).to(torch.int32)
-            eps = forward(params, x, tb, cfg).float()
-            z = torch.randn(shape, generator=generator, device=device)
-            x.copy_(ddpm_update(x, eps, t, z, schedule))
-            t.sub_(1)
+            with trace.phase("forward", x):
+                tb = t.expand(num_samples).to(torch.int32)
+                eps = forward(params, x, tb, cfg).float()
+            with trace.phase("update", x):
+                z = torch.randn(shape, generator=generator, device=device)
+                x.copy_(ddpm_update(x, eps, t, z, schedule))
+                t.sub_(1)
 
-        graphs.StepGraph(cfg.scan_unroll, device, (generator,),
-                         graphed).run(cfg.timesteps, step)
-        return x.clamp(-1.0, 1.0)
+        with torch.inference_mode():
+            graphs.StepGraph(cfg.scan_unroll, device, (generator,),
+                             graphed).run(cfg.timesteps, step)
+            return x.clamp(-1.0, 1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,7 @@ from typing import Iterable, List, Optional, Tuple
 
 import torch
 
-from big_linear_algebra_tpu_torch.utils import debug
+from big_linear_algebra_tpu_torch.utils import debug, trace
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -83,20 +83,24 @@ def _compile(name: str) -> Tuple[subprocess.Popen, List[str], Path, Path]:
 def build(names: Iterable[str]) -> None:
     """Build every ``csrc/<name>.cu`` of ``names`` that is not built yet,
     one nvcc process per source, all started together; raises if any
-    build fails (after all have ended)."""
+    build fails (after all have ended). Under a profiler the builds are
+    the span ``bla.kernels.build.<name>[,<name>...]``."""
     with _lock:
-        jobs = [_compile(name) for name in names
-                if not library_path(name).is_file()]
-        errors = []
-        for proc, cmd, tmp, so in jobs:
-            out, _ = proc.communicate()
-            if proc.returncode != 0:
-                errors.append(f"building {so.name} failed "
-                              f"({' '.join(cmd)}):\n{out}")
-            else:
-                so.with_suffix(".log").write_text(out)
-                # atomic: a concurrent loader sees all or none
-                os.replace(tmp, so)
+        todo = [name for name in names if not library_path(name).is_file()]
+        if not todo:
+            return
+        with trace.span("bla.kernels.build." + ",".join(todo)):
+            jobs = [_compile(name) for name in todo]
+            errors = []
+            for proc, cmd, tmp, so in jobs:
+                out, _ = proc.communicate()
+                if proc.returncode != 0:
+                    errors.append(f"building {so.name} failed "
+                                  f"({' '.join(cmd)}):\n{out}")
+                else:
+                    so.with_suffix(".log").write_text(out)
+                    # atomic: a concurrent loader sees all or none
+                    os.replace(tmp, so)
         if errors:
             raise RuntimeError("\n".join(errors))
 

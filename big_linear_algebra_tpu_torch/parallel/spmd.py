@@ -34,19 +34,15 @@ that makes them can be captured in a CUDA graph (``utils/graphs.py``) once
 every group it uses has run a collective (NCCL makes a group's
 communicator at its first one).
 
-``collective_calls`` counts every collective; ``collective_seconds`` and
-``collective_bytes`` give, for each kind ("all_reduce", "all_gather",
-"hop"), the host wall time spent in it (copies included; under NCCL the
-time to enqueue, not to finish) and the bytes this rank handed to it (the
-buffer summed, this rank's part gathered, the tensors sent). The count and
-the bytes come from the call and the shapes, with no device read, and a
-graph's replay adds what its capture recorded; ``collective_seconds`` is
-host time and does not advance in a capture or a replay.
+``collective_calls`` counts every collective; ``collective_bytes`` gives,
+for each kind ("all_reduce", "all_gather", "hop"), the bytes this rank
+handed to it (the buffer summed, this rank's part gathered, the tensors
+sent). The count and the bytes come from the call and the shapes, with no
+device read, and a graph's replay adds what its capture recorded.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Any
 
 import torch
@@ -55,23 +51,14 @@ import torch.distributed as dist
 from big_linear_algebra_tpu_torch.nn.optim import tree_leaves, tree_map
 
 collective_calls = 0
-collective_seconds = {"all_reduce": 0.0, "all_gather": 0.0, "hop": 0.0}
 collective_bytes = {"all_reduce": 0, "all_gather": 0, "hop": 0}
 
 
-class _Timed:
-    def __init__(self, kind: str, tensors=()):
-        self.kind = kind
-        collective_bytes[kind] += sum(t.numel() * t.element_size()
-                                      for t in tensors if t is not None)
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-
-    def __exit__(self, *exc):
-        global collective_calls
-        collective_calls += 1
-        collective_seconds[self.kind] += time.perf_counter() - self.t0
+def _count(kind: str, tensors=()) -> None:
+    global collective_calls
+    collective_calls += 1
+    collective_bytes[kind] += sum(t.numel() * t.element_size()
+                                  for t in tensors if t is not None)
 
 
 def _staged(x: torch.Tensor) -> bool:
@@ -83,11 +70,11 @@ def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     buffer is contiguous whatever x's strides: the ranks sum their buffers
     in memory order, so a channels-last x on one rank and a contiguous one
     on another would add unlike elements."""
-    with _Timed("all_reduce", [x]):
-        buf = (x.cpu() if _staged(x) else x).clone(
-            memory_format=torch.contiguous_format)
-        dist.all_reduce(buf, group=group)
-        return buf.to(x.device)
+    _count("all_reduce", [x])
+    buf = (x.cpu() if _staged(x) else x).clone(
+        memory_format=torch.contiguous_format)
+    dist.all_reduce(buf, group=group)
+    return buf.to(x.device)
 
 
 def _reduce_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -144,18 +131,18 @@ class _AllGather(torch.autograd.Function):
         group = mesh.group(axis)
         if group is None:
             return x.clone()
-        with _Timed("all_gather", [x]):
-            n = mesh.size(axis)
-            if dist.get_backend() != "nccl":
-                src = x.cpu().contiguous() if _staged(x) else x.contiguous()
-                parts = [torch.empty_like(src) for _ in range(n)]
-                dist.all_gather(parts, src, group=group)
-                return torch.cat(parts, dim=dim).to(x.device)
-            src = x.contiguous()
-            flat = torch.empty((n,) + tuple(src.shape), dtype=src.dtype,
-                               device=src.device)
-            dist.all_gather_into_tensor(flat, src, group=group)
-            return torch.cat(flat.unbind(0), dim=dim)
+        _count("all_gather", [x])
+        n = mesh.size(axis)
+        if dist.get_backend() != "nccl":
+            src = x.cpu().contiguous() if _staged(x) else x.contiguous()
+            parts = [torch.empty_like(src) for _ in range(n)]
+            dist.all_gather(parts, src, group=group)
+            return torch.cat(parts, dim=dim).to(x.device)
+        src = x.contiguous()
+        flat = torch.empty((n,) + tuple(src.shape), dtype=src.dtype,
+                           device=src.device)
+        dist.all_gather_into_tensor(flat, src, group=group)
+        return torch.cat(flat.unbind(0), dim=dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -223,16 +210,16 @@ def hop(tensors, mesh, axis: str, direction: int = 1, like=None,
         return [t.clone() for t in tensors] if wrap else None
     sends = [] if to is None else tensors
     recvs = [] if frm is None else like
-    with _Timed("hop", sends):
-        staged = _staged((sends or recvs)[0])
-        bufs = [(t.cpu() if staged else t).contiguous() for t in sends]
-        got = [torch.empty(t.shape, dtype=t.dtype,
-                           device="cpu" if staged else t.device)
-               for t in recvs]
-        ops = ([dist.P2POp(dist.isend, t, to, group) for t in bufs]
-               + [dist.P2POp(dist.irecv, t, frm, group) for t in got])
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        if frm is None:
-            return None
-        return [r.to(t.device) for r, t in zip(got, recvs)]
+    _count("hop", sends)
+    staged = _staged((sends or recvs)[0])
+    bufs = [(t.cpu() if staged else t).contiguous() for t in sends]
+    got = [torch.empty(t.shape, dtype=t.dtype,
+                       device="cpu" if staged else t.device)
+           for t in recvs]
+    ops = ([dist.P2POp(dist.isend, t, to, group) for t in bufs]
+           + [dist.P2POp(dist.irecv, t, frm, group) for t in got])
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    if frm is None:
+        return None
+    return [r.to(t.device) for r, t in zip(got, recvs)]

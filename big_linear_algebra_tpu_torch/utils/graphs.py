@@ -38,8 +38,7 @@ that replay n+1 reads what replay n wrote, as a scan's carry.
   NCCL, which enqueues them on the device; their counters
   (``collective_calls``, ``collective_bytes``) are kept as the launch
   counters are, so a graphed epoch counts the collectives and bytes of the
-  eager one. ``collective_seconds``, host enqueue time, does not advance in
-  a capture or a replay. Every group a step uses must have run a
+  eager one. Every group a step uses must have run a
   collective before the capture (NCCL makes a group's communicator at its
   first collective): the warm-up's eager steps do that. Gloo stages its
   collectives through host memory, which a graph cannot hold.
@@ -48,6 +47,11 @@ that replay n+1 reads what replay n wrote, as a scan's carry.
   (``eager_reason``): on the CPU (where they are the plain version), under
   the debug modes of ``utils/debug.py`` (which run op by op), in a gloo
   process group, inside ``eager()``, or with ``graphed=False``.
+- Spans (``utils/trace.py``, under a profiler): ``bla.graph.warmup`` (the
+  eager steps before a capture), ``bla.graph.gc``, ``bla.graph.capture``
+  (the ``torch.cuda.graph`` block, its synchronize and cache release
+  included), ``bla.graph.replay`` (one a replay) and ``bla.graph.eager``
+  (eager steps after a capture, or all steps where none is captured).
 """
 
 from __future__ import annotations
@@ -59,7 +63,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
-from big_linear_algebra_tpu_torch.utils import debug
+from big_linear_algebra_tpu_torch.utils import debug, trace
 
 # The kernels' launch counters: module → its counter attributes (ints, or
 # dicts of ints).
@@ -77,10 +81,6 @@ _COUNTERS = {
     "big_linear_algebra_tpu_torch.parallel.spmd": (
         "collective_calls", "collective_bytes"),
 }
-# Host clocks a capture must leave as they were (a replay does not move
-# them): module → its attributes (dicts of floats).
-_CLOCKS = {"big_linear_algebra_tpu_torch.parallel.spmd": ("collective_seconds",)}
-
 Counts = Dict[Tuple[str, str, Optional[str]], int]
 
 
@@ -110,17 +110,6 @@ def _set_counts(counts: Counts, add: bool = False) -> None:
         else:
             table = getattr(module, attr)
             table[key] = value + (table[key] if add else 0)
-
-
-def _clocks() -> dict:
-    """A copy of every clock of ``_CLOCKS``."""
-    return {(name, attr): dict(getattr(importlib.import_module(name), attr))
-            for name, attrs in _CLOCKS.items() for attr in attrs}
-
-
-def _set_clocks(clocks: dict) -> None:
-    for (name, attr), value in clocks.items():
-        getattr(importlib.import_module(name), attr).update(value)
 
 
 # Why a step runs eagerly where a CUDA graph could not hold it
@@ -167,6 +156,12 @@ def graphs_allowed(device: torch.device) -> bool:
     return eager_reason(device) is None
 
 
+def _eager(k: int, step: Callable[[], None]) -> None:
+    with trace.span("bla.graph.eager"):
+        for _ in range(k):
+            step()
+
+
 class StepGraph:
     """``unroll`` calls of a step as one CUDA graph. ``run(k, step)`` makes
     k calls of ``step`` (the same function at every call):
@@ -206,24 +201,18 @@ class StepGraph:
         self.graph = None
 
     def run(self, k: int, step: Callable[[], None]) -> None:
-        if not self.graphed:
-            for _ in range(k):
-                step()
+        if not self.graphed or (self.graph is None and k < self.unroll):
+            _eager(k, step)
             return
         if self.graph is None:
-            if k < self.unroll:
-                for _ in range(k):
-                    step()
-                return
             head = 1 + (k - 1) % self.unroll
-            with self._on_capture_stream():
+            with trace.span("bla.graph.warmup"), self._on_capture_stream():
                 for _ in range(head):
                     step()
             self.capture(step)
         else:
             head = k % self.unroll
-            for _ in range(head):
-                step()
+            _eager(head, step)
         for _ in range((k - head) // self.unroll):
             self.replay()
 
@@ -252,25 +241,24 @@ class StepGraph:
         if self.stream is None:
             self.stream = torch.cuda.Stream(self.device)
         before = launch_counts()
-        clocks = _clocks()
         # in a process group NCCL's watchdog thread queries the events of
         # earlier collectives while the capture runs, which a capture in
         # the global mode would count as an unsafe call against it
         import torch.distributed as dist
 
         mode = "thread_local" if dist.is_initialized() else "global"
-        gc.collect()
+        with trace.span("bla.graph.gc"):
+            gc.collect()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, stream=self.stream,
-                                  capture_error_mode=mode):
+            with trace.span("bla.graph.capture"), torch.cuda.graph(
+                    graph, stream=self.stream, capture_error_mode=mode):
                 for _ in range(self.unroll):
                     step()
         finally:
             gc.enable()
             after = launch_counts()
             _set_counts(before)
-            _set_clocks(clocks)
         self.deltas = {k: after[k] - v for k, v in before.items()
                        if after[k] != v}
         self.graph = graph
@@ -278,6 +266,7 @@ class StepGraph:
     def replay(self) -> None:
         """One replay: ``unroll`` steps; the launch and collective counters
         advance by what the capture recorded."""
-        self.graph.replay()
+        with trace.span("bla.graph.replay"):
+            self.graph.replay()
         _set_counts(self.deltas, add=True)
         self.replays += 1

@@ -94,7 +94,7 @@ Phases, one line each (or a few), in the order 1–4, 22, 23, 24, 5–7,
    2048, 16) (K2, K2c and K2d twice each per rank, two runs bit-equal, o,
    dq, dk and dv within 2e-2 of max|ref| in bf16 and phase 5's and 8's
    bounds in f32 of the plain flash over the whole sequence); then each
-   rank's host wall, busy share and collective time per step or call
+   rank's host wall, busy share and collectives per step or call
    (``tools/parallel_check.py`` runs it alone);
 25. the U-Net's tensor parallelism and the pipeline modes (run after 24,
    with its launcher; ``tools/pipeline_check.py`` runs it alone), in fresh
@@ -4585,32 +4585,27 @@ def _wrapped(module, name: str, wrap):
         setattr(module, name, real)
 
 
-def _collectives():
+def _profile(fn, device: str, n_calls_timed: int = 3) -> dict:
+    """A rank's host wall and collectives per call of ``fn``, over
+    ``n_calls_timed`` calls after one warm-up, ending in a synchronise; on
+    the card then the busy share of one call traced by ``torch.profiler``
+    (``_host_and_trace``)."""
     from big_linear_algebra_tpu_torch.parallel import spmd
 
-    return spmd.collective_calls, sum(spmd.collective_seconds.values())
-
-
-def _profile(fn, device: str, n_calls_timed: int = 3) -> dict:
-    """A rank's host wall per call of ``fn`` and the collectives' host time
-    per call, over ``n_calls_timed`` calls after one warm-up, ending in a
-    synchronise; on the card then the busy share of one call traced by
-    ``torch.profiler`` (``_host_and_trace``)."""
     fn()
     _sync(device)
-    calls0, secs0 = _collectives()
+    calls0 = spmd.collective_calls
     t0 = time.perf_counter()
     for _ in range(n_calls_timed):
         fn()
     _sync(device)
     host = (time.perf_counter() - t0) * 1e3 / n_calls_timed
-    calls, secs = _collectives()
+    calls = spmd.collective_calls
     busy, summary = None, ""
     if device == "cuda":
         _, busy, summary, _ = _host_and_trace(fn, n_traced=1, warmup=0,
                                               timed=1)
     return {"host_ms": host, "busy_ms": busy, "summary": summary,
-            "coll_ms": (secs - secs0) * 1e3 / n_calls_timed,
             "coll_calls": (calls - calls0) / n_calls_timed}
 
 
@@ -5472,13 +5467,12 @@ def _p24_profile_lines(ranks, device, smi_line: str) -> list:
             steps = p.get("steps")
             per_step = ("" if not steps else
                         f" = {p['host_ms'] / steps * 1e3:.2f} us per step")
-            coll = p["coll_ms"] / (steps or 1)
             lines.append(
                 f"[24 profile] {what}, rank {r} ({rank['device']}, "
                 f"{rank['backend']}): host wall {p['host_ms']:.3f} ms"
-                f"{per_step}{busy}; collectives {coll * 1e3:.2f} us of host "
-                f"time per {'step' if steps else 'call'} "
-                f"({p['coll_calls'] / (steps or 1):.1f} calls) | {smi_line}")
+                f"{per_step}{busy}; "
+                f"{p['coll_calls'] / (steps or 1):.1f} collectives per "
+                f"{'step' if steps else 'call'} | {smi_line}")
     return lines
 
 
@@ -5516,7 +5510,7 @@ def phase_parallel(smi_line: str = "", device: str = "cuda",
     rank), ring attention (bf16 (4, 8192, 64), f32 (2, 2048, 16); K2,
     K2c and K2d P times each per rank, two runs bit-equal, within the
     bounds of the plain flash over the whole sequence); each rank's host
-    wall, busy share and collective time."""
+    wall, busy share and collectives."""
     with tempfile.TemporaryDirectory(prefix="bla_smoke_") as tmp:
         prep = _p24_prepare(tmp, device)
         stdout, seconds = _run_ranks(tmp, device, n_ranks)
@@ -5687,18 +5681,15 @@ def _run_cli_counted(cu, at, fb, args, where, device, spy: str) -> dict:
 
 def _profile_step(fn, device: str, n_timed: int = 2) -> dict:
     """``_profile`` of ``fn`` plus, for one call after it (warm), the bytes
-    each kind of collective moved and its host time (ms)."""
+    each kind of collective moved."""
     from big_linear_algebra_tpu_torch.parallel import spmd
 
     out = _profile(fn, device, n_calls_timed=n_timed)
     b0 = dict(spmd.collective_bytes)
-    s0 = dict(spmd.collective_seconds)
     fn()
     _sync(device)
-    out.update(
-        bytes={k: v - b0[k] for k, v in spmd.collective_bytes.items()},
-        kind_ms={k: (v - s0[k]) * 1e3 for k, v in
-                 spmd.collective_seconds.items()})
+    out.update(bytes={k: v - b0[k]
+                      for k, v in spmd.collective_bytes.items()})
     return out
 
 
@@ -6173,13 +6164,12 @@ def _p25_profile_lines(tp, pp, smi_line: str) -> list:
         busy = ("" if p["busy_ms"] is None else
                 f"; device busy {p['busy_ms']:.3f} ms = "
                 f"{p['busy_ms'] / p['host_ms']:.1%} of the host time")
-        moved = ", ".join(f"{k} {v / 2 ** 20:.1f} MiB in "
-                          f"{p['kind_ms'][k]:.3f} ms"
+        moved = ", ".join(f"{k} {v / 2 ** 20:.1f} MiB"
                           for k, v in p["bytes"].items() if v)
         return (f"[25 profile] {what}, rank {r} ({rank['device']}, "
                 f"{rank['backend']}): host wall {p['host_ms']:.3f} ms"
-                f"{busy}; collectives {p['coll_ms']:.3f} ms of host time "
-                f"({p['coll_calls']:.1f} calls), moved {moved or 'nothing'}")
+                f"{busy}; {p['coll_calls']:.1f} collectives, moved "
+                f"{moved or 'nothing'}")
 
     for r, rank in enumerate(tp):
         lines.append(fmt("bf16 TP step, 64x64, batch 16", r, rank,
@@ -6219,7 +6209,7 @@ def phase_tp_pp(smi_line: str = "", device: str = "cuda") -> None:
     gate's blocks there), the f32 GPipe and 1F1B gradients against the
     sequential run of the stages on the same folds; ``train 1 --pp --dp
     --pp-micro=4 --fused-block`` on a stage 3 x data 2 mesh (replicas
-    bit-equal); each rank's step wall, collective time and bytes, and the
+    bit-equal); each rank's step wall, collectives and bytes, and the
     share of a pipeline step in its stage's units beside
     ``hetero_stats``' utilizations."""
     with tempfile.TemporaryDirectory(prefix="bla_smoke_") as tmp:
