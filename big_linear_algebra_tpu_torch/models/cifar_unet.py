@@ -121,6 +121,7 @@ from big_linear_algebra_tpu_torch.nn.optim import (
     adam_init,
     adam_update,
     adam_update_at,
+    adam_update_at_,
     bias_corrections,
     tree_leaves,
     tree_map,
@@ -915,12 +916,14 @@ class TrainSteps:
     (``nn/optim.py`` ``bias_corrections``), a device step counter and the
     losses. A step gathers its batch from ``data`` (N, 3, 32, 32) on the
     card, row ``counter`` of the indices; runs ``train_step``'s loss,
-    gradient and Adam update (``adam_update_at``), its draws from
-    ``generator`` in the same order; writes the new parameters and
-    moments back into the buffers; records its loss; and advances the
-    counter. A replayed step is bit-equal to ``train_step`` on the same
-    batch and generator, and the generator ends where the eager steps
-    leave it.
+    gradient and Adam update, its draws from ``generator`` in the same
+    order; records its loss; and advances the counter. With f32
+    parameters on the card Adam updates the buffers in place
+    (``adam_update_at_``, one hand-written pass); elsewhere (the CPU,
+    f64, ``--bf16-params``' stochastic rounding) it is
+    ``adam_update_at``, the new parameters and moments copied back. A
+    replayed step is bit-equal to ``train_step`` on the same batch and
+    generator, and the generator ends where the eager steps leave it.
 
     The parallel modes (``_step_grads``): with ``mesh`` the step is
     ``make_train_step_dp``'s (JAX ``make_epoch_step_dp``): ``generator`` is
@@ -940,6 +943,9 @@ class TrainSteps:
         self.m = tree_map(lambda a: a.detach().clone(), opt_state.m)
         self.v = tree_map(lambda a: a.detach().clone(), opt_state.v)
         self.step = opt_state.step
+        # what the in-place pass computes: f32 parameters on the card
+        self.in_place = all(p.dtype == torch.float32 and p.is_cuda
+                            for p in tree_leaves(self.params))
         self.counter = torch.zeros((), dtype=torch.int64, device=device)
         self.idx = torch.zeros((0, cfg.batch_size), dtype=torch.int64,
                                device=device)
@@ -963,14 +969,19 @@ class TrainSteps:
             self.params, x0, self.generator, self.cfg, mesh=self.mesh,
             tp=self.tp)
         with torch.no_grad(), trace.phase("adam", x0):
-            params, opt = adam_update_at(
-                self.params, grads, self.opt_state(), self.counter,
-                self.table, self.cfg.learn_rate, sr_seed=sr_seed,
-                sr_index=index)
-            for mine, new in ((self.params, params), (self.m, opt.m),
-                              (self.v, opt.v)):
-                for a, b in zip(tree_leaves(mine), tree_leaves(new)):
-                    a.copy_(b)
+            if self.in_place and sr_seed is None:
+                adam_update_at_(self.params, grads, self.m, self.v,
+                                self.counter, self.table,
+                                self.cfg.learn_rate)
+            else:
+                params, opt = adam_update_at(
+                    self.params, grads, self.opt_state(), self.counter,
+                    self.table, self.cfg.learn_rate, sr_seed=sr_seed,
+                    sr_index=index)
+                for mine, new in ((self.params, params), (self.m, opt.m),
+                                  (self.v, opt.v)):
+                    for a, b in zip(tree_leaves(mine), tree_leaves(new)):
+                        a.copy_(b)
             self.losses.index_copy_(0, row, loss.reshape(1))
             self.counter.add_(1)
 

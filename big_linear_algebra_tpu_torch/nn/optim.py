@@ -5,8 +5,8 @@ The reference's optimizers are inline: plain SGD (model/mnist_nn.c:303-315)
 and an *intended* Adam in cifar_unet — first/second-moment buffers are
 allocated (``gm``/``gsm``, model/cifar_unet.c:1887-1888) but never used
 (SURVEY.md §7.11). As in the JAX package, SGD and Adam (Kingma & Ba 2015
-defaults) are (init, update) pairs that return new trees; nothing is updated
-in place.
+defaults) are (init, update) pairs that return new trees; only
+``adam_update_at_`` updates in place.
 
 - Moments live in at least f32 (``_acc_dtype``): bf16 stored parameters keep
   full-precision optimizer state, and f32/f64 parameters keep their own type.
@@ -21,6 +21,11 @@ in place.
   bit-equal. (``adam_update`` copies its corrections from the host every
   step, which a capture cannot hold: the copy would be frozen into the
   graph.)
+- ``adam_update_at_`` is that step in place, for a graph's static
+  buffers: one hand-written pass (``csrc/adam.cu``) over every leaf, a
+  few launches in all, bit-equal to ``adam_update_at`` in f32. It takes
+  contiguous f32 leaves on one card and rounds nothing stochastically;
+  ``TrainSteps`` keeps the functional form for f64, bf16 and CPU leaves.
 - bf16 parameters can be written with stochastic rounding
   (``stochastic_round_bf16``), whose dither is the JAX package's counter hash
   (``_fmix32``) bit for bit: uint32 arithmetic emulated in int64, with every
@@ -29,11 +34,17 @@ in place.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Any, Callable, List, Mapping, NamedTuple, Optional
 
 import torch
 
+from big_linear_algebra_tpu_torch.ops import cuda_utils
+
 _MASK32 = 0xFFFFFFFF
+
+# Kernel launches of ``adam_update_at_`` (``csrc/adam.cu``)
+adam_launch_count = 0
 
 
 def tree_map(fn: Callable[..., Any], tree, *rest):
@@ -216,3 +227,84 @@ def adam_update_at(params: Any, grads: Any, state: AdamState,
     new_params, m, v = _adam_core(params, grads, state.m, state.v, bc1, bc2,
                                   lr, b1, b2, eps, sr_seed, sr_index)
     return new_params, AdamState(step=state.step + 1, m=m, v=v)
+
+
+def _in_place_leaves(params: Any, grads: Any, m: Any,
+                     v: Any) -> List[List[torch.Tensor]]:
+    """The leaves of the four trees, which ``adam_update_at_`` writes or
+    reads through their pointers: raises ValueError unless the trees
+    match leaf for leaf in size and every leaf is a contiguous f32 tensor
+    on one CUDA device."""
+    trees = [tree_leaves(t) for t in (params, grads, m, v)]
+    if len({len(leaves) for leaves in trees}) != 1:
+        raise ValueError("adam_update_at_: trees of different lengths")
+    if any(len({x.numel() for x in leaf}) != 1 for leaf in zip(*trees)):
+        raise ValueError("adam_update_at_: leaves of different sizes")
+    for leaf in (x for leaves in trees for x in leaves):
+        if leaf.dtype != torch.float32:
+            raise ValueError(f"adam_update_at_: a {leaf.dtype} leaf")
+        if not leaf.is_contiguous():
+            raise ValueError("adam_update_at_: a leaf that is not "
+                             "contiguous")
+    devices = {x.device for leaves in trees for x in leaves}
+    if len(devices) > 1:
+        raise ValueError("adam_update_at_: leaves on more than one device")
+    for device in devices:
+        if device.type != "cuda":
+            raise ValueError(f"adam_update_at_: a leaf on the {device.type}")
+    return trees
+
+
+_P = ctypes.c_void_p
+_ADAM_ARGS = [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
+              ctypes.c_double, ctypes.c_double, ctypes.c_double,
+              ctypes.c_double, ctypes.POINTER(ctypes.c_int), _P]
+
+
+def adam_update_at_(params: Any, grads: Any, m: Any, v: Any,
+                    counter: torch.Tensor, table: torch.Tensor, lr,
+                    b1: float = 0.9, b2: float = 0.999,
+                    eps: float = 1e-8) -> None:
+    """``adam_update_at`` in place: the parameters ``params`` and the
+    moments ``m``, ``v`` (trees of one structure with ``grads``) take their
+    new values in their own storage, from the bias corrections of row
+    ``counter`` (0-dim int64; a device assert outside the table, as
+    ``index_select``'s) of ``table`` (f32, (rows, 2)), both read on the
+    device. One hand-written pass over every leaf (``csrc/adam.cu``:
+    up to 48 leaves a launch, each launch counted in
+    ``adam_launch_count``), bit-equal to ``adam_update_at``. Raises
+    ValueError unless the trees match and every leaf is a contiguous f32
+    tensor on one CUDA device; the Adam step count and the counter are
+    the caller's to advance."""
+    global adam_launch_count
+    trees = _in_place_leaves(params, grads, m, v)
+    n = len(trees[0])
+    if n == 0:
+        return
+    device = trees[0][0].device
+    if (counter.dtype != torch.int64 or counter.numel() != 1
+            or counter.device != device):
+        raise ValueError("adam_update_at_: the counter is one int64 on "
+                         f"{device}")
+    if (table.dtype != torch.float32 or table.dim() != 2
+            or table.shape[1] != 2 or not table.is_contiguous()
+            or table.device != device):
+        raise ValueError("adam_update_at_: the table is a contiguous (rows, "
+                         f"2) f32 tensor on {device}")
+    pointers = [(_P * n)(*(x.data_ptr() for x in leaves))
+                for leaves in trees]
+    sizes = (ctypes.c_int64 * n)(*(x.numel() for x in trees[0]))
+    launches = ctypes.c_int(0)
+    lib = cuda_utils.load_library("adam")
+    fn = lib.bla_adam_update
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ADAM_ARGS
+    with torch.cuda.device(device):
+        rc = fn(n, *pointers, sizes, counter.data_ptr(), table.data_ptr(),
+                table.shape[0], float(lr), b1, b2, eps,
+                ctypes.byref(launches),
+                torch.cuda.current_stream(device).cuda_stream)
+    adam_launch_count += launches.value
+    cuda_utils.check(lib, rc, "adam_update_at_ launch", *trees[0],
+                     *trees[2], *trees[3])

@@ -78,6 +78,7 @@ _COUNTERS = {
     "big_linear_algebra_tpu_torch.nn.fused_block": (
         "launch_count", "bwd_launch_count", "wgrad_launch_count",
         "tc_launch_count", "bwd_tc_launch_count", "wgrad_tc_launch_count"),
+    "big_linear_algebra_tpu_torch.nn.optim": ("adam_launch_count",),
     "big_linear_algebra_tpu_torch.parallel.spmd": (
         "collective_calls", "collective_bytes"),
 }

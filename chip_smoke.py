@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases, one line each (or a few), in the order 1–4, 22, 23, 24, 5–7,
-16–18, 11–15, 8–10, 26, 27, 19–21, 28; any failure exits non-zero:
+16–18, 11–15, 29, 8–10, 26, 27, 19–21, 28; any failure exits non-zero:
 1. environment: the card's name and power limit, torch and CUDA versions;
    fails when no CUDA device is available;
 2. build: compiles the kernels from ``big_linear_algebra_tpu_torch/csrc/``
@@ -12,8 +12,8 @@ Phases, one line each (or a few), in the order 1–4, 22, 23, 24, 5–7,
    (K2c and K2d, ``flash_attn_bwd.cu``), the fused resnet block (K5a's
    FMA route, K5b, ``fused_block.cu``; K5a's tensor-core route,
    ``fused_block_tc.cu``), the fused flash backward (K3a,
-   ``flash_attn_bwd_fused.cu``) and the implicit-GEMM conv (K4,
-   ``conv_implicit.cu``);
+   ``flash_attn_bwd_fused.cu``), the implicit-GEMM conv (K4,
+   ``conv_implicit.cu``) and the in-place Adam pass (``adam.cu``);
 3. K1 against plain, on the card: nn/nt/tn x f32/bf16 x
    {no epilogue, bias, bias+ReLU} at the three mnist_nn layer shapes and a
    ragged one, and f32 x the same epilogues at the five K1 GEMMs of an
@@ -281,9 +281,13 @@ Phases, one line each (or a few), in the order 1–4, 22, 23, 24, 5–7,
    ``--layout=NHWC``, and ``--scan-steps=5`` over 23 steps (a ragged tail
    of 3), every parameter, moment, loss and the generator's state bit for
    bit, the launches equal; mnist_nn's graphed resident epoch against the
-   eager one (bit-equal, K1 640); for two replays of three graphs, in a
+   eager one (bit-equal, K1 640); the graphed U-Net steps with f32
+   parameters take the in-place Adam pass (``ceil(122 / 48)`` = 3
+   launches a step; none under ``--bf16-params`` or in the eager steps),
+   the other launches equal; for two replays of three graphs, in a
    process of its own (``--phase27-counters``), the counters' launches
-   against the kernels ``torch.profiler`` records; the
+   (the Adam pass's too) against the kernels ``torch.profiler`` records;
+   the
    sampler's, the U-Net train step's and the mnist_nn step's host time a
    step, device busy and images/s, graph against eager in turns; the peak
    of allocated memory, eager against graphs of 4 and 1 steps;
@@ -303,6 +307,16 @@ Phases, one line each (or a few), in the order 1–4, 22, 23, 24, 5–7,
    card over gloo print the eager rule and keep their counts; the DP and
    TP epochs graphed over NCCL need a card a rank: ``tools/graph_check.py
    --ranks=4 --spawned``.)
+29. the in-place Adam pass (``csrc/adam.cu``, ``nn/optim.py``
+   ``adam_update_at_``; run after 15, in its data directory): the
+   kernel's registers, shared memory and spills; 3 steps at the
+   full-width U-Net's 122 leaves from random moments, every parameter and
+   moment bit-equal to ``adam_update_at``, 3 launches a call; its device
+   time beside the plain update (``adam_update_at`` and the copy-back)
+   and ``torch._fused_adam_``, each over replays of a CUDA graph, in
+   turns, against its bytes bound (28 B a parameter over 3.35 TB/s); then
+   ``train 1 --fused-block --scan-steps=5 --max-steps=30`` from phase
+   15's train state, the pass's launches (3 a step) read from 0;
 Then a JSON line of per-kernel results (K1's launches: phase 4's ``run``
 and phase 22's train epoch), the ``nvidia-smi`` name/power-limit line, and
 as the last line ``{"ok": true, "device": {...}}``.
@@ -575,7 +589,8 @@ def phase_build() -> None:
     from big_linear_algebra_tpu_torch.ops import cuda_utils
 
     names = ("matmul", "flash_attn", "flash_attn_bwd", "fused_block",
-             "flash_attn_bwd_fused", "conv_implicit", "fused_block_tc")
+             "flash_attn_bwd_fused", "conv_implicit", "fused_block_tc",
+             "adam")
     t0 = time.perf_counter()
     cuda_utils.build(names)
     for name in names:
@@ -6869,7 +6884,8 @@ P27_KERNELS = {"K1": r"mm_kernel", "K2": r"flash_fwd_(tc|kernel)",
                "K2d": r"flash_bwd_dkv_(tc|kernel)",
                "K5a": r"fused_block_fwd_(tc|kernel)",
                "K5b data": r"fused_block_bwd_(tc|kernel)",
-               "K5b wgrad": r"fused_block_wgrad_(tc|kernel)"}
+               "K5b wgrad": r"fused_block_wgrad_(tc|kernel)",
+               "Adam": r"bla_adam_kernel"}
 # The same kernels by their launch counters (utils/graphs.py's names)
 P27_COUNTERS = {
     "K1": ("big_linear_algebra_tpu_torch.ops.matmul", "launch_count", None),
@@ -6884,7 +6900,9 @@ P27_COUNTERS = {
     "K5b data": ("big_linear_algebra_tpu_torch.nn.fused_block",
                  "bwd_launch_count", None),
     "K5b wgrad": ("big_linear_algebra_tpu_torch.nn.fused_block",
-                  "wgrad_launch_count", None)}
+                  "wgrad_launch_count", None),
+    "Adam": ("big_linear_algebra_tpu_torch.nn.optim", "adam_launch_count",
+             None)}
 
 
 def _span_share(summary: str) -> str:
@@ -6912,6 +6930,32 @@ def _p27_same(a, b) -> bool:
     la, lb = tree_leaves(a), tree_leaves(b)
     return len(la) == len(lb) and all(
         x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _adam_a_step(params, device: str) -> int:
+    """The in-place Adam pass's launches in one ``TrainSteps`` step on
+    ``params``: one a group of ``bla_adam_leaves_per_launch()`` leaves for
+    f32 parameters on the card, none elsewhere (the plain update)."""
+    from big_linear_algebra_tpu_torch.nn.optim import tree_leaves
+    from big_linear_algebra_tpu_torch.ops import cuda_utils
+
+    leaves = tree_leaves(params)
+    if device != "cuda" or any(x.dtype != torch.float32 for x in leaves):
+        return 0
+    group = cuda_utils.load_library("adam").bla_adam_leaves_per_launch()
+    return -(-len(leaves) // group)
+
+
+def _adam_apart(counts: dict, want: int, what: str) -> dict:
+    """``counts`` without the in-place Adam pass's launches, which must be
+    ``want``: a graphed step takes the pass, the eager step it is held
+    against keeps the plain update."""
+    rest = dict(counts)
+    got = rest.pop("Adam", 0)
+    if got != want:
+        fail(f"{what}: the in-place Adam pass launched {got} times, "
+             f"expected {want}")
+    return rest
 
 
 def _p27_profiled_launches(fn, calls: int) -> dict:
@@ -7074,8 +7118,11 @@ def _p27_train_cli(tmp: str, device: str) -> str:
              "--host-loop's (train state or average loss)")
     want = ({"K2": 4 * steps, "K2c": 4 * steps, "K2d": 4 * steps}
             if device == "cuda" else {})
+    adam = steps * _adam_a_step(a["params"], device)
     for mode in counts:
-        if counts[mode] != want:
+        rest = _adam_apart(counts[mode], adam if mode == "graph" else 0,
+                           f"phase 27: train 1 ({mode})")
+        if rest != want:
             fail(f"phase 27: train 1 ({mode}) launched {counts[mode]}, "
                  f"expected {want}")
     return (f"train 1 --image-size=64 from the tree in {tmp} (phase 10's "
@@ -7084,7 +7131,8 @@ def _p27_train_cli(tmp: str, device: str) -> str:
             f"the graphed epoch's train state bit-equal to --host-loop's "
             f"(parameters, Adam moments, step {steps}, the generator's "
             f"state; avg_loss {lines['graph']['avg_loss']} both), launches "
-            f"{counts['graph']} both; epoch_seconds "
+            f"{want} both, and the graphed epoch's in-place Adam {adam}; "
+            f"epoch_seconds "
             f"{lines['graph']['epoch_seconds']} graphed (its capture "
             f"included), {lines['host-loop']['epoch_seconds']} --host-loop; "
             f"CLI wall {secs['graph']:.2f} s and {secs['host-loop']:.2f} s")
@@ -7155,6 +7203,9 @@ def _p27_train_steps(params, device: str) -> list:
 
         (q, opt, losses, state), want = _p27_counts(eager)
         got, counts = _p27_counts(graphed)
+        want = _adam_apart(want, 0, f"phase 27 ({name}): train_step")
+        adam = n * _adam_a_step(p, device)
+        counts = _adam_apart(counts, adam, f"phase 27 ({name})")
         same = (_p27_same(got[0], q) and _p27_same(got[1].m, opt.m)
                 and _p27_same(got[1].v, opt.v) and got[1].step == opt.step
                 and torch.equal(got[2], losses) and torch.equal(got[3], state))
@@ -7171,7 +7222,7 @@ def _p27_train_steps(params, device: str) -> list:
                      f"moments, losses ({float(losses[0]):.6f} .. "
                      f"{float(losses[-1]):.6f}) and the generator's state "
                      f"bit-equal to train_step's; launches a step {per_step}"
-                     f" both")
+                     f" both, and graphed the in-place Adam {adam / n:g}")
         del p, q, opt, got, data
     return lines
 
@@ -8023,6 +8074,8 @@ def _p28_unet(device: str, kind: str, fused: bool = False,
 
     (q, opt, losses, st), want, want_c = _p28_counted(eager)
     got, counts, got_c = _p28_counted(graphed)
+    adam = n * _adam_a_step(full, device)
+    counts = _adam_apart(counts, adam, f"phase 28 {kind} (fused {fused})")
     same = (_p27_same(got[0], q) and _p27_same(got[1].m, opt.m)
             and _p27_same(got[1].v, opt.v) and got[1].step == opt.step
             and torch.equal(got[2], losses) and _p28_same(got[3], st))
@@ -8051,7 +8104,7 @@ def _p28_unet(device: str, kind: str, fused: bool = False,
         del steps, state
     return {"same": same, "counts": (counts, got_c),
             "eager counts": (want, want_c), "hash": digest,
-            "replays": replays, "timed": timed, "steps": n,
+            "replays": replays, "timed": timed, "steps": n, "adam": adam,
             "losses": (float(losses[0]), float(losses[-1]))}
 
 
@@ -8166,7 +8219,9 @@ def phase_graphs_parallel(smi_line: str = "", device: str = "cuda",
                 f"{ {k: v / steps for k, v in launches.items()} } a step, "
                 f"{calls / steps:g} collectives and "
                 f"{ {k: v / steps for k, v in nbytes.items()} } bytes a "
-                f"step, graphed as eager")
+                f"step, graphed as eager" + (
+                    f", and graphed the in-place Adam {x['adam'] / steps:g} "
+                    f"a step" if "adam" in x else ""))
         if x["timed"] is not None:
             parts = []
             for g in (False, True):
@@ -8197,7 +8252,10 @@ def phase_graphs_parallel(smi_line: str = "", device: str = "cuda",
         if not same or la["avg_loss"] != lb["avg_loss"]:
             fail(f"phase 28 CLI {what}: the train states (or avg_loss) "
                  f"differ:\n{cli[0][a]['text']}\n---\n{cli[0][b]['text']}")
-        if any(r[a]["launches"] != r[b]["launches"] for r in cli):
+        adam = int(sa["opt"]["step"]) * _adam_a_step(sa["params"], device)
+        if any(_adam_apart(r[a]["launches"], adam, f"phase 28 CLI {what}")
+               != _adam_apart(r[b]["launches"], 0, f"phase 28 CLI {what}")
+               for r in cli):
             fail(f"phase 28 CLI {what}: launches "
                  f"{[r[a]['launches'] for r in cli]} against "
                  f"{[r[b]['launches'] for r in cli]}")
@@ -8209,10 +8267,178 @@ def phase_graphs_parallel(smi_line: str = "", device: str = "cuda",
                    f"{what}: train states bit-equal (parameters, moments, "
                    f"step {int(sa['opt']['step'])}, the generator's state, "
                    f"chain {sa['chain']}), avg_loss {la['avg_loss']} both, "
-                   f"launches {cli[0][a]['launches']} on rank 0 either way; "
+                   f"launches {cli[0][b]['launches']} on rank 0 either "
+                   f"way, and graphed the in-place Adam {adam}; "
                    f"CLI wall {cli[0][a]['seconds']:.2f} s and "
                    f"{cli[0][b]['seconds']:.2f} s")
     say("total", f"{time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# Phase 29: Adam in place, one hand-written multi-tensor pass
+# (``csrc/adam.cu``, ``nn/optim.py`` ``adam_update_at_``), which a
+# ``TrainSteps`` step takes for f32 parameters on the card.
+# ---------------------------------------------------------------------------
+
+# The TPU has no kernel of its own here: XLA fuses the JAX package's Adam, a
+# tree_map of elementwise ops, into a few loops
+ADAM_TPU_KERNEL = "big_linear_algebra_tpu/nn/optim.py:88 (adam_update)"
+ADAM_BYTES_PER_PARAM = 28  # read p, g, m, v; write p, m, v (f32)
+ADAM_STEPS = 3  # steps held bit-equal at the U-Net's leaves
+# calls a timed graph holds: a call of the pass or of the library spends
+# more host time than device time, and the plain update ~2,000 launches
+ADAM_GRAPH_CALLS = {"pass": 20, "plain": 2, "library": 20}
+# the train run whose launches phase 29 reads: every step a TrainSteps step
+ADAM_TRAIN_ARGS = ["train", "1", "--fused-block", "--scan-steps=5",
+                   f"--max-steps={FUSED_TRAIN_STEPS}"]
+
+
+def _graph(fn, calls: int):
+    """A CUDA graph of ``calls`` calls of ``fn``, after one call on a side
+    stream."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return graph
+
+
+def phase_adam(tmp: str, smi_line: str) -> dict:
+    """Phase 29 (after 15, in its data directory ``tmp``): the in-place
+    Adam pass at the full-width U-Net's 122 leaves (25,784,704 f32
+    parameters). Its kernel's registers, shared memory and spills (failing
+    on a spill); ADAM_STEPS steps from random moments, every parameter and
+    both moments bit-equal to ``adam_update_at`` after each, its launches
+    per call as ``bla_adam_leaves_per_launch`` groups the leaves; its device
+    time beside the plain update (``adam_update_at`` and the copy-back into
+    the buffers, the graphed step's Adam before the pass) and
+    ``torch._fused_adam_`` (the library yardstick, timed only here), each
+    over replays of a CUDA graph (ADAM_GRAPH_CALLS) in turns (pass, plain,
+    library, library, plain, pass; the lower of each), against 28 bytes a
+    parameter over the card's bandwidth; then ``train 1 --fused-block
+    --scan-steps=5 --max-steps=30`` from phase 15's train state with
+    ``adam_launch_count`` set to 0 just before: the pass's launches equal
+    the steps times its launches a step, the average loss finite."""
+    import dataclasses
+
+    from big_linear_algebra_tpu_torch.models import cifar_unet as cu
+    from big_linear_algebra_tpu_torch.nn import optim
+
+    def say(tag: str, line: str) -> None:
+        print(f"[29 {tag}] {line} | {smi_line}", flush=True)
+
+    st = _kernel_stats("adam", re.compile(r"(bla_adam_kernel)")).get(
+        ("bla_adam_kernel",), {})
+    if not {"regs", "smem", "spill"} <= set(st) or st["spill"]:
+        fail(f"phase 29: the pass's build record {st}")
+    say("adam build", f"bla_adam_kernel: {st['regs']} registers, "
+        f"{st['smem']} bytes of shared memory, no spill")
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(cu.CONFIG, fused_block=True)
+    params = cu.tree_map(lambda a: a.to(dev), cu.init_params(
+        torch.Generator().manual_seed(0), cfg))
+    leaves = optim.tree_leaves(params)
+    n = sum(x.numel() for x in leaves)
+    gen = torch.Generator(dev).manual_seed(29)
+
+    def drawn(scale, draw=torch.randn):
+        return cu.tree_map(lambda a: draw(a.shape, device=dev,
+                                          generator=gen) * scale, params)
+
+    m, v = drawn(1e-3), drawn(1e-6, torch.rand)
+    counter = torch.zeros((), dtype=torch.int64, device=dev)
+    table = optim.bias_corrections(1, ADAM_STEPS).to(dev)
+    lr = cfg.learn_rate
+    p0, m0, v0 = (cu.tree_map(torch.clone, t) for t in (params, m, v))
+    plain, state = params, optim.AdamState(0, m, v)
+    before, errs, same = optim.adam_launch_count, [], True
+    for _ in range(ADAM_STEPS):
+        g = drawn(1e-3)
+        plain, state = optim.adam_update_at(plain, g, state, counter,
+                                            table, lr)
+        optim.adam_update_at_(p0, g, m0, v0, counter, table, lr)
+        counter.add_(1)
+        for got, want in ((p0, plain), (m0, state.m), (v0, state.v)):
+            for a, b in zip(optim.tree_leaves(got), optim.tree_leaves(want)):
+                same = same and torch.equal(a, b)
+                errs.append((a - b).abs().max())
+    err = torch.stack(errs).max().item()
+    a_call = _adam_a_step(params, "cuda")
+    launches = optim.adam_launch_count - before
+    if not same or launches != ADAM_STEPS * a_call:
+        fail(f"phase 29: the pass against adam_update_at: bit-equal {same} "
+             f"(max |diff| {err}), {launches} launches in {ADAM_STEPS} "
+             f"calls, expected {ADAM_STEPS * a_call}")
+    say("adam", f"{len(leaves)} leaves, {n} f32 parameters, {ADAM_STEPS} "
+        f"steps from random moments: every parameter and moment bit-equal "
+        f"to adam_update_at after each; {a_call} launches a call")
+
+    del p0, m0, v0, plain, state
+    g = drawn(1e-3)
+    counter.zero_()
+    p1, m1, v1 = (cu.tree_map(torch.clone, t) for t in (params, m, v))
+    p2, m2, v2 = (cu.tree_map(torch.clone, t) for t in (params, m, v))
+    lib = [optim.tree_leaves(cu.tree_map(torch.clone, t))
+           for t in (params, m, v)]
+    steps = [torch.ones((), device=dev) for _ in leaves]
+
+    def in_place():
+        optim.adam_update_at_(p1, g, m1, v1, counter, table, lr)
+
+    def plain_update():
+        new, opt = optim.adam_update_at(p2, g, optim.AdamState(0, m2, v2),
+                                        counter, table, lr)
+        for buffers, values in ((p2, new), (m2, opt.m), (v2, opt.v)):
+            for a, b in zip(optim.tree_leaves(buffers),
+                            optim.tree_leaves(values)):
+                a.copy_(b)
+
+    def library():
+        torch._fused_adam_(lib[0], leaves_g, lib[1], lib[2], [], steps,
+                           lr=lr, beta1=0.9, beta2=0.999, weight_decay=0.0,
+                           eps=1e-8, amsgrad=False, maximize=False)
+
+    leaves_g = optim.tree_leaves(g)
+    fns = {"pass": in_place, "plain": plain_update, "library": library}
+    graphs = {k: _graph(fn, ADAM_GRAPH_CALLS[k]) for k, fn in fns.items()}
+    times = {k: [] for k in fns}
+    for k in ("pass", "plain", "library", "library", "plain", "pass"):
+        dev_ms, _ = _time_ms(graphs[k].replay, iters=20, warmup=5)
+        times[k].append(dev_ms / ADAM_GRAPH_CALLS[k])
+    del graphs, p1, m1, v1, p2, m2, v2, lib
+    ms = {k: min(t) for k, t in times.items()}
+    bound = n * ADAM_BYTES_PER_PARAM / HBM_BYTES_PER_S * 1e3
+    say("adam time", "device ms a call over graph replays, in turns: "
+        + "; ".join(f"{k} {', '.join(f'{x:.4f}' for x in t)}"
+                    for k, t in times.items())
+        + f"; bound {bound:.4f} ms ({n} x {ADAM_BYTES_PER_PARAM} B over "
+        f"3.35 TB/s): the pass at {100 * bound / ms['pass']:.1f}% of it, "
+        f"{ms['plain'] / ms['pass']:.1f}x below the plain update, "
+        f"{ms['library'] / ms['pass']:.2f}x the library's time")
+
+    optim.adam_launch_count = 0
+    text, secs = _cli(cu, ADAM_TRAIN_ARGS, tmp, "cuda")
+    train_launches = optim.adam_launch_count
+    want = FUSED_TRAIN_STEPS * a_call
+    losses = [float(x) for x in re.findall(r"avg_loss: (\S+)", text)]
+    if train_launches != want or not losses or not all(
+            math.isfinite(x) for x in losses):
+        fail(f"phase 29: {' '.join(ADAM_TRAIN_ARGS)} launched the pass "
+             f"{train_launches} times, expected {want}; avg_loss {losses}:"
+             f"\n{text}")
+    say("adam train", f"{' '.join(ADAM_TRAIN_ARGS)} in {tmp} (phase 15's "
+        f"train state in the full script; {secs:.2f} s): the pass launched "
+        f"{train_launches} times in {FUSED_TRAIN_STEPS} steps, avg_loss "
+        f"{losses[-1]}")
+    return {"launches": train_launches, "err": err, "ms": ms["pass"],
+            "plain_ms": ms["plain"], "library_ms": ms["library"],
+            "bound_ms": bound}
 
 
 def main() -> int:
@@ -8255,6 +8481,7 @@ def main() -> int:
         fused_train = phase_unet_fused_train()
         from big_linear_algebra_tpu_torch.models import cifar_unet as cu
         phase_fused_step_profile(cu.load_params_csv(cu.CONFIG))
+        adam = phase_adam(tmp, smi_line)
         del os.environ["BLA_DATA_DIR"]
     bwd_err = phase_k2bwd_vs_plain()
     phase_k2bwd_build_info()
@@ -8380,6 +8607,23 @@ def main() -> int:
          k5b["wgrad fma"], "K5b wgrad", k5b["plain bwd"],
          k5b["bound"]["wgrad fma"], k5b["conv2d_weight"], K5B_TPU_KERNEL,
          k5b_fma[1]))]
+    adam_row = {
+        "name": "Adam in place, one multi-tensor pass (adam_update_at_; "
+                "launches: train 1 --fused-block --scan-steps=5 "
+                "--max-steps=30; time: the U-Net's 122 leaves; plain: "
+                "adam_update_at and the copy-back; library: "
+                "torch._fused_adam_)",
+        "route": "cuda",
+        "source": "big_linear_algebra_tpu_torch/csrc/adam.cu",
+        "replaces": ADAM_TPU_KERNEL,
+        "launches": adam["launches"],
+        "max_abs_err": adam["err"],
+        "ms": adam["ms"],
+        "plain_ms": adam["plain_ms"],
+        "bound_ms": adam["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": adam["library_ms"],
+    }
     print(json.dumps({"kernels": [{
         "name": "K1 matmul (nn/nt/tn, bias+ReLU epilogue; launches: "
                 "mnist_nn run and train 1; time: one batch-2048 forward)",
@@ -8405,7 +8649,7 @@ def main() -> int:
         "bound_ms": k2["bound"],
         "bound_by": k2["bound_by"],
         "library_ms": k2["sdpa"],
-    }, *bwd_rows, *k3_rows, k4_row, *k5_rows]}), flush=True)
+    }, *bwd_rows, *k3_rows, k4_row, *k5_rows, adam_row]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

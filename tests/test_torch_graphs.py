@@ -27,23 +27,28 @@ import dataclasses
 import inspect
 import shutil
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from big_linear_algebra_tpu.models import cifar_unet as jax_cu
-from big_linear_algebra_tpu.models import mnist_nn as jax_nn
-from big_linear_algebra_tpu.nn import optim as jax_optim
+try:  # JAX is absent where the card is: there only the card cases run
+    import jax
+    import jax.numpy as jnp
+
+    from big_linear_algebra_tpu.models import cifar_unet as jax_cu
+    from big_linear_algebra_tpu.models import mnist_nn as jax_nn
+    from big_linear_algebra_tpu.nn import optim as jax_optim
+except ImportError:
+    jax = jnp = jax_cu = jax_nn = jax_optim = None
 from big_linear_algebra_tpu_torch.data import synth
 from big_linear_algebra_tpu_torch.models import cifar_unet as cu
 from big_linear_algebra_tpu_torch.models import mnist_nn
 from big_linear_algebra_tpu_torch.nn import optim
 from big_linear_algebra_tpu_torch.nn.optim import adam_init, tree_leaves
+from big_linear_algebra_tpu_torch.ops import cuda_utils
 from big_linear_algebra_tpu_torch.ops import matmul as mm
 from big_linear_algebra_tpu_torch.utils import debug, graphs
-from tests.torch_parity import n, t
+from tests.torch_parity import card, n, t
 
 F64 = dataclasses.replace(cu.TINY, compute_dtype="float64")
 BF16_PARAMS = dataclasses.replace(cu.TINY, param_dtype="bfloat16")
@@ -62,18 +67,19 @@ def _assert_trees_equal(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-def _unet_case(cfg, n_examples=12):
+def _unet_case(cfg, n_examples=12, device="cpu"):
     p = cu.cast_params(cu.init_params(torch.Generator().manual_seed(0),
                                       cu.TINY), cfg)
     dt = torch.float64 if cfg.compute_dtype == "float64" else torch.float32
     data = torch.from_numpy(np.random.default_rng(1).uniform(
         -1, 1, (n_examples, 3, 32, 32))).to(dt)
     perm = torch.from_numpy(np.random.default_rng(2).permutation(n_examples))
-    return p, data, perm
+    return (cu.tree_map(lambda a: a.to(device), p), data.to(device),
+            perm.to(device))
 
 
 def _eager_steps(cfg, p, data, rows, seed):
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(data.device).manual_seed(seed)
     opt, losses = adam_init(p), []
     for r in rows:
         p, opt, loss = cu.train_step(p, opt, cu._fit_images(data[r], cfg),
@@ -82,17 +88,30 @@ def _eager_steps(cfg, p, data, rows, seed):
     return p, opt, torch.stack(losses), gen.get_state()
 
 
-@pytest.mark.parametrize("cfg", [F64, BF16_PARAMS], ids=["f64", "bf16-params"])
-def test_epoch_step_and_train_chunk_equal_train_steps(cfg):
+@pytest.mark.parametrize("cfg, on_card", [
+    (F64, False), (BF16_PARAMS, False),
+    pytest.param(cu.TINY, True, marks=pytest.mark.card)],
+    ids=["f64", "bf16-params", "f32-card"])
+def test_epoch_step_and_train_chunk_equal_train_steps(cfg, on_card):
     """A whole epoch (6 steps, graphs of 4: one warm-up step on the card)
     and a chunk of 3 steps against the same ``train_step`` calls: every
     parameter, both moments, the losses and the generator's state bit for
-    bit, and the Adam step count."""
-    p, data, perm = _unet_case(cfg)
+    bit, and the Adam step count. The steps' Adam is the in-place pass
+    (``adam_update_at_``, its launches counted, the replays' too) for f32
+    on the card and ``adam_update_at`` elsewhere (f64 and
+    ``--bf16-params``' stochastic rounding on the CPU: no launch)."""
+    device = card() if on_card else torch.device("cpu")
+    p, data, perm = _unet_case(cfg, device=device)
     rows = perm.reshape(6, 2)
     want = _eager_steps(cfg, p, data, rows, seed=3)
-    gen = torch.Generator().manual_seed(3)
+    gen = torch.Generator(device).manual_seed(3)
+    launches = optim.adam_launch_count
     params, opt, losses = cu.epoch_step(p, adam_init(p), data, perm, gen, cfg)
+    per_step = 0
+    if on_card:
+        lib = cuda_utils.load_library("adam")
+        per_step = -(-len(tree_leaves(p)) // lib.bla_adam_leaves_per_launch())
+    assert optim.adam_launch_count - launches == 6 * per_step
     _assert_trees_equal(params, want[0])
     _assert_trees_equal((opt.m, opt.v), (want[1].m, want[1].v))
     assert opt.step == want[1].step == 6
@@ -100,7 +119,7 @@ def test_epoch_step_and_train_chunk_equal_train_steps(cfg):
     assert torch.equal(gen.get_state(), want[3])
 
     want = _eager_steps(cfg, p, data, rows[:3], seed=4)
-    gen = torch.Generator().manual_seed(4)
+    gen = torch.Generator(device).manual_seed(4)
     params, opt, losses = cu.train_chunk(p, adam_init(p), data, rows[:3],
                                          gen, cfg)
     _assert_trees_equal(params, want[0])
@@ -180,7 +199,8 @@ def test_bias_corrections_equal_jax_f32():
                                   want)
 
 
-JAX_FORWARD = jax.jit(jax_cu.forward, static_argnums=3)
+JAX_FORWARD = (jax.jit(jax_cu.forward, static_argnums=3)
+               if jax is not None else None)
 
 
 def test_sample_and_ddpm_update_match_jax_body(monkeypatch):

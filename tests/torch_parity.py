@@ -12,6 +12,19 @@ import torch
 torch.set_num_threads(1)
 
 
+def card() -> torch.device:
+    """The NVIDIA card, for a test marked ``card``; skips where CUDA is not
+    available. Called inside the test, so every worker collects the same
+    tests. The card's machine has no JAX: there the card tests run from
+    the files that import none, with ``-m card --noconftest``."""
+    if not torch.cuda.is_available():
+        import pytest
+
+        pytest.skip("needs an NVIDIA card: torch.cuda.is_available() is "
+                    "False")
+    return torch.device("cuda", 0)
+
+
 def t(x, dtype=None) -> torch.Tensor:
     """numpy → CPU tensor (copied: arrays from JAX are read-only)."""
     out = torch.from_numpy(np.array(x, copy=True))

@@ -13,7 +13,7 @@ state against ``--host-loop``'s, ``TrainSteps`` against ``train_step`` at
 ``--layout=NHWC`` and ``--scan-steps=5`` with a ragged tail, mnist_nn's
 resident epoch, the launch counters against the profiler's kernels, and the
 timings. On the card it builds the kernels the phase launches (K1, K2,
-K2c/K2d and K5's two sources), then in a temporary data directory
+K2c/K2d, K5's two sources and the in-place Adam pass), then in a temporary data directory
 synthesizes the CIFAR batches, runs ``cifar_unet init`` (the tree phase 27
 starts from; the full script gives it phase 10's trained tree) and the
 phase.
@@ -91,7 +91,7 @@ def main(argv=None) -> int:
     if device == "cuda":
         smi_line, _ = chip_smoke.phase_environment()
     kernels = ("matmul", "flash_attn", "flash_attn_bwd", "fused_block",
-               "fused_block_tc")
+               "fused_block_tc", "adam")
     if "--spawned" in args:
         if device == "cuda":
             _build(kernels)
