@@ -931,14 +931,27 @@ class TrainSteps:
     given to ``run`` are this rank's columns of each batch, and the
     all-reduce is captured with the step; with ``tp`` (a ``TPLayout``) it
     is ``make_train_step_tp``'s on this rank's slices, its all-gathers and
-    all-reduces captured. Either needs NCCL to be graphed."""
+    all-reduces captured. Either needs NCCL to be graphed.
+
+    Another model's step (``step_fn``): the same object drives it, the
+    graph, the Adam pass and the buffers alike. ``step_fn(params, x0,
+    labels, generator, cfg)`` returns what ``_step_grads`` returns, on the
+    batch ``data[rows]`` as stored and its rows of ``labels`` (N,), a
+    device-resident label set beside ``data`` (the ADM U-Net,
+    ``models/adm_unet.py``). Its loss may be a vector of ``loss_shape``:
+    ``run`` then returns (k, *loss_shape). ``cfg`` needs ``batch_size``,
+    ``scan_unroll``, ``learn_rate`` and ``param_dtype``."""
 
     def __init__(self, params: Params, opt_state: AdamState,
                  data: torch.Tensor, generator, cfg: Config = CONFIG,
-                 unroll: Optional[int] = None, mesh=None, tp=None):
+                 unroll: Optional[int] = None, mesh=None, tp=None,
+                 labels: Optional[torch.Tensor] = None, step_fn=None,
+                 loss_shape: Tuple[int, ...] = ()):
         device = data.device
         self.cfg, self.data, self.generator = cfg, data, generator
         self.mesh, self.tp = mesh, tp
+        self.labels, self.step_fn = labels, step_fn
+        self.loss_shape = tuple(loss_shape)
         self.params = tree_map(lambda p: p.detach().clone(), params)
         self.m = tree_map(lambda a: a.detach().clone(), opt_state.m)
         self.v = tree_map(lambda a: a.detach().clone(), opt_state.v)
@@ -951,7 +964,7 @@ class TrainSteps:
                                device=device)
         self.table = torch.zeros((0, 2), dtype=torch.float32, device=device)
         # the loss in train_step's dtype (f64 for f64 data)
-        self.losses = torch.zeros((0,), device=device,
+        self.losses = torch.zeros((0, *self.loss_shape), device=device,
                                   dtype=torch.promote_types(torch.float32,
                                                             data.dtype))
         gens = ((generator.replicated, generator.rank) if mesh is not None
@@ -963,11 +976,16 @@ class TrainSteps:
 
     def _one(self) -> None:
         row = self.counter.reshape(1)
-        x0 = _fit_images(self.data[self.idx.index_select(0, row)[0]],
-                         self.cfg)
-        loss, grads, sr_seed, index = _step_grads(
-            self.params, x0, self.generator, self.cfg, mesh=self.mesh,
-            tp=self.tp)
+        rows = self.idx.index_select(0, row)[0]
+        if self.step_fn is None:
+            x0 = _fit_images(self.data[rows], self.cfg)
+            loss, grads, sr_seed, index = _step_grads(
+                self.params, x0, self.generator, self.cfg, mesh=self.mesh,
+                tp=self.tp)
+        else:
+            x0 = self.data[rows]
+            loss, grads, sr_seed, index = self.step_fn(
+                self.params, x0, self.labels[rows], self.generator, self.cfg)
         with torch.no_grad(), trace.phase("adam", x0):
             if self.in_place and sr_seed is None:
                 adam_update_at_(self.params, grads, self.m, self.v,
@@ -982,13 +1000,15 @@ class TrainSteps:
                                   (self.v, opt.v)):
                     for a, b in zip(tree_leaves(mine), tree_leaves(new)):
                         a.copy_(b)
-            self.losses.index_copy_(0, row, loss.reshape(1))
+            self.losses.index_copy_(0, row,
+                                    loss.reshape(1, *self.loss_shape))
             self.counter.add_(1)
 
     def run(self, idx: torch.Tensor) -> torch.Tensor:
         """One step per row of ``idx`` (k, B), the batches' rows of
         ``data`` (under ``mesh`` this rank's B/ranks of each), on this
-        object's state; returns the k losses (f32, on the device)."""
+        object's state; returns the k losses (f32, on the device; (k,
+        *loss_shape) for a vector loss)."""
         k = idx.shape[0]
         with trace.span("bla.train.run"):
             with trace.span("bla.train.buffers"):
@@ -999,7 +1019,8 @@ class TrainSteps:
                                            dtype=torch.int64, device=device)
                     self.table = torch.zeros((k, 2), dtype=torch.float32,
                                              device=device)
-                    self.losses = torch.zeros((k,), dtype=self.losses.dtype,
+                    self.losses = torch.zeros((k, *self.loss_shape),
+                                              dtype=self.losses.dtype,
                                               device=device)
                     self.graph.reset()
                 self.idx[:k].copy_(idx)

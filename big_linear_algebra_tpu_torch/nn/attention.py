@@ -26,7 +26,16 @@ q, k, v of shape (B, N, d).
 - ``attention``: the JAX package's dispatch, kept as it is: flash for
   self-attention shapes with N ≥ ``_FLASH_MIN_N`` outside f64, dense
   otherwise. The threshold was chosen on a TPU; re-deriving it for the H100
-  is later work.
+  is later work. Each call is counted by its route (``route_calls``).
+- ``multi_head_attention_block``: the ADM U-Net's block
+  (``models/adm_unet.py``; guided-diffusion's ``AttentionBlock`` with
+  ``QKVAttention``, the "new" order): affine GroupNorm, a 1×1 qkv
+  projection, q, k and v split and then cut into heads of ``head_dim``
+  channels, the heads folded into the batch for ``attention``, a 1×1
+  projection and the residual. It runs under the span ``bla.attn.block``
+  and between the marks ``bla_mark_attention`` and
+  ``bla_mark_attention_end`` (``utils/trace.py``), forward and backward.
+  The single-head ``self_attention_block`` is the DDPM U-Net's.
 """
 
 from __future__ import annotations
@@ -37,8 +46,10 @@ from typing import Mapping, Tuple
 
 import torch
 
+from big_linear_algebra_tpu_torch.nn.norm import group_norm_affine
 from big_linear_algebra_tpu_torch.ops import cuda_utils
 from big_linear_algebra_tpu_torch.ops.precision import accum_dtype
+from big_linear_algebra_tpu_torch.utils import trace
 
 _FLASH_MIN_N = 1024  # the JAX package's threshold (nn/attention.py:36)
 
@@ -62,6 +73,8 @@ launch_count = 0
 bwd_dq_launch_count = 0
 bwd_dkv_launch_count = 0
 bwd_fused_launch_count = 0
+# Calls of ``attention`` by the route it took, on every device.
+route_calls = {"flash": 0, "dense": 0}
 
 # The JAX package's VMEM budget for the fused backward's row-resident
 # operands (nn/attention.py:605). These are the TPU's numbers, as is the
@@ -386,7 +399,9 @@ def attention(q: torch.Tensor, k: torch.Tensor,
     which the flash kernel rejects), flash for long self-attention."""
     if (q.shape == k.shape == v.shape and q.shape[1] >= _FLASH_MIN_N
             and q.dtype != torch.float64):
+        route_calls["flash"] += 1
         return flash_attention(q, k, v)
+    route_calls["dense"] += 1
     return attention_dense(q, k, v)
 
 
@@ -422,3 +437,48 @@ def _attention_core(tokens: torch.Tensor,
     k = tokens @ params["k"]
     v = tokens @ params["v"]
     return attention(q, k, v) @ params["w"] + params["b"]
+
+
+class _BlockMark(torch.autograd.Function):
+    """The identity, launching the mark ``fwd`` when the forward passes and
+    ``bwd`` when the gradient does."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd):
+        ctx.bwd = bwd
+        trace.mark(fwd, x)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        trace.mark(ctx.bwd, g)
+        return g, None, None
+
+
+def multi_head_attention_block(x: torch.Tensor,
+                               params: Mapping[str, Mapping[str, torch.Tensor]],
+                               head_dim: int, groups: int = 32
+                               ) -> torch.Tensor:
+    """(B, C, H, W) → (B, C, H, W): x + proj(attention of the heads of
+    qkv(GN(x))). ``params``: ``norm`` {g, b} (C,), the GroupNorm of
+    ``groups`` groups; ``qkv`` {w (C, 3C), b (3C,)}, whose output columns
+    are q, k, v in turn; ``proj`` {w (C, C), b (C,)}. Head i takes channels
+    i·head_dim … (i+1)·head_dim − 1 of each of q, k and v."""
+    with trace.span("bla.attn.block"):
+        x = _BlockMark.apply(x, "attention", "attention_end")
+        b, c, h, w = x.shape
+        n, heads = h * w, c // head_dim
+        hn = group_norm_affine(x, params["norm"]["g"], params["norm"]["b"],
+                               groups)
+        qkv = hn.reshape(b, c, n).transpose(1, 2) @ params["qkv"]["w"] \
+            + params["qkv"]["b"]                             # (B, N, 3C)
+
+        def split(t):  # (B, N, C) → (B·heads, N, head_dim)
+            return t.reshape(b, n, heads, head_dim).transpose(1, 2).reshape(
+                b * heads, n, head_dim)
+
+        o = attention(*(split(t) for t in qkv.split(c, dim=-1)))
+        o = o.reshape(b, heads, n, head_dim).transpose(1, 2).reshape(b, n, c)
+        out = o @ params["proj"]["w"] + params["proj"]["b"]
+        y = x + out.transpose(1, 2).reshape(b, c, h, w)
+        return _BlockMark.apply(y, "attention_end", "attention")

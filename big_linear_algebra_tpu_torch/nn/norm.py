@@ -19,6 +19,12 @@ The JAX package leaves this op to XLA, so the port writes it as plain torch
 ops inside a ``torch.autograd.Function``. ``group_norm_nhwc`` is the
 channels-last twin, (..., H, W, C), whose groups are reduced where they lie
 (over H·W and the group's channels), so its maps stay channels-last.
+
+``group_norm_affine`` is the ADM U-Net's normalization (guided-diffusion's
+``GroupNorm32``: 32 groups, eps 1e-5, a learned per-channel scale γ and
+offset β, computed in f32 and returned in x's dtype), with its own
+backward: dγ = Σ g·x̂ and dβ = Σ g over batch and space, and the group
+backward above on g·γ. It saves x (no f32 copy) and recomputes x̂.
 """
 
 from __future__ import annotations
@@ -140,3 +146,45 @@ def group_norm_nhwc(x: torch.Tensor, group_size: int, eps: float = 1e-8,
     """x: (..., H, W, C) → same shape, contiguous (channels-last memory):
     ``group_norm`` channels-last."""
     return _GroupNorm.apply(x, group_size, eps, reference_compat, True)
+
+
+class _GroupNormAffine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, group_size, eps):
+        xs = x.to(_stat_dtype(x.dtype)).contiguous()
+        mean, var = _group_reduce(xs, group_size, True)
+        xhat = (xs - mean) / torch.sqrt(var + eps)
+        y = (xhat * gamma.to(xs.dtype)[:, None, None]
+             + beta.to(xs.dtype)[:, None, None])
+        ctx.save_for_backward(x, mean, var, gamma)
+        ctx.args = (group_size, eps, beta.dtype)
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, var, gamma = ctx.saved_tensors
+        group_size, eps, beta_dtype = ctx.args
+        g = g.to(_stat_dtype(x.dtype))
+        denom = torch.sqrt(var + eps)
+        xhat = (x.to(g.dtype) - mean) / denom
+        dims = tuple(i for i in range(g.ndim) if i != g.ndim - 3)
+        dgamma = (g * xhat).sum(dim=dims)
+        dbeta = g.sum(dim=dims)
+        g = g * gamma.to(g.dtype)[:, None, None]
+        g_mean = _group_reduce(g, group_size, False)[0]
+        gx_mean = _group_reduce(g * xhat, group_size, False)[0]
+        dx = (g - g_mean - xhat * gx_mean) / denom
+        return (dx.to(x.dtype), dgamma.to(gamma.dtype), dbeta.to(beta_dtype),
+                None, None)
+
+
+def group_norm_affine(x: torch.Tensor, gamma: torch.Tensor,
+                      beta: torch.Tensor, groups: int = 32,
+                      eps: float = 1e-5) -> torch.Tensor:
+    """x: (..., C, H, W) → same shape: ``groups`` groups of C/groups
+    channels, normalized in ≥f32, then x̂·γ + β per channel (γ, β: (C,))."""
+    c = x.shape[-3]
+    if c % groups:
+        raise ValueError(f"group_norm_affine: {c} channels do not split "
+                         f"into {groups} groups")
+    return _GroupNormAffine.apply(x, gamma, beta, c // groups, eps)

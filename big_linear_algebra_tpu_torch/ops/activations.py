@@ -5,12 +5,16 @@
 - ``softmax``           ≈ ``softmax``          (lib/util.c:15, column-wise,
                                                 max-subtracted for stability)
 - ``softmax_row_wise``  ≈ ``softmax_row_wise`` (lib/util.c:36)
+- ``silu``              x·σ(x), the ADM U-Net's activation
+                        (``models/adm_unet.py``; the reference has none)
 
 Each is a ``torch.autograd.Function`` whose backward is the JAX package's
 hand-written rule:
 
 - ReLU': ``g * (x > 0)`` on the pre-activation values
   (model/mnist_nn.c:273-278).
+- SiLU': ``g · σ(x)·(1 + x·(1 − σ(x)))``, in at least f32 from the saved
+  input.
 - Softmax: the full Jacobian ``dx = y ⊙ (g − ⟨g, y⟩)`` per softmax vector
   (model/cifar_unet.c:1246-1258); the max subtracted before the exp takes no
   gradient.
@@ -36,6 +40,27 @@ class _Relu(torch.autograd.Function):
 def relu(x: torch.Tensor) -> torch.Tensor:
     """max(x, 0); NaN propagates, as with ``jnp.maximum``."""
     return _Relu.apply(x)
+
+
+class _Silu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        return (xf * torch.sigmoid(xf)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        s = torch.sigmoid(xf)
+        return (g.to(xf.dtype) * s * (1.0 + xf * (1.0 - s))).to(g.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x·σ(x) (swish), computed in at least f32 and returned in x's
+    dtype."""
+    return _Silu.apply(x)
 
 
 class _Softmax(torch.autograd.Function):

@@ -28,7 +28,8 @@ that replay n+1 reads what replay n wrote, as a scan's carry.
   memory, which a capture cannot hold (and a ``StepGraph`` keeps no
   reference to the object whose step it runs, so that no cycle waits for
   the collector to free a graph).
-- The launch counters (``ops/matmul.py``, ``nn/attention.py``,
+- The launch counters (``ops/matmul.py``, ``nn/attention.py`` with its
+  calls by route,
   ``nn/conv_implicit.py``, ``nn/fused_block.py``) count each launch in the
   wrapper that makes it, and a replay calls no wrapper. So the counts a
   capture records are taken back, and added again at every replay: a run
@@ -72,7 +73,7 @@ _COUNTERS = {
         "launch_count", "variant_launch_counts"),
     "big_linear_algebra_tpu_torch.nn.attention": (
         "launch_count", "bwd_dq_launch_count", "bwd_dkv_launch_count",
-        "bwd_fused_launch_count"),
+        "bwd_fused_launch_count", "route_calls"),
     "big_linear_algebra_tpu_torch.nn.conv_implicit": (
         "implicit_launch_count", "packed_launch_count"),
     "big_linear_algebra_tpu_torch.nn.fused_block": (

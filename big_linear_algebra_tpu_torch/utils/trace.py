@@ -16,6 +16,10 @@ its layer boundaries and device marks at the phases of a step.
   one host call for many steps). Marks are always on: a graph is often
   captured before a profiler starts. They count no launch
   (``graphs._COUNTERS``). On the CPU a mark is nothing.
+- ``mark("attention" | "attention_end", like)``: the marks that bound a
+  multi-head attention block (``nn/attention.py``) in the forward and, by
+  identity autograd functions at its output and input, in the backward.
+  They are no phase: a reader of the phase marks passes over them.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch.autograd.profiler as _profiler
 
 NULL = contextlib.nullcontext()
 PHASES = ("forward", "backward", "adam", "update")
+MARKS = PHASES + ("attention", "attention_end")
 
 
 def span(name: str):
@@ -51,7 +56,7 @@ def mark(name: str, like: torch.Tensor) -> None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     with torch.cuda.device(like.device):
-        rc = fn(PHASES.index(name),
+        rc = fn(MARKS.index(name),
                 torch.cuda.current_stream(like.device).cuda_stream)
     cuda_utils.check(lib, rc, f"bla_mark_{name} launch")
 

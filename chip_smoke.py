@@ -535,14 +535,17 @@ K2_SHAPES = [(1, 1024), (2, 300), (1, 4096), (1, 16384), (8, 1024),
              (4, 1024), (16, 1024)]
 K2_MAIN = (1, 1024, 16)  # B, N, d at the U-Net's four flash sites, 64x64
 K2_TRAIN = (16, 1024, 16)  # B, N, d at the flash sites of a train step
-K2_TIMED = [K2_MAIN, K2_TRAIN, (4, 4096, 64)]
+# B·heads, N, d at ADM ImageNet-64's seven 32×32 sites, batch 128 (the
+# adm_imagenet64.train_b128 cell)
+K2_ADM = (768, 1024, 64)
+K2_TIMED = [K2_MAIN, K2_TRAIN, (4, 4096, 64), K2_ADM]
 K2_ODD_VIEWS = [K2_MAIN, (2, 300, 64)]  # bf16 operands at +1 element
 K2C_TPU_KERNEL = "big_linear_algebra_tpu/nn/attention.py:662"
 K2D_TPU_KERNEL = "big_linear_algebra_tpu/nn/attention.py:682"
 # B, N; then a U-Net DP rank's flash sites at 64x64 (batch 8 and 4 a rank)
 K2BWD_SHAPES = [(16, 1024), (2, 300), (1, 4096), (8, 1024), (4, 1024)]
 K2BWD_MAIN = (16, 1024, 16)  # B, N, d at the flash sites of a train step
-K2BWD_TIMED = [K2BWD_MAIN, (4, 4096, 64)]
+K2BWD_TIMED = [K2BWD_MAIN, (4, 4096, 64), K2_ADM]
 TRAIN_STEPS, RESUME_STEPS = 50, 10
 
 # Peaks of one H100 SXM at its full 700 W limit (NVIDIA's data sheet, dense
@@ -1314,7 +1317,7 @@ def phase_k2_vs_plain() -> float:
     n_cases = 0
     plain_cases = [(dtype, b, n, d, False)
                    for dtype in (torch.float32, torch.bfloat16)
-                   for b, n, d in cases]
+                   for b, n, d in cases + [K2_ADM]]
     for dtype, b, n, d, at_odd in plain_cases + odd:
         q, k, v = _k2_inputs(b, n, d, dtype, gen)
         if at_odd:
@@ -1361,7 +1364,7 @@ def phase_k2_vs_plain() -> float:
     print(f"[5 K2 vs plain] {n_cases} cases pass (f32/bf16 x d 16, 64 x "
           f"(B, N) {K2_SHAPES}, and d "
           f"{[d for _, _, d in cases[2 * len(K2_SHAPES):]]} at "
-          f"(2, 300); bf16 q, k, v as views one element past an aligned "
+          f"(2, 300), and ADM's {K2_ADM}; bf16 q, k, v as views one element past an aligned "
           f"buffer at (B, N, d) {K2_ODD_VIEWS}): worst f32 o err/(atol "
           f"{K2_F32_ATOL} + rtol {K2_F32_RTOL}*|ref|) "
           f"{worst['f32 o err/tol']:.3f}, worst bf16 o "
@@ -1419,10 +1422,10 @@ def phase_k2_build_info() -> None:
 
 
 def phase_k2_timing(exp2_per_s: float) -> dict:
-    """bf16 at the U-Net's flash shapes (sampling, train step) and at (4,
-    4096, 64): the kernel, the plain version and SDPA (on (B, 1, N, d), one
-    head, so that PyTorch may pick its fused backends), in turns within
-    this one process; the lower of each pair is kept. Returns the main
+    """bf16 at the U-Net's flash shapes (sampling, train step), at (4,
+    4096, 64) and at ADM's train step: the kernel, the plain version and
+    SDPA (on (B, 1, N, d), one head, so that PyTorch may pick its fused
+    backends), in turns within this one process; the lower of each pair is kept. Returns the main
     shape's numbers."""
     import torch.nn.functional as F
 
@@ -1646,7 +1649,7 @@ def phase_k2bwd_vs_plain() -> dict:
     bad = []
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for b, n, d in cases:
+        for b, n, d in cases + [K2_ADM]:
             args = _k2bwd_inputs(b, n, d, dtype, gen)
             got = at._kernel_flash_bwd(*args)
             want = at._plain_flash_bwd(*args)
@@ -1681,7 +1684,7 @@ def phase_k2bwd_vs_plain() -> dict:
     print(f"[8 K2c/K2d vs plain] {n_cases} cases pass (f32/bf16 x d 16, 64 "
           f"x (B, N) {K2BWD_SHAPES}, and d "
           f"{[d for _, _, d in cases[2 * len(K2BWD_SHAPES):]]} at "
-          f"(2, 300)); dq, dk, dv each: worst f32 err/(atol {K2BWD_F32_ATOL}"
+          f"(2, 300), and ADM's {K2_ADM}); dq, dk, dv each: worst f32 err/(atol {K2BWD_F32_ATOL}"
           f" + rtol {K2BWD_F32_RTOL}*|ref|) {worst[torch.float32]:.3f}, "
           f"worst bf16 err/max|ref| {worst[torch.bfloat16]:.3e} (tol "
           f"{K2BWD_BF16_RTOL_OF_MAX}); worst abs err dq "
@@ -1809,12 +1812,12 @@ def phase_k2bwd_bitequal() -> None:
 
 
 def phase_k2bwd_timing(exp2_per_s: float) -> dict:
-    """bf16 at the train step's flash shape and at (4, 4096, 64): K2c and
-    K2d each on prepared operands, the wrapper (prep + both kernels), the
-    plain backward and SDPA's backward (``torch.autograd.grad`` through
-    ``F.scaled_dot_product_attention`` on (B, 1, N, d)), in turns within
-    this one process; the lower of each pair is kept. Returns the main
-    shape's numbers."""
+    """bf16 at the train step's flash shape, at (4, 4096, 64) and at ADM's
+    train step: K2c and K2d each on prepared operands, the wrapper (prep +
+    both kernels), the plain backward and SDPA's backward
+    (``torch.autograd.grad`` through ``F.scaled_dot_product_attention`` on
+    (B, 1, N, d)), in turns within this one process; the lower of each pair
+    is kept. Returns the main shape's numbers."""
     import torch.nn.functional as F
 
     from big_linear_algebra_tpu_torch.nn import attention as at
